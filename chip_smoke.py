@@ -1,0 +1,443 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+  python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit, no result line):
+
+  1. card   — name and power limit from nvidia-smi;
+  2. build  — one nvcc call builds both CUDA kernels from src/;
+  3. kernels — each kernel against its plain PyTorch version in f32 and
+     bf16 at the main-path shapes and at edge shapes; at the main-path
+     shapes the kernel, the plain version and one library call are timed
+     with CUDA events (median of 25, L2 flushed before each launch);
+  4. model  — full-width qwen2-1.5b in f32: prefill + 2 decode steps
+     match forward logits;
+  5. serve  — full-width qwen2-1.5b in bf16 through ServeEngine: 8
+     requests, one straggler evicted and re-queued; the kernels' launch
+     counts must equal what the path implies;
+  6. profile — wall vs device busy time of one prefill and of decode
+     steps, with the top kernels (torch.profiler).
+
+The line before the last is a JSON object {"kernels": [...]}; the last line
+is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
+>= 9.0 and nvcc; exits 1 without them.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
+F32_FLOPS = 67e12                          # f32 outside the tensor cores
+BF16_FLOPS = 989e12                        # bf16 tensor cores, dense
+TOL = {("rmsnorm", "float32"): 1e-5, ("rmsnorm", "bfloat16"): 2e-2,
+       ("flash", "float32"): 1e-4, ("flash", "bfloat16"): 3e-2}
+ARCH = "qwen2-1.5b"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- timing -------------------------------------------------------------------
+
+class Timer:
+    """Median device time of one call, by CUDA events around each launch,
+    with the 50 MB L2 flushed (a 128 MB memset) before every launch. A
+    device-side sleep after the flush holds the stream until the host has
+    queued the call, so host launch overhead stays out of the reading."""
+
+    def __init__(self, torch, reps: int = 25):
+        self.torch, self.reps = torch, reps
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(self.reps):
+            self.flush.zero_()
+            torch.cuda._sleep(1_000_000)       # ~0.5 ms of device cycles
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+
+def rms_bound(rows: int, d: int, esize: int):
+    byts = (2 * rows * d + d) * esize          # x read, y written, w read
+    ops = 4 * rows * d                         # square, sum, *rsqrt, *w (f32)
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
+
+
+def causal_pairs(Sq: int, Sk: int) -> int:
+    """(row, col) pairs with col <= row (top-left) and col < Sk."""
+    return sum(min(r + 1, Sk) for r in range(Sq))
+
+
+def flash_bound(B, Sq, Sk, H, KV, hd, causal, esize, peak):
+    pairs = B * H * (causal_pairs(Sq, Sk) if causal else Sq * Sk)
+    ops = 4 * hd * pairs                       # QK^T and PV, 2 flops per MAC
+    byts = (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) * esize
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / peak
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
+
+
+def compare(name, got, want, tol):
+    import torch
+
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    ok = bool(torch.allclose(g, w, rtol=tol, atol=tol))
+    log(f"  {name}: max_abs_err={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+# -- phases -------------------------------------------------------------------
+
+def phase_card():
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True, text=True,
+                       timeout=60, check=True)
+    card = r.stdout.strip().splitlines()[0].strip()
+    log(f"[card] {card}")
+    return card
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    built = not _build.library_path().exists()
+    t0 = time.perf_counter()
+    _build.load(verbose=True)
+    log(f"[build] {_build.library_path().name} "
+        f"{'built' if built else 'found built'} in {time.perf_counter() - t0:.1f}s")
+
+
+def phase_kernels(torch):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+    from repro_torch.kernels.flash_attention.ref import flash_mha_ref
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = Timer(torch)
+    rows = {}
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    log("[kernels] rmsnorm vs plain")
+    main_rms = [(4 * 1024, 1536), (4, 1536), (4 * 1024 * 12, 128)]
+    edge_rms = [(1, 16), (37, 100), (5, 8192), (3 * 50, 512), (2 * 20 * 4, 16)]
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[1]
+        for shape in main_rms + edge_rms:
+            x, w = randn(shape, dt), randn(shape[-1:], dt)
+            err = compare(f"rmsnorm {list(shape)} {dn}", rmsnorm(x, w, 1e-6),
+                          rmsnorm_ref(x, w, 1e-6), TOL[("rmsnorm", dn)])
+            if shape not in main_rms:
+                continue
+            ms = timer(lambda: rmsnorm(x, w, 1e-6))
+            plain = timer(lambda: rmsnorm_ref(x, w, 1e-6))
+            lib = timer(lambda: F.rms_norm(x, (shape[-1],), w, 1e-6))
+            bound, by, byts, ops = rms_bound(shape[0], shape[1], x.element_size())
+            log(f"    time {ms * 1e3:.1f} us | bound {bound * 1e3:.2f} us ({by}: "
+                f"{byts / 1e6:.2f} MB, {ops / 1e6:.1f} MFLOP) | plain "
+                f"{plain * 1e3:.1f} us | F.rms_norm {lib * 1e3:.1f} us")
+            rows[("rmsnorm", shape, dn)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=lib)
+
+    log("[kernels] flash attention vs plain")
+    main_fa = [(4, 1024, 1024, 12, 2, 128, True)]
+    edge_fa = [(2, 300, 300, 12, 2, 128, True),     # ragged S
+               (2, 300, 300, 12, 2, 128, False),    # non-causal
+               (2, 200, 500, 12, 2, 128, True),     # Sq < Sk, top-left mask
+               (2, 500, 200, 12, 2, 128, True),     # Sq > Sk
+               (1, 256, 256, 8, 1, 64, True),       # MQA
+               (2, 384, 384, 9, 3, 64, True),       # hd 64 (smollm heads)
+               (2, 130, 130, 4, 2, 32, False),
+               (2, 130, 130, 4, 2, 16, True),       # reduced-config hd
+               (1, 5, 0, 2, 1, 16, True)]           # no key: rows come out 0
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[1]
+        for (B, Sq, Sk, H, KV, hd, causal) in main_fa + edge_fa:
+            q = randn((B, Sq, H, hd), dt)
+            k, v = randn((B, Sk, KV, hd), dt), randn((B, Sk, KV, hd), dt)
+            name = (f"flash B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} "
+                    f"{'causal' if causal else 'full'} {dn}")
+            err = compare(name, flash_mha(q, k, v, causal=causal),
+                          flash_mha_ref(q, k, v, causal=causal), TOL[("flash", dn)])
+            if (B, Sq, Sk, H, KV, hd, causal) not in main_fa:
+                continue
+            ms = timer(lambda: flash_mha(q, k, v, causal=causal))
+            plain = timer(lambda: flash_mha_ref(q, k, v, causal=causal))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+            peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+            bound, by, byts, ops = flash_bound(B, Sq, Sk, H, KV, hd, causal,
+                                               q.element_size(), peak)
+            log(f"    time {ms:.3f} ms | bound {bound * 1e3:.2f} us ({by}: "
+                f"{byts / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP at {peak / 1e12:g} "
+                f"TFLOP/s) | plain {plain:.3f} ms | SDPA {lib:.3f} ms")
+            rows[("flash", (B, Sq, Sk, H, KV, hd, causal), dn)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=lib)
+    return rows
+
+
+def phase_model(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    import numpy as np
+
+    cfg = get_config(ARCH)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, torch.float32, "cuda")
+    B, S, SMAX = 2, 256, 512
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S + 2))).cuda()
+    tol = 2e-3  # the bound of tests/test_models_smoke.py; paths differ in f32 sum order
+    with torch.inference_mode():
+        got = []
+        lg, cache = model.prefill(params, {"tokens": toks[:, :S]}, SMAX)
+        got.append(lg)
+        for n in (S, S + 1):
+            lg, cache = model.decode_step(params, cache, toks[:, n:n + 1])
+            got.append(lg)
+        worst = 0.0
+        for lg, n in zip(got, (S, S + 1, S + 2)):
+            h = model.forward(params, {"tokens": toks[:, :n]})
+            want = model._logits(params, h[:, -1])
+            if not bool(torch.isfinite(lg).all()) or lg.shape != (B, cfg.padded_vocab):
+                raise AssertionError(f"bad logits at n={n}: {tuple(lg.shape)}")
+            err = float((lg - want).abs().max())
+            worst = max(worst, err)
+            if not bool(torch.allclose(lg, want, rtol=tol, atol=tol)):
+                raise AssertionError(f"decode != forward at n={n}: {err:.3e}")
+    log(f"[model] {cfg.name} f32 L={cfg.n_layers} d={cfg.d_model}: prefill {S} + 2 "
+        f"decode steps match forward, max_abs_err={worst:.3e} (tol {tol:g})")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def phase_serve(torch):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(ARCH)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, torch.bfloat16, "cuda")
+    eng = ServeEngine(model, params, smax=2048)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(512, 1025, 8)
+    straggler = None
+    for i, n in enumerate(lengths):
+        rid = eng.submit(rng.integers(0, cfg.vocab_size, n), max_new=32,
+                         deadline_steps=8 if i == 2 else None)
+        straggler = rid if i == 2 else straggler
+
+    calls = {"prefill": [], "decode": []}
+
+    def timed(kind, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            calls[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    eng.prefill_fn = timed("prefill", eng.prefill_fn)
+    eng.decode_fn = timed("decode", eng.decode_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm.launches = 0
+    flash_mha.launches = 0
+    t0 = time.perf_counter()
+    out = eng.run(batch_size=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm.launches, "flash_attention": flash_mha.launches}
+
+    n_pf, n_dc = len(calls["prefill"]), len(calls["decode"])
+    tokens = sum(len(v) for v in out.values())
+    completed = len(eng.completed)
+    log(f"[serve] {cfg.name} bf16 prompts {sorted(int(n) for n in lengths)}: "
+        f"{completed} completed, {len(eng.evicted)} evicted {eng.evicted}, "
+        f"{tokens} tokens in {wall:.2f}s ({tokens / wall:.1f} tok/s)")
+    log(f"[serve] prefill {n_pf} calls, median {statistics.median(calls['prefill']):.1f} ms"
+        f" per batch ({', '.join('%.1f' % t for t in calls['prefill'])}); decode "
+        f"{n_dc} steps, median {statistics.median(calls['decode']):.2f} ms per step")
+    log(f"[serve] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    per_step = 2 * cfg.n_layers + 1   # ln1 + ln2 per layer, final norm
+    log(f"[serve] launches: rmsnorm {launches['rmsnorm']} (want {per_step} x "
+        f"{n_pf + n_dc}), flash_attention {launches['flash_attention']} (want "
+        f"{cfg.n_layers} x {n_pf})")
+    if launches["rmsnorm"] != per_step * (n_pf + n_dc):
+        raise AssertionError("rmsnorm launches do not match the path")
+    if launches["flash_attention"] != cfg.n_layers * n_pf:
+        raise AssertionError("flash attention launches do not match the path")
+    if completed != 7 or eng.evicted != [straggler]:
+        raise AssertionError("expected 7 completed and the straggler evicted")
+    if len(out[straggler]) != 16 or tokens != 7 * 32 + 16:
+        raise AssertionError(f"unexpected token counts: {tokens}")
+    if not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
+        raise AssertionError("token outside the vocabulary")
+    return launches, model, params
+
+
+def _device_ms(torch, fn, steps: int):
+    """Device kernel time per step (ms), kernels launched per step and the
+    top kernels, from torch.profiler with CUDA activity only; None if it
+    saw no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows, launched = [], 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3 / steps, e.key))
+            launched += e.count
+    if not rows:
+        return None, 0, []
+    rows.sort(reverse=True)
+    return sum(ms for ms, _ in rows), launched / steps, rows[:6]
+
+
+def phase_profile(torch, model, params):
+    """Wall time vs device busy time of one prefill (B=4, S=1024) and of 8
+    decode steps after it: where the serving time goes."""
+    import numpy as np
+
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 1024))).cuda()
+    state = {}
+
+    def prefill():
+        state["lg"], state["cache"] = model.prefill(params, {"tokens": toks}, 2048)
+
+    def decode(steps=8):
+        nxt = state["lg"].argmax(-1, keepdim=True)
+        for _ in range(steps):
+            lg, state["cache"] = model.decode_step(params, state["cache"], nxt)
+            nxt = lg.argmax(-1, keepdim=True)
+
+    with torch.inference_mode():
+        for name, fn, steps in (("prefill B=4 S=1024", prefill, 1),
+                                ("decode B=4 x8 steps", decode, 8)):
+            fn()                                    # warm (and refill the cache)
+            if fn is decode:
+                prefill()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+            if fn is decode:
+                prefill()
+            busy, kernels, top = _device_ms(torch, fn, steps)
+            if busy is None:
+                log(f"[profile] {name}: wall {wall:.2f} ms/step; device time not "
+                    f"measured (the profiler saw no CUDA kernel)")
+                continue
+            log(f"[profile] {name}: wall {wall:.2f} ms/step, device busy "
+                f"{busy:.2f} ms/step ({100 * busy / wall:.1f}% busy, "
+                f"{100 - 100 * busy / wall:.1f}% idle), {kernels:.0f} kernels/step")
+            for ms, key in top:
+                log(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
+              file=sys.stderr)
+        return 1
+    try:
+        import repro_torch.device
+    except ImportError as e:
+        print(f"chip_smoke: cannot import the port from {HERE}/src: {e}",
+              file=sys.stderr)
+        return 1
+    try:
+        repro_torch.device.resolve_device(None)
+        log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+            f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+            f"capability {torch.cuda.get_device_capability(0)}")
+        card = phase_card()
+        phase_build()
+        rows = phase_kernels(torch)
+        phase_model(torch)
+        launches, model, params = phase_serve(torch)
+        phase_profile(torch, model, params)
+    except Exception:
+        traceback.print_exc()
+        return 1
+
+    kernels = [
+        dict(name="rmsnorm", route="cuda",
+             source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm/kernel.py:36",
+             launches=launches["rmsnorm"], shape=[4096, 1536], dtype="bfloat16",
+             **rows[("rmsnorm", (4096, 1536), "bfloat16")]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:99",
+             launches=launches["flash_attention"],
+             shape=[4, 1024, 12, 2, 128], dtype="bfloat16",
+             **rows[("flash", (4, 1024, 1024, 12, 2, 128, True), "bfloat16")]),
+    ]
+    log(f"[card] {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

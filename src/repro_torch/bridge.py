@@ -1,0 +1,61 @@
+"""Parameter bridge between numpy trees and the port's tensors.
+
+``params_from_numpy(model, tree)`` turns a parameter tree given as numpy
+arrays — the JAX package's pytree after ``np.asarray`` on every leaf, with
+bf16 leaves as a ``uint16`` view (the convention of
+``repro/train/checkpoint.py``, since numpy has no bfloat16) — into the
+port's parameters, path for path along ``model.template()``. It imports no
+JAX: the caller does the conversion to numpy.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .models.layers import PT
+
+__all__ = ["tensor_from_numpy", "tensor_to_numpy", "params_from_numpy"]
+
+
+def tensor_from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:
+    """numpy -> tensor; a ``uint16`` array is read as the bits of bf16."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.uint16:
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device) if device is not None else t
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """tensor -> numpy; bf16 comes out as its ``uint16`` bits."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _walk(tmpl, tree, path: str, device):
+    if isinstance(tmpl, PT):
+        arr = np.asarray(tree)
+        if tuple(arr.shape) != tuple(tmpl.shape):
+            raise ValueError(f"{path}: shape {arr.shape} != template {tmpl.shape}")
+        return tensor_from_numpy(arr, device)
+    if isinstance(tmpl, dict):
+        if set(tmpl) != set(tree):
+            raise KeyError(f"{path or '/'}: keys {sorted(tree)} != template "
+                           f"{sorted(tmpl)}")
+        return {k: _walk(tmpl[k], tree[k], f"{path}/{k}", device) for k in tmpl}
+    if isinstance(tmpl, (list, tuple)):
+        if len(tmpl) != len(tree):
+            raise ValueError(f"{path}: {len(tree)} entries != template {len(tmpl)}")
+        return [_walk(t, x, f"{path}/{i}", device)
+                for i, (t, x) in enumerate(zip(tmpl, tree))]
+    raise TypeError(f"{path}: unexpected template node {type(tmpl).__name__}")
+
+
+def params_from_numpy(model, tree: Any, device=None):
+    """The port's parameter tree from a numpy tree with the same paths."""
+    return _walk(model.template(), tree, "", device)

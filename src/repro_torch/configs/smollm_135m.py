@@ -1,0 +1,18 @@
+"""SmolLM-135M — llama-arch small dense LM. [hf:HuggingFaceTB/SmolLM-135M; hf]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="smollm-135m",
+    family="dense",
+    n_layers=30,
+    d_model=576,
+    n_heads=9,
+    n_kv_heads=3,          # GQA kv=3
+    d_ff=1536,
+    vocab_size=49152,
+    head_dim=64,
+    tie_embeddings=True,
+    rope_theta=10000.0,
+    norm_eps=1e-5,
+    source="[hf:HuggingFaceTB/SmolLM-135M; hf]",
+)

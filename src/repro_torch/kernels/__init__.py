@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), one per Pallas TPU kernel
+of the JAX package on the ported path.
+
+flash_attention — online-softmax attention (prefill / forward), model layout.
+rmsnorm — fused RMSNorm (every norm of the dense block, qk-norm per head).
+
+Each kernel keeps a plain PyTorch version in its ``ref.py``; the wrapper in
+``ops.py`` takes it only for a CPU tensor, launches the kernel for a CUDA
+tensor, and counts its launches. All ``csrc/*.cu`` sources build into one
+shared library at first use (``_build.py``).
+"""
+from .flash_attention.ops import flash_mha
+from .rmsnorm.ops import rmsnorm
+
+__all__ = ["flash_mha", "rmsnorm"]

@@ -1,0 +1,50 @@
+"""Dispatching wrapper for flash attention (counterpart of
+``repro/kernels/flash_attention/ops.py::flash_mha``).
+
+``flash_mha(q, k, v, causal=True)`` takes the model layout q [B,S,H,hd],
+k/v [B,Sk,KV,hd] and returns [B,S,H,hd] in q.dtype. A CPU tensor takes the
+plain version; a CUDA tensor launches the kernel or raises.
+``flash_mha.launches`` counts kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import torch
+
+from .._build import DTYPE_CODES
+from .kernel import HEAD_DIMS, flash_attention_cuda
+from .ref import flash_mha_ref
+
+__all__ = ["flash_mha"]
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return flash_mha_ref(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha: unsupported device {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_mha: want q [B,S,H,hd], k/v [B,Sk,KV,hd]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or H % KV != 0:
+        raise ValueError(f"flash_mha: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} do not pair (H % KV must be 0)")
+    for t in (k, v):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError("flash_mha: q, k, v must share device and dtype")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"flash_mha: dtype {q.dtype} not supported")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_mha: head dim {hd} not in {HEAD_DIMS}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if B * H * S == 0:
+        return out
+    flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), out,
+                         causal=causal)
+    flash_mha.launches += 1
+    return out
+
+
+flash_mha.launches = 0

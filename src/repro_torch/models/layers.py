@@ -1,0 +1,126 @@
+"""Shared layer primitives + the parameter-template machinery.
+
+Counterpart of ``repro/models/layers.py``. Every model family declares its
+parameters as a tree (dicts and lists) of ``PT`` records — the port's own
+copy of the JAX package's template — from which ``init_params`` draws the
+tensors with the same init laws. Parameters and caches are plain trees of
+tensors with the same paths as the JAX package's pytrees.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.rmsnorm.ops import rmsnorm
+
+__all__ = [
+    "PT",
+    "map_templates",
+    "init_params",
+    "rms_norm",
+    "rope_table",
+    "apply_rope",
+    "swiglu",
+]
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class PT:
+    """Parameter/state template: shape + logical axes + init law (+dtype)."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"       # normal | zeros | ones | small | neg_inf
+    fan_in: int = 0            # 0 -> last-but-one dim (normal init scale)
+    dtype: str = ""            # "" = caller default (cache states: "float32")
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+    def resolve_dtype(self, default: torch.dtype) -> torch.dtype:
+        return _TORCH_DTYPES[self.dtype] if self.dtype else default
+
+
+def map_templates(fn: Callable[[PT], Any], tree):
+    """Apply ``fn`` to every PT leaf, in sorted-key order (the order of
+    ``jax.tree_util`` leaves), keeping the dict/list structure."""
+    if isinstance(tree, PT):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_templates(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_templates(fn, t) for t in tree)
+    raise TypeError(f"unexpected template node {type(tree).__name__}")
+
+
+def init_params(template, generator: torch.Generator,
+                dtype: torch.dtype = torch.bfloat16, device=None):
+    """Materialise a template: normal draws scaled by 1/sqrt(fan_in) (x0.1
+    for "small"), zeros, ones or -1e30, drawn in f32 on the generator's
+    device and cast to the leaf's dtype. One draw per leaf in tree order."""
+    device = torch.device(device) if device is not None else generator.device
+
+    def make(t: PT) -> torch.Tensor:
+        dt = t.resolve_dtype(dtype)
+        if t.init == "zeros":
+            return torch.zeros(t.shape, dtype=dt, device=device)
+        if t.init == "ones":
+            return torch.ones(t.shape, dtype=dt, device=device)
+        if t.init == "neg_inf":
+            return torch.full(t.shape, -1e30, dtype=dt, device=device)
+        fan = t.fan_in or (t.shape[-2] if len(t.shape) >= 2 else t.shape[-1])
+        scale = 1.0 / math.sqrt(max(fan, 1))
+        if t.init == "small":
+            scale *= 0.1
+        x = torch.randn(t.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (x * scale).to(device=device, dtype=dt)
+
+    return map_templates(make, template)
+
+
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim, f32 math, result in x.dtype (the fused
+    rmsnorm kernel on the card)."""
+    return rmsnorm(x, scale, eps)
+
+
+def rope_table(seq_len: int, head_dim: int, theta: float, device=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [seq_len, head_dim/2], float32."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=device) / half))
+    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    ang = torch.outer(t, freqs)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [..., S, H, hd]; cos/sin [S, hd/2] (broadcast over batch/heads)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
+           wo: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP: (silu(x@wg) * (x@wi)) @ wo."""
+    g = x @ wg
+    u = x @ wi
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ wo
