@@ -3,21 +3,27 @@
 
   python3 chip_smoke.py
 
-Phases, each of which fails the run (non-zero exit, no result line):
+Two main paths are driven, each at full width and full depth: the dense
+decoder qwen2-1.5b and the hybrid hymba-1.5b (attention and Mamba heads,
+sliding window with meta-token sinks). Phases, each of which fails the run
+(non-zero exit, no result line):
 
   1. card   — name and power limit from nvidia-smi;
-  2. build  — one nvcc call builds both CUDA kernels from src/;
+  2. build  — one nvcc per CUDA source, all started together, and one link
+     build the three kernels from src/;
   3. kernels — each kernel against its plain PyTorch version in f32 and
-     bf16 at the main-path shapes and at edge shapes; at the main-path
-     shapes the kernel, the plain version and one library call are timed
-     with CUDA events (median of 25, L2 flushed before each launch);
-  4. model  — full-width qwen2-1.5b in f32: prefill + 2 decode steps
-     match forward logits;
-  5. serve  — full-width qwen2-1.5b in bf16 through ServeEngine: 8
-     requests, one straggler evicted and re-queued; the kernels' launch
-     counts must equal what the path implies;
+     bf16 at the main-path shapes of both models and at edge shapes; at
+     the main-path shapes the kernel, the plain version and one library
+     call (where one exists) are timed with CUDA events (median of 25, L2
+     flushed before each launch);
+  4. model  — each model in f32: prefill + 2 decode steps match forward
+     logits (hymba's 1100-token prompt wraps its window ring);
+  5. serve  — each model in bf16 through ServeEngine: 8 requests, one
+     straggler evicted and re-queued; every kernel's launch count, zeroed
+     just before the run and read just after, must equal what the path
+     implies;
   6. profile — wall vs device busy time of one prefill and of decode
-     steps, with the top kernels (torch.profiler).
+     steps of each model, with the top kernels (torch.profiler).
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
@@ -40,8 +46,19 @@ HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 F32_FLOPS = 67e12                          # f32 outside the tensor cores
 BF16_FLOPS = 989e12                        # bf16 tensor cores, dense
 TOL = {("rmsnorm", "float32"): 1e-5, ("rmsnorm", "bfloat16"): 2e-2,
-       ("flash", "float32"): 1e-4, ("flash", "bfloat16"): 3e-2}
-ARCH = "qwen2-1.5b"
+       ("flash", "float32"): 1e-4, ("flash", "bfloat16"): 3e-2,
+       ("ssm_scan", "float32"): 1e-4, ("ssm_scan", "bfloat16"): 2e-2}
+DENSE, HYBRID = "qwen2-1.5b", "hymba-1.5b"
+REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
+            "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
+            "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:53"}
+# per model: phase-4 batch, prompt and cache; phase-5 prompt range and cache
+PATHS = {
+    DENSE: dict(model_B=2, model_S=256, model_smax=512, lo=512, hi=1024, smax=2048,
+                profile_S=1024),
+    HYBRID: dict(model_B=2, model_S=1100, model_smax=1200, lo=512, hi=2048,
+                 smax=4096, profile_S=1024),
+}
 
 
 def log(msg: str) -> None:
@@ -85,16 +102,34 @@ def rms_bound(rows: int, d: int, esize: int):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
 
 
-def causal_pairs(Sq: int, Sk: int) -> int:
-    """(row, col) pairs with col <= row (top-left) and col < Sk."""
-    return sum(min(r + 1, Sk) for r in range(Sq))
+def visible_pairs(Sq: int, Sk: int, window: int = 0, n_sink: int = 0) -> int:
+    """(row, col) pairs the causal mask lets through: col <= row (top-left),
+    col < Sk and, under a window, col > row - window or col < n_sink."""
+    total = 0
+    for r in range(Sq):
+        hi = min(r, Sk - 1)                     # cols 0..hi are causal
+        if hi < 0:
+            continue
+        if window == 0:
+            total += hi + 1
+            continue
+        lo = max(r - window + 1, 0)             # the band is lo..hi
+        total += max(hi - lo + 1, 0) + max(0, min(n_sink, lo, hi + 1))
+    return total
 
 
-def flash_bound(B, Sq, Sk, H, KV, hd, causal, esize, peak):
-    pairs = B * H * (causal_pairs(Sq, Sk) if causal else Sq * Sk)
+def flash_bound(B, Sq, Sk, H, KV, hd, causal, esize, peak, window=0, n_sink=0):
+    pairs = B * H * (visible_pairs(Sq, Sk, window, n_sink) if causal else Sq * Sk)
     ops = 4 * hd * pairs                       # QK^T and PV, 2 flops per MAC
     byts = (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) * esize
     t_b, t_o = byts / HBM_BYTES_PER_S, ops / peak
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
+
+
+def scan_bound(B, S, C, esize):
+    byts = 3 * B * S * C * esize               # a, b read, h written
+    ops = 2 * B * S * C                        # one FMA per element (f32)
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / F32_FLOPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
 
 
@@ -141,6 +176,8 @@ def phase_kernels(torch):
     from repro_torch.kernels.flash_attention.ref import flash_mha_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer(torch)
@@ -150,7 +187,10 @@ def phase_kernels(torch):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
     log("[kernels] rmsnorm vs plain")
-    main_rms = [(4 * 1024, 1536), (4, 1536), (4 * 1024 * 12, 128)]
+    # qwen2: prefill B=4 S=1024, decode B=4, qk-norm-sized rows;
+    # hymba: prefill B=4 S=1024+128 meta, decode B=4
+    main_rms = [(4 * 1024, 1536), (4, 1536), (4 * 1024 * 12, 128),
+                (4 * 1152, 1600), (4, 1600)]
     edge_rms = [(1, 16), (37, 100), (5, 8192), (3 * 50, 512), (2 * 20 * 4, 16)]
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
@@ -172,55 +212,98 @@ def phase_kernels(torch):
                 bound_by=by, library_ms=lib)
 
     log("[kernels] flash attention vs plain")
-    main_fa = [(4, 1024, 1024, 12, 2, 128, True)]
-    edge_fa = [(2, 300, 300, 12, 2, 128, True),     # ragged S
-               (2, 300, 300, 12, 2, 128, False),    # non-causal
-               (2, 200, 500, 12, 2, 128, True),     # Sq < Sk, top-left mask
-               (2, 500, 200, 12, 2, 128, True),     # Sq > Sk
-               (1, 256, 256, 8, 1, 64, True),       # MQA
-               (2, 384, 384, 9, 3, 64, True),       # hd 64 (smollm heads)
-               (2, 130, 130, 4, 2, 32, False),
-               (2, 130, 130, 4, 2, 16, True),       # reduced-config hd
-               (1, 5, 0, 2, 1, 16, True)]           # no key: rows come out 0
+    # (B, Sq, Sk, H, KV, hd, causal, window, n_sink)
+    main_fa = [(4, 1024, 1024, 12, 2, 128, True, 0, 0),       # qwen2 prefill
+               (4, 1152, 1152, 25, 5, 64, True, 1024, 128),   # hymba, S = w + sinks
+               (4, 2176, 2176, 25, 5, 64, True, 1024, 128)]   # hymba, 2048 + 128
+    edge_fa = [(2, 300, 300, 12, 2, 128, True, 0, 0),     # ragged S
+               (2, 300, 300, 12, 2, 128, False, 0, 0),    # non-causal
+               (2, 200, 500, 12, 2, 128, True, 0, 0),     # Sq < Sk, top-left mask
+               (2, 500, 200, 12, 2, 128, True, 0, 0),     # Sq > Sk
+               (1, 256, 256, 8, 1, 64, True, 0, 0),       # MQA
+               (2, 384, 384, 9, 3, 64, True, 0, 0),       # hd 64 (smollm heads)
+               (2, 130, 130, 4, 2, 32, False, 0, 0),
+               (2, 130, 130, 4, 2, 16, True, 0, 0),       # reduced-config hd
+               (1, 5, 0, 2, 1, 16, True, 0, 0),           # no key: rows come out 0
+               (1, 700, 700, 25, 5, 64, True, 256, 128),  # skipped key tiles
+               (2, 300, 300, 4, 2, 64, True, 100, 7),     # ragged window and sinks
+               (2, 40, 40, 4, 2, 16, True, 16, 8),        # hymba reduced
+               (1, 130, 130, 4, 1, 32, True, 5, 0)]       # window < key tile
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
-        for (B, Sq, Sk, H, KV, hd, causal) in main_fa + edge_fa:
+        for case in main_fa + edge_fa:
+            B, Sq, Sk, H, KV, hd, causal, win, ns = case
             q = randn((B, Sq, H, hd), dt)
             k, v = randn((B, Sk, KV, hd), dt), randn((B, Sk, KV, hd), dt)
+            kw = dict(causal=causal, window=win, n_sink=ns)
             name = (f"flash B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} "
-                    f"{'causal' if causal else 'full'} {dn}")
-            err = compare(name, flash_mha(q, k, v, causal=causal),
-                          flash_mha_ref(q, k, v, causal=causal), TOL[("flash", dn)])
-            if (B, Sq, Sk, H, KV, hd, causal) not in main_fa:
+                    f"{'causal' if causal else 'full'} window={win} sinks={ns} {dn}")
+            err = compare(name, flash_mha(q, k, v, **kw), flash_mha_ref(q, k, v, **kw),
+                          TOL[("flash", dn)])
+            if case not in main_fa:
                 continue
-            ms = timer(lambda: flash_mha(q, k, v, causal=causal))
-            plain = timer(lambda: flash_mha_ref(q, k, v, causal=causal))
+            ms = timer(lambda: flash_mha(q, k, v, **kw))
+            plain = timer(lambda: flash_mha_ref(q, k, v, **kw))
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True))
+            if win:
+                r = torch.arange(Sq, device="cuda")[:, None]
+                c = torch.arange(Sk, device="cuda")[None, :]
+                mask = (c <= r) & ((c > r - win) | (c < ns))
+                lib = timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            else:
+                lib = timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True))
             peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
             bound, by, byts, ops = flash_bound(B, Sq, Sk, H, KV, hd, causal,
-                                               q.element_size(), peak)
+                                               q.element_size(), peak, win, ns)
             log(f"    time {ms:.3f} ms | bound {bound * 1e3:.2f} us ({by}: "
                 f"{byts / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP at {peak / 1e12:g} "
-                f"TFLOP/s) | plain {plain:.3f} ms | SDPA {lib:.3f} ms")
-            rows[("flash", (B, Sq, Sk, H, KV, hd, causal), dn)] = dict(
+                f"TFLOP/s) | plain {plain:.3f} ms | SDPA{' (bool mask)' if win else ''} "
+                f"{lib:.3f} ms")
+            rows[("flash", case, dn)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by=by, library_ms=lib)
+            del qt, kt, vt
+
+    log("[kernels] ssm_scan vs plain")
+    main_scan = [(4, 1152, 51200)]                 # hymba: [B, S, di * n]
+    edge_scan = [(4, 2176, 51200), (37, 100), (1, 4097), (3, 45, 130),
+                 (2, 1, 333), (1, 1, 1)]
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[1]
+        for shape in main_scan + edge_scan:
+            a = torch.sigmoid(randn(shape, torch.float32)).to(dt)
+            b = randn(shape, dt)
+            err = compare(f"ssm_scan {list(shape)} {dn}", ssm_scan_batched(a, b),
+                          ssm_scan_ref(a, b), TOL[("ssm_scan", dn)])
+            if shape not in main_scan:
+                continue
+            ms = timer(lambda: ssm_scan_batched(a, b))
+            plain = timer(lambda: ssm_scan_ref(a, b))
+            bound, by, byts, ops = scan_bound(*shape, a.element_size())
+            log(f"    time {ms:.3f} ms | bound {bound:.3f} ms ({by}: "
+                f"{byts / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP) | plain {plain:.3f} ms "
+                f"| no single library call computes a linear recurrence")
+            rows[("ssm_scan", shape, dn)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=None)
+            del a, b
+    torch.cuda.empty_cache()
     return rows
 
 
-def phase_model(torch):
+def phase_model(torch, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
     import numpy as np
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(gen, torch.float32, "cuda")
-    B, S, SMAX = 2, 256, 512
+    B, S, SMAX = (PATHS[arch][k] for k in ("model_B", "model_S", "model_smax"))
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, S + 2))).cuda()
     tol = 2e-3  # the bound of tests/test_models_smoke.py; paths differ in f32 sum order
@@ -241,28 +324,31 @@ def phase_model(torch):
             worst = max(worst, err)
             if not bool(torch.allclose(lg, want, rtol=tol, atol=tol)):
                 raise AssertionError(f"decode != forward at n={n}: {err:.3e}")
-    log(f"[model] {cfg.name} f32 L={cfg.n_layers} d={cfg.d_model}: prefill {S} + 2 "
-        f"decode steps match forward, max_abs_err={worst:.3e} (tol {tol:g})")
+    log(f"[model] {cfg.name} f32 L={cfg.n_layers} d={cfg.d_model} B={B}: prefill {S} "
+        f"(+{cfg.n_meta_tokens} meta) + 2 decode steps match forward, "
+        f"max_abs_err={worst:.3e} (tol {tol:g})")
     del params, cache
     torch.cuda.empty_cache()
 
 
-def phase_serve(torch):
+def phase_serve(torch, arch):
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    path = PATHS[arch]
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(gen, torch.bfloat16, "cuda")
-    eng = ServeEngine(model, params, smax=2048)
+    eng = ServeEngine(model, params, smax=path["smax"])
     rng = np.random.default_rng(0)
-    lengths = rng.integers(512, 1025, 8)
+    lengths = rng.integers(path["lo"], path["hi"] + 1, 8)
     straggler = None
     for i, n in enumerate(lengths):
         rid = eng.submit(rng.integers(0, cfg.vocab_size, n), max_new=32,
@@ -287,11 +373,13 @@ def phase_serve(torch):
     torch.cuda.reset_peak_memory_stats()
     rmsnorm.launches = 0
     flash_mha.launches = 0
+    ssm_scan_batched.launches = 0
     t0 = time.perf_counter()
     out = eng.run(batch_size=4)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"rmsnorm": rmsnorm.launches, "flash_attention": flash_mha.launches}
+    launches = {"rmsnorm": rmsnorm.launches, "flash_attention": flash_mha.launches,
+                "ssm_scan": ssm_scan_batched.launches}
 
     n_pf, n_dc = len(calls["prefill"]), len(calls["decode"])
     tokens = sum(len(v) for v in out.values())
@@ -303,14 +391,18 @@ def phase_serve(torch):
         f" per batch ({', '.join('%.1f' % t for t in calls['prefill'])}); decode "
         f"{n_dc} steps, median {statistics.median(calls['decode']):.2f} ms per step")
     log(f"[serve] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    per_step = 2 * cfg.n_layers + 1   # ln1 + ln2 per layer, final norm
+    hybrid = cfg.family == "hybrid"
+    # ln1 + ln2 per layer (+ norm_attn, norm_ssm in a hybrid layer), final norm
+    per_step = (4 if hybrid else 2) * cfg.n_layers + 1
+    want = {"rmsnorm": per_step * (n_pf + n_dc), "flash_attention": cfg.n_layers * n_pf,
+            "ssm_scan": cfg.n_layers * n_pf if hybrid else 0}
     log(f"[serve] launches: rmsnorm {launches['rmsnorm']} (want {per_step} x "
         f"{n_pf + n_dc}), flash_attention {launches['flash_attention']} (want "
-        f"{cfg.n_layers} x {n_pf})")
-    if launches["rmsnorm"] != per_step * (n_pf + n_dc):
-        raise AssertionError("rmsnorm launches do not match the path")
-    if launches["flash_attention"] != cfg.n_layers * n_pf:
-        raise AssertionError("flash attention launches do not match the path")
+        f"{cfg.n_layers} x {n_pf}), ssm_scan {launches['ssm_scan']} (want "
+        f"{want['ssm_scan']})")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launches do not match the path")
     if completed != 7 or eng.evicted != [straggler]:
         raise AssertionError("expected 7 completed and the straggler evicted")
     if len(out[straggler]) != 16 or tokens != 7 * 32 + 16:
@@ -344,17 +436,20 @@ def _device_ms(torch, fn, steps: int):
 
 
 def phase_profile(torch, model, params):
-    """Wall time vs device busy time of one prefill (B=4, S=1024) and of 8
-    decode steps after it: where the serving time goes."""
+    """Wall time vs device busy time of one prefill (B=4, S=1024 prompt
+    tokens) and of 8 decode steps after it: where the serving time goes."""
     import numpy as np
 
     cfg = model.cfg
+    path = PATHS[cfg.name]
+    S = path["profile_S"]
     toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (4, 1024))).cuda()
+        0, cfg.vocab_size, (4, S))).cuda()
     state = {}
 
     def prefill():
-        state["lg"], state["cache"] = model.prefill(params, {"tokens": toks}, 2048)
+        state["lg"], state["cache"] = model.prefill(params, {"tokens": toks},
+                                                    path["smax"])
 
     def decode(steps=8):
         nxt = state["lg"].argmax(-1, keepdim=True)
@@ -363,8 +458,8 @@ def phase_profile(torch, model, params):
             nxt = lg.argmax(-1, keepdim=True)
 
     with torch.inference_mode():
-        for name, fn, steps in (("prefill B=4 S=1024", prefill, 1),
-                                ("decode B=4 x8 steps", decode, 8)):
+        for name, fn, steps in ((f"{cfg.name} prefill B=4 S={S}", prefill, 1),
+                                (f"{cfg.name} decode B=4 x8 steps", decode, 8)):
             fn()                                    # warm (and refill the cache)
             if fn is decode:
                 prefill()
@@ -411,26 +506,33 @@ def main() -> int:
         card = phase_card()
         phase_build()
         rows = phase_kernels(torch)
-        phase_model(torch)
-        launches, model, params = phase_serve(torch)
-        phase_profile(torch, model, params)
+        launches = {}
+        for arch in (DENSE, HYBRID):
+            phase_model(torch, arch)
+            launches[arch], model, params = phase_serve(torch, arch)
+            phase_profile(torch, model, params)
+            del model, params
+            torch.cuda.empty_cache()
     except Exception:
         traceback.print_exc()
         return 1
 
-    kernels = [
-        dict(name="rmsnorm", route="cuda",
-             source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-             replaces="src/repro/kernels/rmsnorm/kernel.py:36",
-             launches=launches["rmsnorm"], shape=[4096, 1536], dtype="bfloat16",
-             **rows[("rmsnorm", (4096, 1536), "bfloat16")]),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention/kernel.py:99",
-             launches=launches["flash_attention"],
-             shape=[4, 1024, 12, 2, 128], dtype="bfloat16",
-             **rows[("flash", (4, 1024, 1024, 12, 2, 128, True), "bfloat16")]),
+    # one entry per kernel and main path; the row is timed at that path's
+    # main shape, and the launches are that path's serve run
+    entries = [
+        (DENSE, "rmsnorm", ("rmsnorm", (4096, 1536), "bfloat16")),
+        (DENSE, "flash_attention",
+         ("flash", (4, 1024, 1024, 12, 2, 128, True, 0, 0), "bfloat16")),
+        (HYBRID, "rmsnorm", ("rmsnorm", (4608, 1600), "bfloat16")),
+        (HYBRID, "flash_attention",
+         ("flash", (4, 1152, 1152, 25, 5, 64, True, 1024, 128), "bfloat16")),
+        (HYBRID, "ssm_scan", ("ssm_scan", (4, 1152, 51200), "float32")),
     ]
+    kernels = [
+        dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+             replaces=REPLACES[name], launches=launches[arch][name], path=arch,
+             shape=list(key[1]), dtype=key[2], **rows[key])
+        for arch, name, key in entries]
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,17 @@
 """Architecture config registry — ``--arch <id>`` resolution.
 
-The port's own copies of the dense-family records of the JAX package's
-registry (``repro.configs``). Other families join with their slice.
+The port's own copies of the records of the JAX package's registry
+(``repro.configs``) for the families it runs: dense and hybrid. Other
+families join with their slice.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
-from . import minicpm_2b, qwen2_1_5b, qwen3_32b, smollm_135m
+from . import hymba_1_5b, minicpm_2b, qwen2_1_5b, qwen3_32b, smollm_135m
 from .base import ArchConfig
 
-_MODULES = (smollm_135m, minicpm_2b, qwen2_1_5b, qwen3_32b)
+_MODULES = (smollm_135m, minicpm_2b, qwen2_1_5b, qwen3_32b, hymba_1_5b)
 
 REGISTRY: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``kernels/csrc/`` are compiled by ONE ``nvcc`` call into
-one shared library with a plain C interface, loaded with ``ctypes``:
+Each source under ``kernels/csrc/`` is compiled by its own ``nvcc``, all of
+them started together, and one more ``nvcc`` links the objects into one
+shared library with a plain C interface, loaded with ``ctypes``:
 
-  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-       -Xcompiler -fPIC -o <build>/librepro_torch_<hash>.so csrc/*.cu
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+       -Xcompiler -fPIC -c -o <tmp>/<name>.o csrc/<name>.cu     (per source)
+  nvcc -shared -o <build>/librepro_torch_<hash>.so <tmp>/*.o
 
 The library is built at first use, into ``build/repro_torch/`` at the root
 of the checkout (``$REPRO_TORCH_BUILD_DIR`` overrides it). Its file name
@@ -28,9 +30,9 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "DTYPE_CODES", "build_dir", "library_path",
            "load", "check"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "rmsnorm.cu", _CSRC / "flash_attention.cu")
+SOURCES = (_CSRC / "rmsnorm.cu", _CSRC / "flash_attention.cu", _CSRC / "ssm_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # the `dtype` argument of every C entry point
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,7 +42,8 @@ _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "repro_rmsnorm": (_VP, _VP, _VP, _INT, _INT, _F32, _INT, _VP),
     "repro_flash_attention": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                              _INT, _INT, _INT, _F32, _INT, _VP),
+                              _INT, _INT, _INT, _INT, _INT, _F32, _INT, _VP),
+    "repro_ssm_scan": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -73,23 +76,30 @@ def _nvcc() -> str:
                        "kernels of repro_torch cannot be built")
 
 
+def _run_all(cmds) -> str:
+    """Start every command at once, wait for all; raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
 def _compile(out: Path, verbose: bool) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, SOURCES)]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                               f"{r.stdout}{r.stderr}")
-        if verbose and (r.stdout or r.stderr):
-            print(r.stdout + r.stderr, flush=True)
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in SOURCES]
+        log = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(SOURCES, objs)])
+        lib = str(Path(tmp) / out.name)
+        log += _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        if verbose and log:
+            print(log, flush=True)
+        os.replace(lib, out)  # atomic: a concurrent loader sees all or nothing
 
 
 def load(verbose: bool = False) -> ctypes.CDLL:

@@ -1,11 +1,17 @@
 // Flash attention forward for Hopper (sm_90a): online softmax, causal or not,
-// GQA, read and written in the model layout.
+// with an optional sliding window and always-attended sink prefix, GQA, read
+// and written in the model layout.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (`flash_attention_kernel`, launched by `flash_attention`): running
 // (m, l, acc) in f32, causal mask `col <= row` aligned top-left, masked
 // scores set to NEG = -1e30, p = 0 where s <= NEG/2, and the output divided
-// by max(l, 1e-30), so a row with no visible key comes out as 0.
+// by max(l, 1e-30), so a row with no visible key comes out as 0. A causal
+// call may also take a sliding window and sinks (Hymba's banded attention
+// with meta tokens, repro/models/attention.py::attention and
+// ::sink_banded_attention): key `col` is visible from query `row` when
+//   col <= row && (window == 0 || col > row - window || col < n_sink).
+// window = n_sink = 0 is the plain causal mask, bit for bit.
 //
 // Bound on the H100: operations. At the prefill shape of qwen2-1.5b
 // (B=4, S=1024, H=12, KV=2, hd=128, causal) the function needs ~12.9 GFLOP
@@ -19,7 +25,12 @@
 // stream through shared memory in tiles of 32 keys, converted to f32 once
 // per tile; a dot product is a per-thread partial sum of scalar FMAs closed
 // by two warp shuffles. Causal tiles that lie wholly above the diagonal are
-// skipped, and the heaviest query tiles are scheduled first. Ragged tails of
+// skipped, and so, under a window, are the key tiles that lie wholly between
+// the sinks and the band of every row of the query tile; a skipped tile would
+// only have added p = 0 with m unchanged. The window is a template flag
+// (kWindow), so a call without one runs the plain causal instance, whose
+// inner loop carries no window test. The heaviest query tiles are
+// scheduled first. Ragged tails of
 // Sq and Sk are masked, never padded. GQA: q head h of batch b reads kv head
 // h / (H / KV) of batch b, i.e. flattened index i = b*H + h reads
 // (i / H) * KV + (i % H) / G. The kernel allocates nothing and launches on
@@ -49,12 +60,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-// q, o: [B, Sq, H, HD]; k, v: [B, Sk, KV, HD]; all contiguous.
-template <typename T, int HD>
+// q, o: [B, Sq, H, HD]; k, v: [B, Sk, KV, HD]; all contiguous. kWindow:
+// causal with window > 0.
+template <typename T, int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                       int H, int KV, float scale, int causal) {
+                       int H, int KV, float scale, int causal, int window,
+                       int n_sink) {
   constexpr int kChunks = HD / 4;                          // float4 chunks in a row
   constexpr int kMine = kChunks / kThreadsPerRow;          // chunks per thread
   static_assert(kMine >= 1 && kChunks % kThreadsPerRow == 0, "unsupported head dim");
@@ -96,7 +109,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // causal: columns past the tile's last row are masked for every row
   const int k_end = causal ? min(Sk, (qt + 1) * kRows) : Sk;
+  // windowed: key tiles in [n_sink, first row of the tile - window] are
+  // masked for every row of the tile
+  const int band_lo = kWindow ? qt * kRows - window + 1 : 0;
   for (int k0 = 0; k0 < k_end; k0 += kKeys) {
+    if (kWindow && k0 >= n_sink && k0 + kKeys <= band_lo) continue;  // uniform per block
     __syncthreads();  // the previous tile is consumed
     for (int e = tid; e < kKeys * HD; e += kThreads) {
       const int j = e / HD;
@@ -127,7 +144,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int col = k0 + j;
       float sj = dot * scale;
-      if (col >= Sk || (causal && col > row)) sj = kNeg;
+      if (col >= Sk ||
+          (causal && (col > row || (kWindow && col <= row - window && col >= n_sink))))
+        sj = kNeg;
       s[j] = sj;
       m_new = fmaxf(m_new, sj);
     }
@@ -171,41 +190,59 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 void launch_hd(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-               int H, int KV, float scale, int causal, cudaStream_t stream) {
+               int H, int KV, float scale, int causal, int window, int n_sink,
+               cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-  flash_attention_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KV, scale, causal);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+  if (causal && window > 0) {
+    flash_attention_kernel<T, HD, true><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, window, n_sink);
+  } else {
+    flash_attention_kernel<T, HD, false><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, 0, 0);
+  }
 }
 
 template <typename T>
 bool launch_dtype(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                  int Sk, int H, int KV, int hd, float scale, int causal,
-                  cudaStream_t stream) {
+                  int Sk, int H, int KV, int hd, float scale, int causal, int window,
+                  int n_sink, cudaStream_t stream) {
+#define REPRO_FA_CASE(HD)                                                                   \
+  case HD:                                                                                  \
+    launch_hd<T, HD>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, n_sink, stream); \
+    return true;
   switch (hd) {
-    case 16: launch_hd<T, 16>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, stream); return true;
-    case 32: launch_hd<T, 32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, stream); return true;
-    case 64: launch_hd<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, stream); return true;
-    case 128: launch_hd<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, stream); return true;
+    REPRO_FA_CASE(16)
+    REPRO_FA_CASE(32)
+    REPRO_FA_CASE(64)
+    REPRO_FA_CASE(128)
     default: return false;
   }
+#undef REPRO_FA_CASE
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 128}; H % KV == 0.
+// dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 128}; H % KV == 0;
+// window >= 0 and n_sink >= 0 act only when causal (0 = no window).
 // Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      int B, int Sq, int Sk, int H, int KV, int hd,
-                                     int causal, float scale, int dtype, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk < 0 || H <= 0 || KV <= 0 || H % KV != 0)
+                                     int causal, int window, int n_sink, float scale,
+                                     int dtype, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk < 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
+      n_sink < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   if (dtype == 0) {
-    ok = launch_dtype<float>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal, s);
+    ok = launch_dtype<float>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal, window, n_sink, s);
   } else if (dtype == 1) {
-    ok = launch_dtype<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal, s);
+    ok = launch_dtype<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal, window,
+                                     n_sink, s);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -1,9 +1,12 @@
 """Dispatching wrapper for flash attention (counterpart of
 ``repro/kernels/flash_attention/ops.py::flash_mha``).
 
-``flash_mha(q, k, v, causal=True)`` takes the model layout q [B,S,H,hd],
-k/v [B,Sk,KV,hd] and returns [B,S,H,hd] in q.dtype. A CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises.
+``flash_mha(q, k, v, causal=True, window=0, n_sink=0)`` takes the model
+layout q [B,S,H,hd], k/v [B,Sk,KV,hd] and returns [B,S,H,hd] in q.dtype.
+Under ``causal``, ``window > 0`` limits each row to its last ``window``
+keys, and the first ``n_sink`` keys stay visible to every row after them
+(``ref.py`` states the mask). A CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises.
 ``flash_mha.launches`` counts kernel launches and nothing else.
 """
 from __future__ import annotations
@@ -18,9 +21,9 @@ __all__ = ["flash_mha"]
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, window: int = 0, n_sink: int = 0) -> torch.Tensor:
     if q.device.type == "cpu":
-        return flash_mha_ref(q, k, v, causal=causal)
+        return flash_mha_ref(q, k, v, causal=causal, window=window, n_sink=n_sink)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -38,11 +41,13 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"flash_mha: dtype {q.dtype} not supported")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_mha: head dim {hd} not in {HEAD_DIMS}")
+    if window < 0 or n_sink < 0:
+        raise ValueError(f"flash_mha: window {window} and n_sink {n_sink} must be >= 0")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if B * H * S == 0:
         return out
     flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), out,
-                         causal=causal)
+                         causal=causal, window=window, n_sink=n_sink)
     flash_mha.launches += 1
     return out
 

@@ -6,6 +6,15 @@ the causal mask ``col <= row`` aligned TOP-LEFT, masked scores set to
 NEG = -1e30, p = 0 where s <= NEG/2, and the sum divided by max(l, 1e-30),
 so a row that sees no key comes out as 0.
 
+Sliding window and sinks (Hymba, the mask of ``repro/models/attention.py::
+attention`` and ``sink_banded_attention``): under ``causal``, key ``col``
+is visible from query ``row`` when
+
+  col <= row and (window == 0 or col > row - window or col < n_sink).
+
+Without ``causal`` neither ``window`` nor ``n_sink`` masks anything, as in
+the reference ``attention``.
+
 Mask hazard: the JAX oracle ``repro/kernels/flash_attention/ref.py::
 attention_ref`` aligns its causal mask BOTTOM-RIGHT (``tril(k=Sk-Sq)``). It
 agrees with the Pallas kernel only when Sq == Sk. This version, the CUDA
@@ -24,7 +33,8 @@ NEG = -1e30
 
 
 def flash_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, window: int = 0,
+                  n_sink: int = 0) -> torch.Tensor:
     """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd] in q.dtype (f32 math).
 
     GQA: q head h reads kv head h // (H // KV).
@@ -38,7 +48,10 @@ def flash_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         rows = torch.arange(Sq, device=q.device)[:, None]
         cols = torch.arange(Sk, device=q.device)[None, :]
-        s = s.masked_fill(cols > rows, NEG)
+        hidden = cols > rows
+        if window > 0:
+            hidden = hidden | ((cols <= rows - window) & (cols >= n_sink))
+        s = s.masked_fill(hidden, NEG)
     m = (s.amax(dim=-1, keepdim=True) if Sk
          else s.new_zeros(s.shape[:-1] + (1,)))
     p = torch.where(s <= NEG / 2, torch.zeros((), device=s.device),

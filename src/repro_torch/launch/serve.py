@@ -1,7 +1,8 @@
 """Serving entry point: batched generation with the ServeEngine on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --reduced --device cpu --dtype float32
 
 Same options as ``python -m repro.launch.serve``, plus ``--device`` (default

@@ -2,10 +2,13 @@
 
 Counterpart of ``repro/models/attention.py``:
 
-  * ``attention``        — forward/prefill, causal or not, full width (no
-    sliding window): the flash attention kernel on the card. The JAX
-    function scans query chunks of jnp math; the kernel computes the same
-    function with the scores kept on chip.
+  * ``attention``        — forward/prefill, causal or not, with an optional
+    sliding window and always-attended sinks: the flash attention kernel on
+    the card. The JAX function scans query chunks of jnp math (banded under
+    a window); the kernel computes the same function with the scores kept
+    on chip.
+  * ``sink_banded_attention`` — the reference's two-piece (sinks + band)
+    form of the same masked softmax: here the same kernel call.
   * ``decode_attention`` — one new token against the KV cache, plain torch
     (the reference has no Pallas kernel there either).
 
@@ -19,18 +22,30 @@ import torch
 
 from ..kernels.flash_attention.ops import flash_mha
 
-__all__ = ["attention", "decode_attention"]
+__all__ = ["attention", "sink_banded_attention", "decode_attention"]
 
 NEG_INF = -1e30
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Full attention over the sequence. Returns [B,S,H,hd]."""
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window attention is ported with the hybrid family")
-    return flash_mha(q, k, v, causal=causal)
+              causal: bool = True, window: int = 0, n_sink: int = 0) -> torch.Tensor:
+    """Attention over the sequence. Returns [B,S,H,hd].
+
+    window>0: causal sliding window; n_sink>0: the first ``n_sink``
+    positions are always attended (Hymba meta tokens). Under a window the
+    reference's banded form drops sinks that fall outside the band
+    (``repro/models/attention.py:102-104``); no caller reaches that case, and
+    here sinks are always attended.
+    """
+    return flash_mha(q, k, v, causal=causal, window=window, n_sink=n_sink)
+
+
+def sink_banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          window: int, n_sink: int) -> torch.Tensor:
+    """SWA + always-attend sinks. The reference computes the band and the
+    sinks as two pieces merged by a joint softmax; the kernel applies the
+    joint mask directly, so this is ``attention`` with both set."""
+    return attention(q, k, v, causal=True, window=window, n_sink=n_sink)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,8 +1,10 @@
 """Layer blocks: parameter templates + forward/prefill/decode paths.
 
 Counterpart of ``repro/models/blocks.py``, for the attention block of the
-dense family (``ATTN_BLOCK``). Each block kind is a ``Block`` record whose
-functions share one numeric core:
+dense family (``ATTN_BLOCK``) and the hybrid block of Hymba
+(``HYBRID_BLOCK``: attention and Mamba heads in parallel on one input).
+Each block kind is a ``Block`` record whose functions share one numeric
+core:
 
   template(cfg)                      -> tree of PT
   apply(cfg, p, x, ctx)              -> x                 (forward, no cache)
@@ -10,10 +12,12 @@ functions share one numeric core:
   decode(cfg, p, x, cache, ctx)      -> (x, cache)
   cache_template(cfg, B, ctx)        -> tree of PT
 
-The KV cache is preallocated by the model and updated IN PLACE: ``prefill``
-writes this layer's K/V into the cache slice it is given, and ``decode``
-writes the new token's K/V at slot ``pos``; both return that same slice.
-(The JAX package returns a new cache and donates the old one.)
+The cache is preallocated by the model and updated IN PLACE: ``prefill``
+writes this layer's K/V (and SSM state) into the cache slice it is given,
+and ``decode`` writes the new token's K/V at its slot; both return that
+same slice. (The JAX package returns a new cache and donates the old one.)
+A sliding-window layer keeps a ring: ``n_sink`` sink slots, then
+``window`` slots that the positions after the sinks cycle through.
 """
 from __future__ import annotations
 
@@ -26,8 +30,10 @@ import torch
 from ..configs.base import ArchConfig
 from .attention import attention, decode_attention
 from .layers import PT, apply_rope, map_templates, rms_norm, swiglu
+from .mamba import MambaState, mamba_decode_mix, mamba_mix
 
-__all__ = ["Block", "BlockCtx", "BLOCKS", "ATTN_BLOCK", "stackify", "rope_at"]
+__all__ = ["Block", "BlockCtx", "BLOCKS", "ATTN_BLOCK", "HYBRID_BLOCK",
+           "stackify", "rope_at"]
 
 
 @dataclass(frozen=True)
@@ -42,6 +48,7 @@ class BlockCtx:
 
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     window: int = 0            # 0 = full attention
+    n_sink: int = 0            # always-attended prefix (Hymba meta tokens)
     causal: bool = True
     pos: Optional[int] = None  # decode position
     smax: int = 0              # cache capacity (decode)
@@ -151,7 +158,8 @@ _ffn_decode = _ffn
 def _attn_core(cfg: ArchConfig, p, x, ctx: BlockCtx):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h, ctx.rope)
-    o = attention(q, k, v, causal=ctx.causal, window=ctx.window)
+    o = attention(q, k, v, causal=ctx.causal, window=ctx.window,
+                  n_sink=ctx.n_sink)
     res = _res_scale(cfg)
     x = _ffn(cfg, p, _residual(x, _out_proj(o, p["wo"]), res), res)
     return x, k, v
@@ -161,45 +169,77 @@ def _attn_apply(cfg: ArchConfig, p, x, ctx: BlockCtx) -> torch.Tensor:
     return _attn_core(cfg, p, x, ctx)[0]
 
 
-def _attn_cache_template(cfg: ArchConfig, B: int, ctx: BlockCtx):
+def _attn_cache_len(cfg: ArchConfig, ctx: BlockCtx) -> int:
     if ctx.window > 0:
-        raise NotImplementedError(
-            "the sliding-window ring cache is ported with the hybrid family")
+        return ctx.n_sink + ctx.window
+    return ctx.smax
+
+
+def _attn_cache_template(cfg: ArchConfig, B: int, ctx: BlockCtx):
     KV, hd = cfg.n_kv_heads, cfg.hd
-    spec = PT((B, ctx.smax, KV, hd), ("batch", "kv_seq", "kv_heads", None),
-              init="zeros")
+    seq_ax = "kv_seq" if ctx.window == 0 else None
+    spec = PT((B, _attn_cache_len(cfg, ctx), KV, hd),
+              ("batch", seq_ax, "kv_heads", None), init="zeros")
     return {"k": spec, "v": spec}
 
 
-def _pack_attn_cache(k, v, cache):
-    """Write the prompt's K/V into the zeroed cache slice (in place): the
-    first min(S, W) positions; later slots stay zero."""
-    n = min(k.shape[1], cache["k"].shape[1])
-    cache["k"][:, :n] = k[:, :n]
-    cache["v"][:, :n] = v[:, :n]
+def _pack_attn_cache(k, v, cache, ctx: BlockCtx):
+    """Write the prompt's K/V into the zeroed cache slice (in place).
+
+    Full attention: the first min(S, W) positions; later slots stay zero.
+    Window: the sinks in slots [0, n_sink), then the last min(window,
+    S - n_sink) positions at their ring slots n_sink + (p - n_sink) % window.
+    """
+    S = k.shape[1]
+    if ctx.window == 0:
+        n = min(S, cache["k"].shape[1])
+        cache["k"][:, :n] = k[:, :n]
+        cache["v"][:, :n] = v[:, :n]
+        return cache
+    ns, w = ctx.n_sink, ctx.window            # S >= ns: the sinks lead every prompt
+    cache["k"][:, :ns] = k[:, :ns]
+    cache["v"][:, :ns] = v[:, :ns]
+    tail = min(w, S - ns)
+    start = (S - tail - ns) % w
+    idx = ns + (start + torch.arange(tail, device=k.device)) % w
+    cache["k"][:, idx] = k[:, S - tail:]
+    cache["v"][:, idx] = v[:, S - tail:]
     return cache
 
 
 def _attn_prefill(cfg: ArchConfig, p, x, ctx: BlockCtx, cache):
     """Apply + fill this layer's preallocated cache slice from its K/V."""
     x, k, v = _attn_core(cfg, p, x, ctx)
-    return x, _pack_attn_cache(k, v, cache)
+    return x, _pack_attn_cache(k, v, cache, ctx)
+
+
+def _decode_attn_out(cfg: ArchConfig, p, h, cache, ctx: BlockCtx):
+    """Write the new token's K/V at its slot and attend over the cache:
+    h [B,1,d] (normed) -> out-projected attention [B,1,d]."""
+    pos = ctx.pos
+    q, k, v = _qkv(cfg, p, h, ctx.rope)
+    W = cache["k"].shape[1]
+    if ctx.window == 0:
+        slot = pos
+    else:
+        ns = ctx.n_sink
+        slot = pos if pos < ns else ns + (pos - ns) % ctx.window
+    # the reference's dynamic_update_slice clamps the slot into the cache
+    slot = min(slot, W - 1)
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    # the reference's ring mask (arange(W) <= pos) | (pos >= W) is this
+    # one: once pos >= W every slot is <= pos
+    valid = torch.arange(W, device=h.device) <= pos
+    o = decode_attention(q, cache["k"], cache["v"], valid)
+    return _out_proj(o, p["wo"])
 
 
 def _attn_decode(cfg: ArchConfig, p, x, cache, ctx: BlockCtx):
     """x [B,1,d]; cache {k,v [B,W,KV,hd]}; ctx.pos = absolute position."""
     res = _res_scale(cfg)
-    pos = ctx.pos
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, h, ctx.rope)
-    W = cache["k"].shape[1]
-    # the reference's dynamic_update_slice clamps the slot into the cache
-    slot = min(pos, W - 1)
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
-    valid = torch.arange(W, device=x.device) <= pos
-    o = decode_attention(q, cache["k"], cache["v"], valid)
-    x = _residual(x, _out_proj(o, p["wo"]), res)
+    x = _residual(x, _decode_attn_out(cfg, p, h, cache, ctx), res)
     return _ffn_decode(cfg, p, x, res), cache
 
 
@@ -212,4 +252,119 @@ ATTN_BLOCK = Block(
     cache_template=_attn_cache_template,
 )
 
-BLOCKS: Dict[str, Block] = {"attn": ATTN_BLOCK}
+
+# ---------------------------------------------------------------------------
+# hybrid block (Hymba): parallel attention + Mamba heads on the same input,
+# outputs normalized and fused, then dense FFN.
+# ---------------------------------------------------------------------------
+
+def _dt_rank(cfg: ArchConfig) -> int:
+    return max(1, -(-cfg.d_model // 16))
+
+
+def _hybrid_template(cfg: ArchConfig) -> Dict[str, Any]:
+    d, H, KV, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    di = cfg.ssm_expand * d
+    n, K, dtr = cfg.ssm_state, cfg.ssm_conv, _dt_rank(cfg)
+    return {
+        "ln1": PT((d,), (None,), init="ones"),
+        # attention branch
+        "wq": PT((d, H, hd), ("embed", "heads", None), fan_in=d),
+        "wk": PT((d, KV, hd), ("embed", "kv_heads", None), fan_in=d),
+        "wv": PT((d, KV, hd), ("embed", "kv_heads", None), fan_in=d),
+        "wo": PT((H, hd, d), ("heads", None, "embed"), fan_in=H * hd),
+        "norm_attn": PT((d,), (None,), init="ones"),
+        # mamba branch
+        "w_in": PT((d, 2 * di), ("embed", "ssm_inner")),
+        "conv_w": PT((di, K), ("ssm_inner", None), init="small"),
+        "w_x": PT((di, dtr + 2 * n), ("ssm_inner", None)),
+        "w_dt": PT((dtr, di), (None, "ssm_inner")),
+        "b_dt": PT((di,), ("ssm_inner",), init="small"),
+        "a_log": PT((di, n), ("ssm_inner", None), init="small"),
+        "d_skip": PT((di,), ("ssm_inner",), init="ones"),
+        "wo_m": PT((di, d), ("ssm_inner", "embed")),
+        "norm_ssm": PT((d,), (None,), init="ones"),
+        # fusion + FFN
+        "ln2": PT((d,), (None,), init="ones"),
+        "wg": PT((d, f), ("embed", "ff")),
+        "wi": PT((d, f), ("embed", "ff")),
+        "wo2": PT((f, d), ("ff", "embed")),
+    }
+
+
+def _hybrid_mamba(cfg: ArchConfig, p, h, state: Optional[MambaState] = None,
+                  decode: bool = False):
+    """Mamba heads on the normed input h [B,S,d] -> (out [B,S,d], state)."""
+    x_in, z = (h @ p["w_in"]).chunk(2, dim=-1)
+    args = (x_in, z, p["conv_w"], p["w_x"], p["w_dt"], p["b_dt"], p["a_log"],
+            p["d_skip"])
+    kw = dict(n_state=cfg.ssm_state, dt_rank=_dt_rank(cfg), state=state)
+    if decode:
+        y, st = mamba_decode_mix(*args, **kw)
+    else:
+        y, st = mamba_mix(*args, return_state=True, **kw)
+    return y @ p["wo_m"], st
+
+
+def _hybrid_fuse(cfg: ArchConfig, p, x, o_attn, o_ssm):
+    fused = 0.5 * (rms_norm(o_attn, p["norm_attn"], cfg.norm_eps)
+                   + rms_norm(o_ssm, p["norm_ssm"], cfg.norm_eps))
+    x = x + fused
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + swiglu(h2, p["wg"], p["wi"], p["wo2"])
+
+
+def _hybrid_core(cfg: ArchConfig, p, x, ctx: BlockCtx):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h, ctx.rope)
+    o = attention(q, k, v, causal=True, window=ctx.window, n_sink=ctx.n_sink)
+    o_attn = _out_proj(o, p["wo"])
+    o_ssm, st = _hybrid_mamba(cfg, p, h)
+    return _hybrid_fuse(cfg, p, x, o_attn, o_ssm), k, v, st
+
+
+def _hybrid_apply(cfg: ArchConfig, p, x, ctx: BlockCtx) -> torch.Tensor:
+    return _hybrid_core(cfg, p, x, ctx)[0]
+
+
+def _hybrid_cache_template(cfg: ArchConfig, B: int, ctx: BlockCtx):
+    di = cfg.ssm_expand * cfg.d_model
+    c = _attn_cache_template(cfg, B, ctx)
+    c["conv"] = PT((B, di, cfg.ssm_conv - 1), ("batch", "ssm_inner", None),
+                   init="zeros", dtype="float32")
+    c["ssm"] = PT((B, di, cfg.ssm_state), ("batch", "ssm_inner", None),
+                  init="zeros", dtype="float32")
+    return c
+
+
+def _hybrid_prefill(cfg: ArchConfig, p, x, ctx: BlockCtx, cache):
+    x, k, v, st = _hybrid_core(cfg, p, x, ctx)
+    _pack_attn_cache(k, v, cache, ctx)
+    cache["conv"].copy_(st.conv)
+    cache["ssm"].copy_(st.ssm)
+    return x, cache
+
+
+def _hybrid_decode(cfg: ArchConfig, p, x, cache, ctx: BlockCtx):
+    """x [B,1,d]; cache {k,v [B,W,KV,hd], conv [B,di,K-1], ssm [B,di,n]}."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    o_attn = _decode_attn_out(cfg, p, h, cache, ctx)
+    st = MambaState(conv=cache["conv"], ssm=cache["ssm"])
+    o_ssm, st = _hybrid_mamba(cfg, p, h, state=st, decode=True)
+    x = _hybrid_fuse(cfg, p, x, o_attn, o_ssm)
+    # the states stay f32 in the cache, as the reference's prefill stores them
+    cache["conv"].copy_(st.conv)
+    cache["ssm"].copy_(st.ssm)
+    return x, cache
+
+
+HYBRID_BLOCK = Block(
+    kind="hybrid",
+    template=_hybrid_template,
+    apply=_hybrid_apply,
+    prefill=_hybrid_prefill,
+    decode=_hybrid_decode,
+    cache_template=_hybrid_cache_template,
+)
+
+BLOCKS: Dict[str, Block] = {"attn": ATTN_BLOCK, "hybrid": HYBRID_BLOCK}

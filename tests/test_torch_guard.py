@@ -57,6 +57,7 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.kernels._build",
                 "repro_torch.kernels.rmsnorm.ops",
                 "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.ssm_scan.ops", "repro_torch.models.mamba",
                 "repro_torch.models.model", "repro_torch.serve.engine",
                 "repro_torch.launch.serve"):
         assert mod in names

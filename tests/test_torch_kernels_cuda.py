@@ -16,6 +16,9 @@ from repro_torch.kernels.flash_attention.ref import flash_mha_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssm_scan import ops as scan_ops
+from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 _TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -26,6 +29,7 @@ def _no_plain(monkeypatch):
         raise AssertionError("a CUDA tensor reached the plain version")
     monkeypatch.setattr(rms_ops, "rmsnorm_ref", boom)
     monkeypatch.setattr(flash_ops, "flash_mha_ref", boom)
+    monkeypatch.setattr(scan_ops, "ssm_scan_ref", boom)
 
 
 @pytest.mark.gpu
@@ -78,3 +82,59 @@ def test_flash_cuda_rejects_unsupported_head_dim():
     q = torch.zeros(1, 8, 2, 48, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         flash_mha(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,hd,window,n_sink", [
+    (2, 1152, 25, 5, 64, 1024, 128),    # hymba heads, S = window + sinks
+    (1, 700, 25, 5, 64, 256, 128),      # S > window + sinks: skipped key tiles
+    (2, 300, 4, 2, 64, 100, 7),         # ragged sinks and window vs the tiles
+    (1, 200, 4, 2, 16, 16, 8),          # reduced-config shape
+    (1, 130, 4, 1, 32, 5, 0),           # window without sinks, shorter than a tile
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_window_sink_cuda_vs_plain(B, S, H, KV, hd, window, n_sink, dt, monkeypatch):
+    require_sm90()
+    q = torch.from_numpy(randn(3, (B, S, H, hd))).to("cuda", _TDT[dt])
+    k = torch.from_numpy(randn(4, (B, S, KV, hd))).to("cuda", _TDT[dt])
+    v = torch.from_numpy(randn(5, (B, S, KV, hd))).to("cuda", _TDT[dt])
+    want = flash_mha_ref(q, k, v, causal=True, window=window, n_sink=n_sink)
+    _no_plain(monkeypatch)
+    before = flash_mha.launches
+    got = flash_mha(q, k, v, causal=True, window=window, n_sink=n_sink)
+    torch.cuda.synchronize()
+    assert flash_mha.launches == before + 1
+    close(got, want, 1e-4 if dt == "f32" else TOL["flash_bf16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_without_window_is_bitwise_the_plain_causal_kernel(causal, monkeypatch):
+    """window = n_sink = 0, and a window no row can reach past, launch the
+    kernel with the plain causal mask: the outputs are equal bit for bit."""
+    require_sm90()
+    q = torch.from_numpy(randn(6, (2, 300, 12, 128))).to("cuda", torch.bfloat16)
+    k = torch.from_numpy(randn(7, (2, 300, 2, 128))).to("cuda", torch.bfloat16)
+    v = torch.from_numpy(randn(8, (2, 300, 2, 128))).to("cuda", torch.bfloat16)
+    _no_plain(monkeypatch)
+    old = flash_mha(q, k, v, causal=causal)
+    assert torch.equal(flash_mha(q, k, v, causal=causal, window=0, n_sink=0), old)
+    assert torch.equal(flash_mha(q, k, v, causal=causal, window=300, n_sink=0), old)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 257, 51200), (37, 100), (1, 4097),
+                                   (3, 45, 130), (2, 1, 333), (1, 1, 1)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ssm_scan_cuda_vs_plain(shape, dt, monkeypatch):
+    require_sm90()
+    a = torch.sigmoid(torch.from_numpy(randn(9, shape))).to("cuda", _TDT[dt])
+    b = torch.from_numpy(randn(10, shape)).to("cuda", _TDT[dt])
+    want = ssm_scan_ref(a, b)
+    _no_plain(monkeypatch)
+    before = ssm_scan_batched.launches
+    got = ssm_scan_batched(a, b)
+    torch.cuda.synchronize()
+    assert ssm_scan_batched.launches == before + 1
+    assert got.dtype == a.dtype and got.shape == a.shape
+    close(got, want, TOL[f"scan_{dt}"])
