@@ -10,18 +10,21 @@ sliding window with meta-token sinks). Phases, each of which fails the run
 
   1. card   — name and power limit from nvidia-smi;
   2. build  — one nvcc per CUDA source, all started together, and one link
-     build the three kernels from src/;
+     build the kernels from src/;
   3. kernels — each kernel against its plain PyTorch version in f32 and
      bf16 at the main-path shapes of both models and at edge shapes; at
      the main-path shapes the kernel, the plain version and one library
      call (where one exists) are timed with CUDA events (median of 25, L2
-     flushed before each launch);
+     flushed before each launch). Flash: bf16 at hd 64/128 must run the
+     tensor-core kernel, everything else the scalar one; at the main
+     shapes the instance, its registers and shared memory, the share of
+     its bound and its ratio to SDPA are printed;
   4. model  — each model in f32: prefill + 2 decode steps match forward
      logits (hymba's 1100-token prompt wraps its window ring);
   5. serve  — each model in bf16 through ServeEngine: 8 requests, one
      straggler evicted and re-queued; every kernel's launch count, zeroed
      just before the run and read just after, must equal what the path
-     implies;
+     implies, and every flash launch must be the tensor-core kernel's;
   6. profile — wall vs device busy time of one prefill and of decode
      steps of each model, with the top kernels (torch.profiler).
 
@@ -52,6 +55,12 @@ DENSE, HYBRID = "qwen2-1.5b", "hymba-1.5b"
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
             "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:53"}
+# the route and source of each kernel on the main paths (bf16 flash at hd 64
+# and 128 runs the tensor-core kernel)
+ROUTES = {"rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu"),
+          "flash_attention": ("cuda-wgmma",
+                              "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"),
+          "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu")}
 # per model: phase-4 batch, prompt and cache; phase-5 prompt range and cache
 PATHS = {
     DENSE: dict(model_B=2, model_S=256, model_smax=512, lo=512, hi=1024, smax=2048,
@@ -172,6 +181,8 @@ def phase_build():
 def phase_kernels(torch):
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention.kernel import (WGMMA_HEAD_DIMS,
+                                                            wgmma_kernel_attrs)
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.flash_attention.ref import flash_mha_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
@@ -228,7 +239,16 @@ def phase_kernels(torch):
                (1, 700, 700, 25, 5, 64, True, 256, 128),  # skipped key tiles
                (2, 300, 300, 4, 2, 64, True, 100, 7),     # ragged window and sinks
                (2, 40, 40, 4, 2, 16, True, 16, 8),        # hymba reduced
-               (1, 130, 130, 4, 1, 32, True, 5, 0)]       # window < key tile
+               (1, 130, 130, 4, 1, 32, True, 5, 0),       # window < key tile
+               # tensor-core kernel in bf16: tails of neither tile, Sq != Sk
+               # both ways, non-causal MQA, windows that skip tiles, no key
+               (2, 333, 517, 6, 2, 128, True, 0, 0),
+               (2, 517, 333, 6, 2, 64, False, 0, 0),
+               (1, 77, 300, 5, 1, 64, False, 0, 0),
+               (1, 600, 600, 6, 2, 128, True, 200, 64),
+               (2, 427, 427, 5, 5, 64, True, 5, 0),
+               (1, 900, 900, 5, 1, 64, True, 128, 300),
+               (1, 5, 0, 2, 1, 128, True, 0, 0)]
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
         for case in main_fa + edge_fa:
@@ -238,8 +258,13 @@ def phase_kernels(torch):
             kw = dict(causal=causal, window=win, n_sink=ns)
             name = (f"flash B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} "
                     f"{'causal' if causal else 'full'} window={win} sinks={ns} {dn}")
-            err = compare(name, flash_mha(q, k, v, **kw), flash_mha_ref(q, k, v, **kw),
-                          TOL[("flash", dn)])
+            before = flash_mha.launches, flash_mha.wgmma_launches
+            got = flash_mha(q, k, v, **kw)
+            ran = (flash_mha.launches - before[0], flash_mha.wgmma_launches - before[1])
+            tc = dt == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+            if ran != ((0, 0) if tc and Sk == 0 else (1, int(tc))):
+                raise AssertionError(f"{name}: (launches, wgmma launches) rose by {ran}")
+            err = compare(name, got, flash_mha_ref(q, k, v, **kw), TOL[("flash", dn)])
             if case not in main_fa:
                 continue
             ms = timer(lambda: flash_mha(q, k, v, **kw))
@@ -261,9 +286,18 @@ def phase_kernels(torch):
                 f"{byts / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP at {peak / 1e12:g} "
                 f"TFLOP/s) | plain {plain:.3f} ms | SDPA{' (bool mask)' if win else ''} "
                 f"{lib:.3f} ms")
+            inst = {}
+            if tc:
+                inst = wgmma_kernel_attrs(hd, causal and win > 0)
+            log(f"    instance {'wgmma' if tc else 'scalar'}"
+                + (f" ({inst['registers']} registers/thread at launch, {inst['spill_bytes']} B "
+                   f"spilled, {inst['smem_bytes'] / 1024:.1f} KiB shared/block)"
+                   if tc else "")
+                + f" | kernel/SDPA {ms / lib:.2f}x | {100 * bound / ms:.1f}% of its "
+                f"bound ({ops / ms / 1e9:.1f} TFLOP/s)")
             rows[("flash", case, dn)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by=by, library_ms=lib)
+                bound_by=by, library_ms=lib, **inst)
             del qt, kt, vt
 
     log("[kernels] ssm_scan vs plain")
@@ -373,6 +407,7 @@ def phase_serve(torch, arch):
     torch.cuda.reset_peak_memory_stats()
     rmsnorm.launches = 0
     flash_mha.launches = 0
+    flash_mha.wgmma_launches = 0
     ssm_scan_batched.launches = 0
     t0 = time.perf_counter()
     out = eng.run(batch_size=4)
@@ -380,6 +415,7 @@ def phase_serve(torch, arch):
     wall = time.perf_counter() - t0
     launches = {"rmsnorm": rmsnorm.launches, "flash_attention": flash_mha.launches,
                 "ssm_scan": ssm_scan_batched.launches}
+    wgmma = flash_mha.wgmma_launches
 
     n_pf, n_dc = len(calls["prefill"]), len(calls["decode"])
     tokens = sum(len(v) for v in out.values())
@@ -398,11 +434,14 @@ def phase_serve(torch, arch):
             "ssm_scan": cfg.n_layers * n_pf if hybrid else 0}
     log(f"[serve] launches: rmsnorm {launches['rmsnorm']} (want {per_step} x "
         f"{n_pf + n_dc}), flash_attention {launches['flash_attention']} (want "
-        f"{cfg.n_layers} x {n_pf}), ssm_scan {launches['ssm_scan']} (want "
-        f"{want['ssm_scan']})")
+        f"{cfg.n_layers} x {n_pf}; tensor-core kernel {wgmma}), ssm_scan "
+        f"{launches['ssm_scan']} (want {want['ssm_scan']})")
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"{name} launches do not match the path")
+    if wgmma != want["flash_attention"]:
+        raise AssertionError("a bf16 flash launch of the serve path missed the "
+                             "tensor-core kernel")
     if completed != 7 or eng.evicted != [straggler]:
         raise AssertionError("expected 7 completed and the straggler evicted")
     if len(out[straggler]) != 16 or tokens != 7 * 32 + 16:
@@ -414,8 +453,8 @@ def phase_serve(torch, arch):
 
 def _device_ms(torch, fn, steps: int):
     """Device kernel time per step (ms), kernels launched per step and the
-    top kernels, from torch.profiler with CUDA activity only; None if it
-    saw no kernel."""
+    top kernels (and the flash attention kernels, wherever they rank), from
+    torch.profiler with CUDA activity only; None if it saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -432,7 +471,8 @@ def _device_ms(torch, fn, steps: int):
     if not rows:
         return None, 0, []
     rows.sort(reverse=True)
-    return sum(ms for ms, _ in rows), launched / steps, rows[:6]
+    shown = rows[:6] + [r for r in rows[6:] if "flash_attention" in r[1]]
+    return sum(ms for ms, _ in rows), launched / steps, shown
 
 
 def phase_profile(torch, model, params):
@@ -529,7 +569,7 @@ def main() -> int:
         (HYBRID, "ssm_scan", ("ssm_scan", (4, 1152, 51200), "float32")),
     ]
     kernels = [
-        dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+        dict(name=name, route=ROUTES[name][0], source=ROUTES[name][1],
              replaces=REPLACES[name], launches=launches[arch][name], path=arch,
              shape=list(key[1]), dtype=key[2], **rows[key])
         for arch, name, key in entries]

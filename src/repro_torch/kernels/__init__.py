@@ -2,7 +2,8 @@
 of the JAX package on the ported path.
 
 flash_attention — online-softmax attention (prefill / forward), model layout,
-  causal with an optional sliding window and sinks.
+  causal with an optional sliding window and sinks: bf16 at hd 64/128 on the
+  tensor cores (wgmma + TMA), everything else on a scalar kernel.
 rmsnorm — fused RMSNorm (every norm of the dense block, qk-norm per head).
 ssm_scan — diagonal linear scan h_t = a_t·h_{t-1} + b_t (Mamba heads).
 

@@ -30,7 +30,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "DTYPE_CODES", "build_dir", "library_path",
            "load", "check"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "rmsnorm.cu", _CSRC / "flash_attention.cu", _CSRC / "ssm_scan.cu")
+SOURCES = (_CSRC / "rmsnorm.cu", _CSRC / "flash_attention.cu",
+           _CSRC / "flash_attention_wgmma.cu", _CSRC / "ssm_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -38,11 +39,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_INTP = ctypes.POINTER(ctypes.c_int)
 # C entry point -> argtypes; each returns cudaGetLastError() as an int
 _SIGNATURES = {
     "repro_rmsnorm": (_VP, _VP, _VP, _INT, _INT, _F32, _INT, _VP),
     "repro_flash_attention": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                               _INT, _INT, _INT, _INT, _INT, _F32, _INT, _VP),
+    "repro_flash_attention_wgmma": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+                                    _INT, _INT, _INT, _INT, _F32, _VP),
+    "repro_flash_attention_wgmma_attrs": (_INT, _INT, _INTP, _INTP, _INTP),
     "repro_ssm_scan": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
 }
 

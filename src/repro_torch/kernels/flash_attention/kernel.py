@@ -1,29 +1,43 @@
-"""ctypes binding of the CUDA flash attention kernel
-(``csrc/flash_attention.cu``).
+"""ctypes bindings of the CUDA flash attention kernels.
 
 Counterpart of ``repro/kernels/flash_attention/kernel.py::flash_attention``.
 The Pallas kernel takes heads flattened into the batch ([BH, S, hd]); the
-CUDA kernel reads the model layout [B, S, H, hd] / [B, S, KV, hd] directly,
-so no transpose is materialised around it.
+CUDA kernels read the model layout [B, S, H, hd] / [B, S, KV, hd] directly,
+so no transpose is materialised around them.
+
+* ``flash_attention_cuda`` — ``csrc/flash_attention.cu``: scalar f32 FMAs,
+  f32 or bf16, head dims ``HEAD_DIMS``.
+* ``flash_attention_wgmma_cuda`` — ``csrc/flash_attention_wgmma.cu``: bf16
+  on the tensor cores (wgmma) with K/V streamed by TMA, head dims
+  ``WGMMA_HEAD_DIMS``, Sk > 0, 16-byte aligned tensors.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from .. import _build
 
-__all__ = ["HEAD_DIMS", "flash_attention_cuda"]
+__all__ = ["HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BLOCK_Q", "WGMMA_BLOCK_K",
+           "flash_attention_cuda", "flash_attention_wgmma_cuda",
+           "wgmma_kernel_attrs"]
 
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+# query rows per block and keys per K/V tile of the tensor-core kernel
+# (kRows, kKeys in csrc/flash_attention_wgmma.cu)
+WGMMA_BLOCK_Q = 128
+WGMMA_BLOCK_K = 128
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, *, causal: bool, window: int = 0,
                          n_sink: int = 0) -> None:
-    """Launch into ``out`` [B,Sq,H,hd] with scale 1/sqrt(hd); the caller has
-    checked device, dtype, shapes and contiguity."""
+    """Launch the scalar kernel into ``out`` [B,Sq,H,hd] with scale
+    1/sqrt(hd); the caller has checked device, dtype, shapes and
+    contiguity."""
     lib = _build.load()
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -34,3 +48,34 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("repro_flash_attention", err)
+
+
+def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               out: torch.Tensor, *, causal: bool, window: int = 0,
+                               n_sink: int = 0) -> None:
+    """Launch the tensor-core kernel into ``out`` [B,Sq,H,hd] with scale
+    1/sqrt(hd); the caller has checked device, bf16, shapes, contiguity,
+    alignment, hd in ``WGMMA_HEAD_DIMS`` and Sk > 0."""
+    lib = _build.load()
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    err = lib.repro_flash_attention_wgmma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, Sk, H, KV, hd, int(causal), int(window), int(n_sink),
+        1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("repro_flash_attention_wgmma", err)
+
+
+def wgmma_kernel_attrs(hd: int, windowed: bool) -> dict:
+    """Registers per thread at launch (setmaxnreg then moves them to the
+    consumer warpgroups), spill bytes per thread and shared memory per block
+    of the tensor-core instance for ``hd`` (cudaFuncGetAttributes)."""
+    lib = _build.load()
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _build.check("repro_flash_attention_wgmma_attrs",
+                 lib.repro_flash_attention_wgmma_attrs(
+                     hd, int(windowed), ctypes.byref(regs), ctypes.byref(local),
+                     ctypes.byref(smem)))
+    return {"registers": regs.value, "spill_bytes": local.value,
+            "smem_bytes": smem.value}

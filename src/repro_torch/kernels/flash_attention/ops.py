@@ -6,15 +6,25 @@ layout q [B,S,H,hd], k/v [B,Sk,KV,hd] and returns [B,S,H,hd] in q.dtype.
 Under ``causal``, ``window > 0`` limits each row to its last ``window``
 keys, and the first ``n_sink`` keys stay visible to every row after them
 (``ref.py`` states the mask). A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.
-``flash_mha.launches`` counts kernel launches and nothing else.
+tensor launches a kernel or raises.
+
+Dispatch on the card, by dtype and shape only: bf16 at hd 64 or 128 goes
+to the tensor-core kernel (``csrc/flash_attention_wgmma.cu``); every other
+call (f32, whose products would run as TF32 on the tensor cores, and bf16
+at the reduced configs' hd 16/32) to the scalar kernel
+(``csrc/flash_attention.cu``). The tensor-core path raises on what it does
+not take (a pointer that is not 16-byte aligned); with Sk = 0 it launches
+nothing and returns the zero rows that the kernel's contract gives.
+``flash_mha.launches`` counts every kernel launch and nothing else;
+``flash_mha.wgmma_launches`` counts the tensor-core kernel's launches.
 """
 from __future__ import annotations
 
 import torch
 
 from .._build import DTYPE_CODES
-from .kernel import HEAD_DIMS, flash_attention_cuda
+from .kernel import (HEAD_DIMS, WGMMA_HEAD_DIMS, flash_attention_cuda,
+                     flash_attention_wgmma_cuda)
 from .ref import flash_mha_ref
 
 __all__ = ["flash_mha"]
@@ -46,10 +56,23 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if B * H * S == 0:
         return out
-    flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), out,
-                         causal=causal, window=window, n_sink=n_sink)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        if k.shape[1] == 0:          # no key: every row comes out 0
+            return out.zero_()
+        for t in (q, k, v, out):
+            if t.data_ptr() % 16:
+                raise ValueError("flash_mha: the tensor-core kernel needs 16-byte "
+                                 "aligned q, k, v and out (TMA)")
+        flash_attention_wgmma_cuda(q, k, v, out, causal=causal, window=window,
+                                   n_sink=n_sink)
+        flash_mha.wgmma_launches += 1
+    else:
+        flash_attention_cuda(q, k, v, out, causal=causal, window=window,
+                             n_sink=n_sink)
     flash_mha.launches += 1
     return out
 
 
 flash_mha.launches = 0
+flash_mha.wgmma_launches = 0

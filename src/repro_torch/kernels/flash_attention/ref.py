@@ -20,6 +20,13 @@ attention_ref`` aligns its causal mask BOTTOM-RIGHT (``tril(k=Sk-Sq)``). It
 agrees with the Pallas kernel only when Sq == Sk. This version, the CUDA
 kernel and the port follow the kernel (top-left); a test with Sq != Sk is
 held against the Pallas kernel, never against ``attention_ref``.
+
+``flash_mha_tiled`` emulates the tile loop of the tensor-core kernel
+(``csrc/flash_attention_wgmma.cu``) for the tests: the same key tiles, chosen
+by ``tile_visited`` (the twin of the kernel's predicate), the same online
+softmax per tile on raw scores with ``exp2``, ``l`` summed over the f32 p,
+and P rounded to the input dtype before ``P·V``. Nothing on the model path
+calls it.
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ import math
 
 import torch
 
-__all__ = ["NEG", "flash_mha_ref"]
+from .kernel import WGMMA_BLOCK_K, WGMMA_BLOCK_Q
+
+__all__ = ["NEG", "flash_mha_ref", "tile_visited", "flash_mha_tiled"]
 
 NEG = -1e30
 
@@ -59,3 +68,63 @@ def flash_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bkgqs,bskh->bqkgh", p / l, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def tile_visited(k0: int, q0: int, block_q: int, block_k: int, Sk: int, *,
+                 causal: bool, window: int = 0, n_sink: int = 0) -> bool:
+    """Does key tile [k0, k0+block_k) hold a visible pair for some row of
+    query tile [q0, q0+block_q)? The twin of ``tile_visited`` in
+    ``csrc/flash_attention_wgmma.cu``: a tile it skips would only add p = 0
+    with m unchanged."""
+    if k0 >= Sk:
+        return False
+    if not causal:
+        return True
+    if k0 >= q0 + block_q:                    # wholly past the last row
+        return False
+    # under a window: not wholly between the sinks and the band of row q0
+    return window == 0 or k0 < n_sink or k0 + block_k > q0 - window + 1
+
+
+def flash_mha_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, n_sink: int = 0,
+                    block_q: int = WGMMA_BLOCK_Q,
+                    block_k: int = WGMMA_BLOCK_K) -> torch.Tensor:
+    """The tensor-core kernel's tile loop in plain torch; same signature and
+    result as ``flash_mha_ref`` up to sum order and the rounding of P."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale_log2 = (1.0 / math.sqrt(hd)) * math.log2(math.e)
+    qf = q.float().permute(0, 2, 1, 3)                           # [B,H,Sq,hd]
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(G, 1)   # [B,H,Sk,hd]
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(G, 1)
+    out = torch.zeros(B, H, Sq, hd, device=q.device)
+    for q0 in range(0, Sq, block_q):
+        q1 = min(q0 + block_q, Sq)
+        rows = torch.arange(q0, q1, device=q.device)[:, None]
+        m = torch.full((B, H, q1 - q0, 1), NEG, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, q1 - q0, hd, device=q.device)
+        for k0 in range(0, Sk, block_k):
+            if not tile_visited(k0, q0, block_q, block_k, Sk, causal=causal,
+                                window=window, n_sink=n_sink):
+                continue
+            k1 = min(k0 + block_k, Sk)
+            s = qf[:, :, q0:q1] @ kf[:, :, k0:k1].transpose(-1, -2)  # raw scores
+            if causal:
+                cols = torch.arange(k0, k1, device=q.device)[None, :]
+                hidden = cols > rows
+                if window > 0:
+                    hidden = hidden | ((cols <= rows - window) & (cols >= n_sink))
+                s = s.masked_fill(hidden, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2((m - m_new) * scale_log2)
+            p = torch.where(s <= NEG / 2, torch.zeros((), device=s.device),
+                            torch.exp2(s * scale_log2 - m_new * scale_log2))
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            p = p.to(q.dtype).float()                # P enters P·V in q.dtype
+            acc = acc * alpha + p @ vf[:, :, k0:k1]
+            m = m_new
+        out[:, :, q0:q1] = acc / l.clamp_min(1e-30)
+    return out.permute(0, 2, 1, 3).to(q.dtype)

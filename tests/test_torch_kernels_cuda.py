@@ -11,8 +11,9 @@ import torch
 
 from _torch_common import TOL, close, randn, require_sm90
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_mha
-from repro_torch.kernels.flash_attention.ref import flash_mha_ref
+from repro_torch.kernels.flash_attention.ref import flash_mha_ref, flash_mha_tiled
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -50,6 +51,19 @@ def test_rmsnorm_cuda_vs_plain(shape, dt, monkeypatch):
     close(got, want, TOL[f"rmsnorm_{dt}"])
 
 
+def _flash_launched(q, k, v, **kw):
+    """flash_mha(q, k, v, **kw) and the rise of (launches, wgmma_launches):
+    bf16 at hd 64/128 with a key is one tensor-core launch, Sk = 0 there
+    none, anything else one scalar launch."""
+    before = flash_mha.launches, flash_mha.wgmma_launches
+    got = flash_mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tc = q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS
+    want = (0, 0) if tc and k.shape[1] == 0 else (1, int(tc))
+    assert (flash_mha.launches - before[0], flash_mha.wgmma_launches - before[1]) == want
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", [
     (2, 256, 256, 12, 2, 128, True),    # qwen2 heads
@@ -60,6 +74,11 @@ def test_rmsnorm_cuda_vs_plain(shape, dt, monkeypatch):
     (1, 130, 130, 8, 1, 16, True),      # MQA, hd 16
     (2, 64, 200, 3, 3, 128, False),     # MHA, non-causal, Sq != Sk
     (1, 5, 0, 2, 1, 16, True),          # no key at all: rows come out 0
+    (1, 5, 0, 2, 1, 128, True),         # ... and at a tensor-core head dim
+    (2, 333, 517, 6, 2, 128, True),     # tails of neither tile size, Sq < Sk
+    (2, 517, 333, 6, 2, 128, True),     # Sq > Sk: rows past Sk see a ragged tile
+    (1, 77, 300, 5, 1, 64, False),      # MQA, non-causal, one short query tile
+    (2, 1, 129, 4, 4, 64, True),        # one row, one key past a tile
 ])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_cuda_vs_plain(B, Sq, Sk, H, KV, hd, causal, dt, monkeypatch):
@@ -69,10 +88,7 @@ def test_flash_cuda_vs_plain(B, Sq, Sk, H, KV, hd, causal, dt, monkeypatch):
     v = torch.from_numpy(randn(2, (B, Sk, KV, hd))).to("cuda", _TDT[dt])
     want = flash_mha_ref(q, k, v, causal=causal)
     _no_plain(monkeypatch)
-    before = flash_mha.launches
-    got = flash_mha(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert flash_mha.launches == before + 1
+    got = _flash_launched(q, k, v, causal=causal)
     close(got, want, 1e-4 if dt == "f32" else TOL["flash_bf16"])
 
 
@@ -91,6 +107,9 @@ def test_flash_cuda_rejects_unsupported_head_dim():
     (2, 300, 4, 2, 64, 100, 7),         # ragged sinks and window vs the tiles
     (1, 200, 4, 2, 16, 16, 8),          # reduced-config shape
     (1, 130, 4, 1, 32, 5, 0),           # window without sinks, shorter than a tile
+    (1, 600, 6, 2, 128, 200, 64),       # hd 128 under a window: skipped tiles
+    (2, 427, 5, 5, 64, 5, 0),           # window of 5, no sinks, ragged S
+    (1, 900, 5, 1, 64, 128, 300),       # sinks past the first tile, MQA
 ])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_window_sink_cuda_vs_plain(B, S, H, KV, hd, window, n_sink, dt, monkeypatch):
@@ -100,11 +119,33 @@ def test_flash_window_sink_cuda_vs_plain(B, S, H, KV, hd, window, n_sink, dt, mo
     v = torch.from_numpy(randn(5, (B, S, KV, hd))).to("cuda", _TDT[dt])
     want = flash_mha_ref(q, k, v, causal=True, window=window, n_sink=n_sink)
     _no_plain(monkeypatch)
-    before = flash_mha.launches
-    got = flash_mha(q, k, v, causal=True, window=window, n_sink=n_sink)
-    torch.cuda.synchronize()
-    assert flash_mha.launches == before + 1
+    got = _flash_launched(q, k, v, causal=True, window=window, n_sink=n_sink)
     close(got, want, 1e-4 if dt == "f32" else TOL["flash_bf16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window,n_sink", [
+    (2, 1024, 1024, 12, 2, 128, True, 0, 0),     # qwen2 prefill heads
+    (1, 1152, 1152, 25, 5, 64, True, 1024, 128),  # hymba, S = window + sinks
+    (1, 700, 700, 25, 5, 64, True, 256, 128),    # hymba heads, skipped tiles
+    (2, 333, 517, 6, 2, 128, True, 0, 0),
+    (2, 300, 300, 4, 1, 64, False, 0, 0),
+])
+def test_flash_wgmma_vs_tiled_emulation(B, Sq, Sk, H, KV, hd, causal, window, n_sink,
+                                        monkeypatch):
+    """The tensor-core kernel against its tile loop in plain torch
+    (``flash_mha_tiled``: the same tiles, P rounded to bf16 before P·V, l
+    over the f32 p). What is left is sum order and the hardware exp2, which
+    can move a p across a bf16 rounding edge; the output itself is one bf16
+    rounding (2^-8 relative): tolerance 1e-2."""
+    require_sm90()
+    q = torch.from_numpy(randn(11, (B, Sq, H, hd))).to("cuda", torch.bfloat16)
+    k = torch.from_numpy(randn(12, (B, Sk, KV, hd))).to("cuda", torch.bfloat16)
+    v = torch.from_numpy(randn(13, (B, Sk, KV, hd))).to("cuda", torch.bfloat16)
+    kw = dict(causal=causal, window=window, n_sink=n_sink)
+    want = flash_mha_tiled(q, k, v, **kw)
+    _no_plain(monkeypatch)
+    close(_flash_launched(q, k, v, **kw), want, 1e-2)
 
 
 @pytest.mark.gpu
