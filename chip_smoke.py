@@ -15,7 +15,12 @@ sliding window with meta-token sinks). Phases, each of which fails the run
      bf16 at the main-path shapes of both models and at edge shapes; at
      the main-path shapes the kernel, the plain version and one library
      call (where one exists) are timed with CUDA events (median of 25, L2
-     flushed before each launch). Flash: bf16 at hd 64/128 must run the
+     flushed before each launch). rmsnorm: at the main shapes the variant
+     its plan chose, its registers and shared memory, the share of its
+     bound, its ratios to F.rms_norm and to a device copy of x (the same
+     bytes, no arithmetic), and the host us per call of the
+     wrapper and of F.rms_norm at [4, 1536] bf16 (1000 calls back to back,
+     wall clock, one synchronize). Flash: bf16 at hd 64/128 must run the
      tensor-core kernel, everything else the scalar one; at the main
      shapes the instance, its registers and shared memory, the share of
      its bound and its ratio to SDPA are printed;
@@ -31,6 +36,12 @@ sliding window with meta-token sinks). Phases, each of which fails the run
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
 >= 9.0 and nvcc; exits 1 without them.
+
+  python3 chip_smoke.py --host-us
+
+runs phases 1 and 2 and only the host-time measurement of rmsnorm, against
+the package beside this file (so a copy of the script placed in another
+checkout measures that checkout's wrapper), and prints no result line.
 """
 from __future__ import annotations
 
@@ -58,7 +69,7 @@ REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
 # the route and source of each kernel on the main paths (bf16 flash at hd 64
 # and 128 runs the tensor-core kernel)
 ROUTES = {"rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu"),
-          "flash_attention": ("cuda-wgmma",
+          "flash_attention": ("cuda",
                               "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"),
           "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu")}
 # per model: phase-4 batch, prompt and cache; phase-5 prompt range and cache
@@ -157,6 +168,40 @@ def compare(name, got, want, tol):
     return err
 
 
+def host_us(torch, calls: int = 1000, rounds: int = 5) -> dict:
+    """Host wall time per call (us) of the rmsnorm wrapper and of F.rms_norm
+    at the decode shape [4, 1536] bf16: `calls` calls back to back, no
+    flush, one synchronize at the end; the median of `rounds`, taken in
+    turns."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((4, 1536), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((1536,), generator=gen, device="cuda").to(torch.bfloat16)
+    fns = {"rmsnorm": lambda: rmsnorm(x, w, 1e-6),
+           "F.rms_norm": lambda: F.rms_norm(x, (1536,), w, 1e-6)}
+    got = {name: [] for name in fns}
+    for fn in fns.values():
+        for _ in range(100):
+            fn()
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            got[name].append((time.perf_counter() - t0) / calls * 1e6)
+    out = {name: statistics.median(v) for name, v in got.items()}
+    log(f"[host] rmsnorm [4,1536] bf16, {calls} calls back to back, median of "
+        f"{rounds}: wrapper {out['rmsnorm']:.2f} us/call, F.rms_norm "
+        f"{out['F.rms_norm']:.2f} us/call "
+        f"({', '.join(f'{n} ' + ' '.join(f'{t:.2f}' for t in v) for n, v in got.items())})")
+    return out
+
+
 # -- phases -------------------------------------------------------------------
 
 def phase_card():
@@ -185,8 +230,9 @@ def phase_kernels(torch):
                                                             wgmma_kernel_attrs)
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.flash_attention.ref import flash_mha_ref
+    from repro_torch.kernels.rmsnorm.kernel import kernel_attrs, kernel_plan
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.ref import VARIANTS, rmsnorm_ref
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -202,25 +248,53 @@ def phase_kernels(torch):
     # hymba: prefill B=4 S=1024+128 meta, decode B=4
     main_rms = [(4 * 1024, 1536), (4, 1536), (4 * 1024 * 12, 128),
                 (4 * 1152, 1600), (4, 1600)]
-    edge_rms = [(1, 16), (37, 100), (5, 8192), (3 * 50, 512), (2 * 20 * 4, 16)]
+    # every variant of the plan: narrow rows several to a warp, the widest
+    # across warps, d that rules out 16-byte loads, x at an odd element
+    # offset (the last element of a case says so)
+    edge_rms = [(1, 16), (37, 100), (5, 8192), (3 * 50, 512), (2 * 20 * 4, 16),
+                (300, 8192), (1000, 24), (600, 1536), (4, 1536, 1), (4096, 1536, 1)]
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
-        for shape in main_rms + edge_rms:
-            x, w = randn(shape, dt), randn(shape[-1:], dt)
-            err = compare(f"rmsnorm {list(shape)} {dn}", rmsnorm(x, w, 1e-6),
+        for case in main_rms + edge_rms:
+            shape, offset = case[:2], (case[2] if len(case) > 2 else 0)
+            x = randn((shape[0] * shape[1] + offset,), dt)[offset:].view(shape)
+            w = randn(shape[-1:], dt)
+            plan = kernel_plan(*shape, dt, offset == 0)
+            before = rmsnorm.launches
+            got = rmsnorm(x, w, 1e-6)
+            if rmsnorm.launches != before + 1:
+                raise AssertionError(f"rmsnorm {list(shape)}: no launch counted")
+            err = compare(f"rmsnorm {list(shape)}{' offset %d' % offset if offset else ''} "
+                          f"{dn} ({VARIANTS[plan.variant]})", got,
                           rmsnorm_ref(x, w, 1e-6), TOL[("rmsnorm", dn)])
-            if shape not in main_rms:
+            if case not in main_rms:
                 continue
             ms = timer(lambda: rmsnorm(x, w, 1e-6))
             plain = timer(lambda: rmsnorm_ref(x, w, 1e-6))
             lib = timer(lambda: F.rms_norm(x, (shape[-1],), w, 1e-6))
+            # a device copy of x moves the same bytes with no arithmetic: the
+            # floor of this timer for a kernel bound by bytes
+            y = torch.empty_like(x)
+            copy = timer(lambda: y.copy_(x))
             bound, by, byts, ops = rms_bound(shape[0], shape[1], x.element_size())
-            log(f"    time {ms * 1e3:.1f} us | bound {bound * 1e3:.2f} us ({by}: "
+            attrs = kernel_attrs(plan, dt)
+            log(f"    time {ms * 1e3:.2f} us | bound {bound * 1e3:.2f} us ({by}: "
                 f"{byts / 1e6:.2f} MB, {ops / 1e6:.1f} MFLOP) | plain "
-                f"{plain * 1e3:.1f} us | F.rms_norm {lib * 1e3:.1f} us")
+                f"{plain * 1e3:.1f} us | F.rms_norm {lib * 1e3:.2f} us | copy of x "
+                f"{copy * 1e3:.2f} us (kernel/copy {ms / copy:.2f}x)")
+            log(f"    variant {VARIANTS[plan.variant]} (grid {plan.grid} x "
+                f"{plan.threads} threads, {plan.tpr} threads per row"
+                + (f", {plan.stages} stages of {plan.tile_rows} rows" if plan.stages else "")
+                + f") | {attrs['registers']} registers/thread, {attrs['spill_bytes']} B "
+                f"spilled, {attrs['smem_bytes'] / 1024:.1f} KiB shared/block | "
+                f"kernel/F.rms_norm {ms / lib:.2f}x | {100 * bound / ms:.1f}% of its bound")
             rows[("rmsnorm", shape, dn)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by=by, library_ms=lib)
+                bound_by=by, library_ms=lib, copy_ms=copy, variant=VARIANTS[plan.variant],
+                **attrs)
+    host = host_us(torch)
+    rows[("rmsnorm", (4, 1536), "bfloat16")].update(
+        host_us=host["rmsnorm"], library_host_us=host["F.rms_norm"])
 
     log("[kernels] flash attention vs plain")
     # (B, Sq, Sk, H, KV, hd, causal, window, n_sink)
@@ -545,6 +619,9 @@ def main() -> int:
             f"capability {torch.cuda.get_device_capability(0)}")
         card = phase_card()
         phase_build()
+        if sys.argv[1:] == ["--host-us"]:
+            host_us(torch)
+            return 0
         rows = phase_kernels(torch)
         launches = {}
         for arch in (DENSE, HYBRID):

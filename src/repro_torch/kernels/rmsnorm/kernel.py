@@ -1,24 +1,66 @@
 """ctypes binding of the CUDA RMSNorm kernel (``csrc/rmsnorm.cu``).
 
-Counterpart of ``repro/kernels/rmsnorm/kernel.py::fused_rmsnorm``: the
-Pallas kernel's row blocks become one warp per row on Hopper.
+Counterpart of ``repro/kernels/rmsnorm/kernel.py::fused_rmsnorm``. The
+Pallas kernel's row blocks become one of four variants on Hopper, chosen by
+the kernel's plan (``ref.py::rmsnorm_plan`` is its twin): one block per row
+for fewer rows than SMs (decode), lane groups per row in two passes for
+many rows of at most 4 KiB (bf16 prefill, qk-norm heads), persistent blocks
+streaming wider rows through shared memory by bulk copy (f32 prefill), and
+element loads where 16-byte loads are ruled out.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .. import _build
+from .ref import RmsnormPlan
 
-__all__ = ["rmsnorm_cuda"]
+__all__ = ["rmsnorm_cuda", "kernel_plan", "kernel_attrs"]
+
+_launch = None      # the C entry point, bound at the first launch
+_raw_stream = None  # device index -> the current stream's cudaStream_t
 
 
-def rmsnorm_cuda(x2: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
-                 eps: float) -> None:
-    """Launch on ``x2`` [rows, d] into ``out``; the caller has checked device,
-    dtype, shape and contiguity."""
-    lib = _build.load()
-    rows, d = x2.shape
-    err = lib.repro_rmsnorm(x2.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d,
-                            float(eps), _build.DTYPE_CODES[x2.dtype],
-                            torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check("repro_rmsnorm", err)
+def _bind() -> None:
+    """Bind the entry point and the stream query once. The raw stream comes
+    from ``torch._C._cuda_getCurrentRawStream``, as for PyTorch's own
+    compiled kernels: ``torch.cuda.current_stream`` would build a Stream
+    object on every call."""
+    global _launch, _raw_stream
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    _launch = _build.load().repro_rmsnorm
+
+
+def rmsnorm_cuda(x2: torch.Tensor, w: torch.Tensor, out: torch.Tensor, rows: int,
+                 d: int, eps: float, dtype_code: int) -> None:
+    """Launch on ``x2`` (``rows * d`` contiguous elements) into ``out``; the
+    caller has checked device, dtype, shape and contiguity."""
+    if _launch is None:
+        _bind()
+    err = _launch(x2.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d, eps, dtype_code,
+                  _raw_stream(x2.get_device()))
+    if err:
+        _build.check("repro_rmsnorm", err)
+
+
+def kernel_plan(rows: int, d: int, dtype: torch.dtype, aligned: bool,
+                n_sm: int = 0) -> RmsnormPlan:
+    """The plan the C side takes (``repro_rmsnorm_plan``); ``n_sm`` 0 asks
+    the current device."""
+    out = (ctypes.c_int * 9)()
+    _build.check("repro_rmsnorm_plan", _build.load().repro_rmsnorm_plan(
+        rows, d, _build.DTYPE_CODES[dtype], int(aligned), n_sm, out))
+    return RmsnormPlan(*out)
+
+
+def kernel_attrs(plan: RmsnormPlan, dtype: torch.dtype) -> dict:
+    """Registers and spill bytes per thread of the instance ``plan`` launches,
+    and its shared memory per block (static plus the plan's dynamic)."""
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _build.check("repro_rmsnorm_attrs", _build.load().repro_rmsnorm_attrs(
+        plan.variant, _build.DTYPE_CODES[dtype], plan.tpr, plan.vpt, ctypes.byref(regs),
+        ctypes.byref(local), ctypes.byref(smem)))
+    return {"registers": regs.value, "spill_bytes": local.value,
+            "smem_bytes": smem.value + plan.smem}

@@ -19,24 +19,26 @@ MAX_D = 8192
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, w, eps)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return rmsnorm_ref(x, w, eps)
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
     d = x.shape[-1]
-    if w.device != x.device or w.dtype != x.dtype or tuple(w.shape) != (d,):
+    if w.dtype != x.dtype or w.shape != (d,) or w.get_device() != x.get_device():
         raise ValueError(f"rmsnorm: w must be [{d}] {x.dtype} on {x.device}, "
                          f"got {tuple(w.shape)} {w.dtype} on {w.device}")
-    if x.dtype not in DTYPE_CODES:
+    code = DTYPE_CODES.get(x.dtype)
+    if code is None:
         raise TypeError(f"rmsnorm: dtype {x.dtype} not supported")
     if not 0 < d <= MAX_D:
         raise ValueError(f"rmsnorm: d={d} outside 1..{MAX_D}")
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    out = torch.empty_like(x)
     rows = x.numel() // d
     if rows == 0:
         return out
-    rmsnorm_cuda(x.contiguous().view(rows, d), w.contiguous(),
-                 out.view(rows, d), eps)
+    rmsnorm_cuda(x, w if w.is_contiguous() else w.contiguous(), out, rows, d, eps, code)
     rmsnorm.launches += 1
     return out
 

@@ -1,13 +1,186 @@
 """Plain PyTorch version of fused RMSNorm (counterpart of
-``repro/kernels/rmsnorm/ref.py::rmsnorm_ref``): math in f32, cast back."""
+``repro/kernels/rmsnorm/ref.py::rmsnorm_ref``): math in f32, cast back.
+
+Beside it, the CPU twins of the CUDA kernel (``csrc/rmsnorm.cu``):
+
+* ``rmsnorm_plan`` — the kernel's plan, a pure function of the shape, the
+  dtype, the 16-byte alignment of the pointers and the SM count; the C
+  ``repro_rmsnorm_plan`` computes the same (the card tests compare them).
+* ``plan_coverage`` — how many threads each element of ``[rows, d]`` goes
+  to under a plan, walking the kernel's own loops (tests only).
+* ``rmsnorm_tiled`` — the kernel's partition of each row and its order of
+  reduction, emulated in f32 (tests only).
+"""
 from __future__ import annotations
 
-import torch
+from typing import NamedTuple
 
-__all__ = ["rmsnorm_ref"]
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = ["rmsnorm_ref", "RmsnormPlan", "rmsnorm_plan", "plan_coverage",
+           "rmsnorm_tiled", "SCALAR", "LATENCY", "ROWS", "STREAM", "VARIANTS",
+           "SMEM_LIMIT", "MAX_THREADS"]
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+# -- the plan (constants as in csrc/rmsnorm.cu) --------------------------------
+
+SCALAR, LATENCY, ROWS, STREAM = 0, 1, 2, 3
+VARIANTS = ("scalar", "latency", "rows", "stream")
+SMEM_LIMIT = 232448        # shared memory one block may use on the H100 (227 KiB)
+SMEM_PER_SM = 233472       # shared memory of one SM (228 KiB)
+SMEM_PER_BLOCK = 1024      # of which the system keeps per block
+MAX_THREADS = 1024
+ROWS_WARPS = 4             # rows, scalar: warps per block
+ROWS_MAX_BYTES = 4096      # rows: widest row (wider ones stream)
+CONSUMER_WARPS = 8         # stream: warps that reduce and write (+1 producer warp)
+STAGES = 2                 # stream: stages of the ring
+WARP_VECS = 512            # stream: 16-byte vectors of a row one warp takes alone
+
+
+class RmsnormPlan(NamedTuple):
+    variant: int     # SCALAR, LATENCY, ROWS or STREAM
+    grid: int        # blocks
+    threads: int     # threads per block
+    tpr: int         # threads that share one row
+    vec: int         # elements per load (16 bytes, or 1 in the scalar variant)
+    vpt: int         # loads of x per thread and row, at most
+    tile_rows: int   # rows per block (rows, scalar), per stage of the ring (stream)
+    stages: int      # stages of the ring (stream)
+    smem: int        # dynamic shared memory per block, bytes
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def stream_smem(row_bytes: int, stage_bytes: int) -> int:
+    """w, the ring, a full and an empty mbarrier per stage, one for w, and
+    the cross-warp partial sums (two rows' worth)."""
+    return row_bytes + STAGES * stage_bytes + 8 * (2 * STAGES + 1) + 4 * 2 * CONSUMER_WARPS
+
+
+def rmsnorm_plan(rows: int, d: int, dtype: torch.dtype, aligned: bool,
+                 n_sm: int) -> RmsnormPlan:
+    """The variant and launch shape the kernel takes for x ``[rows, d]``.
+
+    * scalar — any d, any pointer: one warp per row, element loads.
+    * latency — 16-byte loads possible and fewer rows than SMs (decode):
+      one block per row, each thread one or two vectors of x and w.
+    * rows — 16-byte loads possible, many rows of at most 4 KiB: ``tpr``
+      lanes per row (a power of two, several rows to a warp for narrow
+      rows), two passes over the row.
+    * stream — 16-byte loads possible, many rows over 4 KiB: one or two
+      persistent blocks per SM stream their rows through a two-stage ring
+      of shared memory by bulk copy; ``tpr`` is 1, 2 or 4 warps.
+    """
+    esize = dtype.itemsize
+    vec = 16 // esize
+    if not aligned or d % vec:
+        return RmsnormPlan(SCALAR, _cdiv(rows, ROWS_WARPS), 32 * ROWS_WARPS, 32, 1,
+                           _cdiv(d, 32), ROWS_WARPS, 0, 0)
+    nvec = d // vec
+    if rows < n_sm:
+        vpt = 1 if nvec <= MAX_THREADS else 2
+        threads = 32 * _cdiv(_cdiv(nvec, vpt), 32)
+        return RmsnormPlan(LATENCY, rows, threads, threads, vec, vpt, 1, 0, 0)
+    row_bytes = d * esize
+    if row_bytes <= ROWS_MAX_BYTES:
+        tpr = min(32, _pow2(nvec))
+        per_block = 32 * ROWS_WARPS // tpr
+        return RmsnormPlan(ROWS, _cdiv(rows, per_block), 32 * ROWS_WARPS, tpr, vec,
+                           _cdiv(nvec, tpr), per_block, 0, 0)
+    tpr = 32 if nvec <= WARP_VECS else 32 * _pow2(_cdiv(nvec, WARP_VECS))
+    tile_rows = 32 * CONSUMER_WARPS // tpr
+    smem = stream_smem(row_bytes, tile_rows * row_bytes)
+    per_sm = 2 if 2 * (smem + SMEM_PER_BLOCK) <= SMEM_PER_SM else 1
+    return RmsnormPlan(STREAM, min(rows, per_sm * n_sm), 32 * (CONSUMER_WARPS + 1), tpr,
+                       vec, _cdiv(nvec, tpr), tile_rows, STAGES, smem)
+
+
+# -- the partition, walked as the kernel walks it -----------------------------
+
+def _count(rows_idx: np.ndarray, elems: np.ndarray, rows: int, d: int) -> np.ndarray:
+    """Each of ``rows_idx`` (the rows a set of threads reduces) against each
+    of ``elems`` (the elements of a row those threads hold)."""
+    flat = (rows_idx[:, None] * d + elems[None, :]).ravel()
+    return np.bincount(flat, minlength=rows * d)
+
+
+def _elems(plan: RmsnormPlan, nvec: int, threads: int) -> np.ndarray:
+    """The elements thread ``t`` of a row holds: vectors t, t + threads, ..."""
+    i = (np.arange(threads)[:, None] + threads * np.arange(plan.vpt)[None, :]).ravel()
+    i = i[i < nvec]
+    return (i[:, None] * plan.vec + np.arange(plan.vec)[None, :]).ravel()
+
+
+def plan_coverage(plan: RmsnormPlan, rows: int, d: int) -> np.ndarray:
+    """How many threads' slices hold each element of ``[rows, d]`` under
+    ``plan``, following the kernel's loops (1 everywhere when the plan is
+    a partition)."""
+    nvec = d // plan.vec
+    e = _elems(plan, nvec, plan.tpr)
+    if plan.variant in (SCALAR, ROWS):
+        # block b, thread t: row b * tile_rows + t // tpr, lane group t % tpr
+        r = (np.arange(plan.grid)[:, None] * plan.tile_rows
+             + np.arange(plan.threads // plan.tpr)[None, :]).ravel()
+        counts = _count(r[r < rows], e, rows, d)
+    elif plan.variant == LATENCY:
+        counts = _count(np.arange(plan.grid), e, rows, d)     # block b: row b
+    else:
+        # block b owns rows [b*rows//grid, (b+1)*rows//grid) in stages of
+        # tile_rows; group g (consumer threads g*tpr ...) takes row g of each
+        starts = []
+        for b in range(plan.grid):
+            r0, r1 = b * rows // plan.grid, (b + 1) * rows // plan.grid
+            starts += [(r, min(plan.tile_rows, r1 - r))
+                       for r in range(r0, r1, plan.tile_rows)]
+        start, n = np.array(starts).T
+        g = np.arange(32 * CONSUMER_WARPS // plan.tpr)
+        r = (start[:, None] + g[None, :])[g[None, :] < n[:, None]]
+        counts = _count(r, e, rows, d)
+    return counts.reshape(rows, d)
+
+
+def rmsnorm_tiled(x: torch.Tensor, w: torch.Tensor, eps: float,
+                  plan: RmsnormPlan) -> torch.Tensor:
+    """The kernel's arithmetic in f32: thread t of a row sums the squares of
+    its vectors t, t + tpr, ... in order (elements in order); a butterfly
+    of xor shuffles closes the sum over the row's lanes of each warp; the
+    warps' partial sums are added in warp order. Then x·rsqrt(sum/d + eps)·w."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    rows = xf.shape[0]
+    vec, tpr = plan.vec, plan.tpr
+    steps = _cdiv(d // vec, tpr)
+    xp = F.pad(xf, (0, steps * tpr * vec - d)).view(rows, steps, tpr, vec)
+    ss = torch.zeros(rows, tpr)
+    for s in range(steps):
+        for j in range(vec):
+            f = xp[:, s, :, j]
+            ss = ss + f * f
+    width = min(tpr, 32)
+    ss = ss.view(rows, tpr // width, width)
+    off = width // 2
+    while off:
+        ss = ss + ss[..., torch.arange(width) ^ off]
+        off //= 2
+    total = torch.zeros(rows)
+    for k in range(tpr // width):
+        total = total + ss[:, k, 0]
+    r = torch.rsqrt(total / d + eps)
+    return (xf * r[:, None] * w.float()).to(x.dtype).reshape(x.shape)

@@ -24,6 +24,15 @@ TOL = {
 }
 
 
+# (rows, d, n_sm) over which the rmsnorm kernel's plan is checked, in f32 and
+# bf16, aligned or not: on the CPU for a partition, on the card against the C
+# plan. Rows below and above the SM count, d of every tpr class.
+RMS_PLAN_GRID = [(rows, d, n_sm)
+                 for rows in (1, 4, 31, 37, 132, 133, 300)
+                 for d in (1, 3, 4, 8, 16, 24, 100, 128, 136, 1536, 1600, 4100, 8192)
+                 for n_sm in (1, 8, 132)]
+
+
 def require_sm90() -> None:
     """Skip unless a CUDA card of compute capability >= 9.0 is present.
     Called inside a test, never at import, so every worker collects the

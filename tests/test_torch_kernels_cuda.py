@@ -9,14 +9,16 @@ on the machine with the card:
 import pytest
 import torch
 
-from _torch_common import TOL, close, randn, require_sm90
+from _torch_common import RMS_PLAN_GRID, TOL, close, randn, require_sm90
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.flash_attention.ref import flash_mha_ref, flash_mha_tiled
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.kernel import kernel_attrs, kernel_plan
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import (LATENCY, ROWS, SCALAR, STREAM, rmsnorm_plan,
+                                             rmsnorm_ref, rmsnorm_tiled)
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -49,6 +51,57 @@ def test_rmsnorm_cuda_vs_plain(shape, dt, monkeypatch):
     torch.cuda.synchronize()
     assert rmsnorm.launches == before + 1
     close(got, want, TOL[f"rmsnorm_{dt}"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,dt,offset,variant,tpr", [
+    (4, 1536, "bf16", 0, LATENCY, 192),       # qwen2 decode
+    (4, 1600, "bf16", 0, LATENCY, 224),       # hymba decode
+    (5, 8192, "f32", 0, LATENCY, 1024),       # two vectors of x per thread
+    (4096, 1536, "bf16", 0, ROWS, 32),        # qwen2 prefill
+    (49152, 128, "bf16", 0, ROWS, 16),        # qk-norm heads: two rows per warp
+    (1000, 24, "bf16", 0, ROWS, 4),           # 3 vectors a row, one idle lane
+    (4096, 1536, "f32", 0, STREAM, 32),       # qwen2 prefill in f32: 6 KiB rows
+    (4608, 1600, "f32", 0, STREAM, 32),       # hymba prefill in f32
+    (300, 8192, "bf16", 0, STREAM, 64),       # a row across 2 warps
+    (300, 8192, "f32", 0, STREAM, 128),       # a row across 4 warps
+    (37, 100, "bf16", 0, SCALAR, 32),         # d not a multiple of 8
+    (4, 1536, "f32", 1, SCALAR, 32),          # x at an odd element offset
+    (4096, 1536, "bf16", 3, SCALAR, 32),
+])
+def test_rmsnorm_each_variant_vs_plain(rows, d, dt, offset, variant, tpr, monkeypatch):
+    """Each variant of the plan on the card, against the plain version and
+    the CPU emulation of its own partition and order of reduction."""
+    require_sm90()
+    tdt = _TDT[dt]
+    buf = torch.from_numpy(randn(0, (rows * d + offset,))).to("cuda", tdt)
+    x = buf[offset:].view(rows, d)                 # contiguous, maybe misaligned
+    w = torch.from_numpy(randn(1, (d,))).to("cuda", tdt)
+    plan = kernel_plan(rows, d, tdt, offset == 0)
+    assert (plan.variant, plan.tpr) == (variant, tpr)
+    want = rmsnorm_ref(x, w, 1e-6)
+    _no_plain(monkeypatch)
+    before = rmsnorm.launches
+    got = rmsnorm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    close(got, want, TOL[f"rmsnorm_{dt}"])
+    close(got, rmsnorm_tiled(x.cpu(), w.cpu(), 1e-6, plan), TOL[f"rmsnorm_{dt}"])
+    attrs = kernel_attrs(plan, tdt)
+    assert attrs["spill_bytes"] == 0 and attrs["smem_bytes"] >= plan.smem
+
+
+@pytest.mark.gpu
+def test_rmsnorm_c_plan_is_the_python_plan():
+    require_sm90()
+    for dt in (torch.float32, torch.bfloat16):
+        for aligned in (True, False):
+            for rows, d, n_sm in RMS_PLAN_GRID:
+                assert kernel_plan(rows, d, dt, aligned, n_sm) == \
+                    rmsnorm_plan(rows, d, dt, aligned, n_sm), (rows, d, dt, aligned, n_sm)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert kernel_plan(4096, 1536, torch.bfloat16, True) == \
+        rmsnorm_plan(4096, 1536, torch.bfloat16, True, n_sm)
 
 
 def _flash_launched(q, k, v, **kw):
