@@ -18,9 +18,11 @@ sliding window with meta-token sinks). Phases, each of which fails the run
      flushed before each launch). rmsnorm: at the main shapes the variant
      its plan chose, its registers and shared memory, the share of its
      bound, its ratios to F.rms_norm and to a device copy of x (the same
-     bytes, no arithmetic), and the host us per call of the
-     wrapper and of F.rms_norm at [4, 1536] bf16 (1000 calls back to back,
-     wall clock, one synchronize). Flash: bf16 at hd 64/128 must run the
+     bytes, no arithmetic); the two many-rows variants, forced, timed
+     against each other at 4096 rows on either side of the plan's
+     row-width limit; and the host us per call of the wrapper and of
+     F.rms_norm at [4, 1536] bf16 (1000 calls back to back, wall clock,
+     one synchronize). Flash: bf16 at hd 64/128 must run the
      tensor-core kernel, everything else the scalar one; at the main
      shapes the instance, its registers and shared memory, the share of
      its bound and its ratio to SDPA are printed;
@@ -36,12 +38,6 @@ sliding window with meta-token sinks). Phases, each of which fails the run
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
 >= 9.0 and nvcc; exits 1 without them.
-
-  python3 chip_smoke.py --host-us
-
-runs phases 1 and 2 and only the host-time measurement of rmsnorm, against
-the package beside this file (so a copy of the script placed in another
-checkout measures that checkout's wrapper), and prints no result line.
 """
 from __future__ import annotations
 
@@ -67,7 +63,8 @@ REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
             "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:53"}
 # the route and source of each kernel on the main paths (bf16 flash at hd 64
-# and 128 runs the tensor-core kernel)
+# and 128 runs the tensor-core kernel). The kernels line allows only the
+# routes "cuda" and "triton"; the source names which flash kernel it was.
 ROUTES = {"rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu"),
           "flash_attention": ("cuda",
                               "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"),
@@ -202,6 +199,43 @@ def host_us(torch, calls: int = 1000, rounds: int = 5) -> dict:
     return out
 
 
+def rms_variant_race(torch, timer, randn) -> None:
+    """The plan sends rows narrower than STREAM_MIN_BYTES to the two-pass
+    rows variant and the others to the stream variant. Time both, forced, at
+    4096 rows (a B=4 S=1024 prefill) and row widths on either side of that
+    limit in both dtypes, among them the d of every dense config of the
+    port, beside a device copy of x; each output is checked first."""
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_variant_cuda
+    from repro_torch.kernels.rmsnorm.ref import ROWS, STREAM, STREAM_MIN_BYTES, rmsnorm_ref
+
+    log(f"[kernels] rmsnorm rows vs stream, forced (the plan streams rows of "
+        f"{STREAM_MIN_BYTES} B or more)")
+    ds = {torch.bfloat16: (1536, 2048, 2304, 3072, 4096, 5120, 8192),
+          torch.float32: (576, 1024, 1152, 1536, 2048, 2304)}
+    for dt, widths in ds.items():
+        dn = str(dt).split(".")[1]
+        for d in widths:
+            x, w = randn((4096, d), dt), randn((d,), dt)
+            y = torch.empty_like(x)
+            want = rmsnorm_ref(x, w, 1e-6)
+            got = {}
+            for v, name in ((ROWS, "rows"), (STREAM, "stream")):
+                def fn(v=v):
+                    rmsnorm_variant_cuda(x, w, y, 4096, d, 1e-6, v)
+                y.zero_()
+                fn()
+                compare(f"rmsnorm [4096,{d}] {dn} forced {name}", y, want,
+                        TOL[("rmsnorm", dn)])
+                got[name] = timer(fn)
+            copy = timer(lambda: y.copy_(x))
+            bound = rms_bound(4096, d, x.element_size())[0]
+            log(f"    [4096,{d}] {dn} ({d * x.element_size()} B rows): rows "
+                f"{got['rows'] * 1e3:.2f} us, stream {got['stream'] * 1e3:.2f} us, copy of x "
+                f"{copy * 1e3:.2f} us, bound {bound * 1e3:.2f} us; stream/rows "
+                f"{got['stream'] / got['rows']:.3f}")
+            del x, w, y, want
+
+
 # -- phases -------------------------------------------------------------------
 
 def phase_card():
@@ -292,6 +326,7 @@ def phase_kernels(torch):
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by=by, library_ms=lib, copy_ms=copy, variant=VARIANTS[plan.variant],
                 **attrs)
+    rms_variant_race(torch, timer, randn)
     host = host_us(torch)
     rows[("rmsnorm", (4, 1536), "bfloat16")].update(
         host_us=host["rmsnorm"], library_host_us=host["F.rms_norm"])
@@ -619,9 +654,6 @@ def main() -> int:
             f"capability {torch.cuda.get_device_capability(0)}")
         card = phase_card()
         phase_build()
-        if sys.argv[1:] == ["--host-us"]:
-            host_us(torch)
-            return 0
         rows = phase_kernels(torch)
         launches = {}
         for arch in (DENSE, HYBRID):

@@ -43,6 +43,7 @@ _INTP = ctypes.POINTER(ctypes.c_int)
 # C entry point -> argtypes; each returns cudaGetLastError() as an int
 _SIGNATURES = {
     "repro_rmsnorm": (_VP, _VP, _VP, _INT, _INT, _F32, _INT, _VP),
+    "repro_rmsnorm_variant": (_VP, _VP, _VP, _INT, _INT, _F32, _INT, _INT, _VP),
     "repro_rmsnorm_plan": (_INT, _INT, _INT, _INT, _INT, _INTP),
     "repro_rmsnorm_attrs": (_INT, _INT, _INT, _INT, _INTP, _INTP, _INTP),
     "repro_flash_attention": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,

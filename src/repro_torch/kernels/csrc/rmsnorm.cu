@@ -22,19 +22,23 @@
 //   memory, not two dependent ones. Warp shuffles and one step through
 //   shared memory close the sum; the output is scaled from registers and
 //   written once.
-// * rows (16-byte loads possible, many rows of at most 4 KiB: the bf16
+// * rows (16-byte loads possible, many rows under 4 KiB: the bf16
 //   prefill norms and the per-head qk-norm). `tpr` lanes per row, a power of
 //   two (several rows to a warp when a row has fewer than 32 vectors, so no
 //   lane idles at d = 128 bf16), four warps a block, one wave of small
 //   blocks. A first pass sums the squares, a second reads the row again
 //   (from L1) with w and writes. At these shapes it measured level with a
-//   device copy of the same bytes, ahead of the ring below (PERF.md §6).
-// * stream (16-byte loads possible, many rows over 4 KiB: the f32 prefill
-//   norms, d up to 8192). Persistent blocks, one or two per SM, each an even,
-//   contiguous share of the rows. One producer thread stages w once and
-//   streams tiles of whole rows through a two-stage ring in shared memory by
-//   1-D bulk copy (cp.async.bulk, completing on an mbarrier), so x leaves
-//   device memory once, where two passes over rows this wide would miss L1.
+//   device copy of the same bytes, ahead of the ring below.
+// * stream (16-byte loads possible, many rows of 4 KiB or more: the f32
+//   prefill norms, the bf16 ones of d >= 2048, d up to 8192). The 4 KiB
+//   limit is where the two variants cross in both dtypes: chip_smoke.py
+//   phase 3 times them against each other at 4096 rows from 2.25 to 16 KiB
+//   (PERF.md §6).
+//   Persistent blocks, one or two per SM, each an even, contiguous share of
+//   the rows. One producer thread stages w once and streams tiles of whole
+//   rows through a two-stage ring in shared memory by 1-D bulk copy
+//   (cp.async.bulk, completing on an mbarrier), so x leaves device memory
+//   once, where two passes over rows this wide would miss L1.
 //   Eight consumer warps reduce and write the rows that have arrived and
 //   free each stage through an empty mbarrier. One warp takes a row up to
 //   8 KiB; wider rows span 2 or 4 warps, whose partial sums meet in shared
@@ -66,7 +70,7 @@ constexpr int kSmemPerBlock = 1024;    // of which the system keeps per block
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxD = 8192;
 constexpr int kRowsWarps = 4;          // rows, scalar: warps per block
-constexpr int kRowsMaxBytes = 4096;    // rows: widest row (wider ones stream)
+constexpr int kStreamMinBytes = 4096;   // stream: narrowest row (narrower ones take rows)
 constexpr int kConsumerWarps = 8;      // stream: warps that reduce and write
 constexpr int kStages = 2;             // stream: stages of the ring
 constexpr int kWarpVecs = 512;         // stream: vectors of a row one warp takes alone
@@ -95,19 +99,13 @@ inline int stream_smem(int row_bytes, int stage_bytes) {
   return row_bytes + kStages * stage_bytes + 8 * (2 * kStages + 1) + 4 * 2 * kConsumerWarps;
 }
 
-Plan make_plan(int rows, int d, int esize, bool aligned, int n_sm) {
+// the plan of the many-rows variant `variant` (kRows or kStream); 16-byte
+// loads must be possible
+Plan many_rows_plan(int variant, int rows, int d, int esize, int n_sm) {
   const int vec = 16 / esize;
-  if (!aligned || d % vec != 0)
-    return {kScalar, cdiv(rows, kRowsWarps), 32 * kRowsWarps, 32, 1, cdiv(d, 32), kRowsWarps,
-            0, 0};
   const int nvec = d / vec;
-  if (rows < n_sm) {
-    const int vpt = nvec <= kMaxThreads ? 1 : 2;
-    const int threads = 32 * cdiv(cdiv(nvec, vpt), 32);
-    return {kLatency, rows, threads, threads, vec, vpt, 1, 0, 0};
-  }
   const int row_bytes = d * esize;
-  if (row_bytes <= kRowsMaxBytes) {
+  if (variant == kRows) {
     const int tpr = std::min(32, pow2_at_least(nvec));
     const int per_block = 32 * kRowsWarps / tpr;
     return {kRows, cdiv(rows, per_block), 32 * kRowsWarps, tpr, vec, cdiv(nvec, tpr),
@@ -119,6 +117,22 @@ Plan make_plan(int rows, int d, int esize, bool aligned, int n_sm) {
   const int per_sm = 2 * (smem + kSmemPerBlock) <= kSmemPerSm ? 2 : 1;
   return {kStream, std::min(rows, per_sm * n_sm), 32 * (kConsumerWarps + 1), tpr, vec,
           cdiv(nvec, tpr), tile_rows, kStages, smem};
+}
+
+inline bool vec_ok(int d, int esize, bool aligned) { return aligned && d % (16 / esize) == 0; }
+
+Plan make_plan(int rows, int d, int esize, bool aligned, int n_sm) {
+  const int vec = 16 / esize;
+  if (!vec_ok(d, esize, aligned))
+    return {kScalar, cdiv(rows, kRowsWarps), 32 * kRowsWarps, 32, 1, cdiv(d, 32), kRowsWarps,
+            0, 0};
+  const int nvec = d / vec;
+  if (rows < n_sm) {
+    const int vpt = nvec <= kMaxThreads ? 1 : 2;
+    const int threads = 32 * cdiv(cdiv(nvec, vpt), 32);
+    return {kLatency, rows, threads, threads, vec, vpt, 1, 0, 0};
+  }
+  return many_rows_plan(d * esize < kStreamMinBytes ? kRows : kStream, rows, d, esize, n_sm);
 }
 
 // -- element types -----------------------------------------------------------------
@@ -403,12 +417,8 @@ RowsKernel<T> rows_kernel(int tpr) {
 }
 
 template <typename T>
-int launch(const void* x, const void* w, void* y, int rows, int d, float eps,
+int launch(const Plan& p, const void* x, const void* w, void* y, int rows, int d, float eps,
            cudaStream_t stream) {
-  const int n_sm = sm_count();
-  if (n_sm <= 0) return static_cast<int>(cudaErrorNoDevice);
-  const Plan p = make_plan(rows, d, sizeof(T), aligned16(x) && aligned16(w) && aligned16(y),
-                           n_sm);
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* yt = static_cast<T*>(y);
@@ -465,9 +475,33 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* y, int rows, in
                              int dtype, void* stream) {
   if (rows <= 0 || d <= 0 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, y, rows, d, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, y, rows, d, eps, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_sm = sm_count();
+  if (n_sm <= 0) return static_cast<int>(cudaErrorNoDevice);
+  const int esize = dtype == 0 ? 4 : 2;
+  const Plan p = make_plan(rows, d, esize, aligned16(x) && aligned16(w) && aligned16(y), n_sm);
+  if (dtype == 0) return launch<float>(p, x, w, y, rows, d, eps, s);
+  return launch<__nv_bfloat16>(p, x, w, y, rows, d, eps, s);
+}
+
+// repro_rmsnorm with the many-rows variant `variant` (2 = rows, 3 = stream)
+// in place of the plan's choice, at any row count. It exists to time the two
+// against each other where the plan picks one (chip_smoke.py phase 3); the
+// wrapper never calls it. The inputs must allow 16-byte loads.
+extern "C" int repro_rmsnorm_variant(const void* x, const void* w, void* y, int rows, int d,
+                                     float eps, int dtype, int variant, void* stream) {
+  if (rows <= 0 || d <= 0 || d > kMaxD || (dtype != 0 && dtype != 1) ||
+      (variant != kRows && variant != kStream))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int esize = dtype == 0 ? 4 : 2;
+  if (!vec_ok(d, esize, aligned16(x) && aligned16(w) && aligned16(y)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_sm = sm_count();
+  if (n_sm <= 0) return static_cast<int>(cudaErrorNoDevice);
+  const Plan p = many_rows_plan(variant, rows, d, esize, n_sm);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(p, x, w, y, rows, d, eps, s);
+  return launch<__nv_bfloat16>(p, x, w, y, rows, d, eps, s);
 }
 
 // The plan repro_rmsnorm takes for these inputs, as 9 ints in the order of

@@ -4,7 +4,7 @@ Counterpart of ``repro/kernels/rmsnorm/kernel.py::fused_rmsnorm``. The
 Pallas kernel's row blocks become one of four variants on Hopper, chosen by
 the kernel's plan (``ref.py::rmsnorm_plan`` is its twin): one block per row
 for fewer rows than SMs (decode), lane groups per row in two passes for
-many rows of at most 4 KiB (bf16 prefill, qk-norm heads), persistent blocks
+many rows under 4 KiB (bf16 prefill, qk-norm heads), persistent blocks
 streaming wider rows through shared memory by bulk copy (f32 prefill), and
 element loads where 16-byte loads are ruled out.
 """
@@ -17,7 +17,7 @@ import torch
 from .. import _build
 from .ref import RmsnormPlan
 
-__all__ = ["rmsnorm_cuda", "kernel_plan", "kernel_attrs"]
+__all__ = ["rmsnorm_cuda", "rmsnorm_variant_cuda", "kernel_plan", "kernel_attrs"]
 
 _launch = None      # the C entry point, bound at the first launch
 _raw_stream = None  # device index -> the current stream's cudaStream_t
@@ -43,6 +43,19 @@ def rmsnorm_cuda(x2: torch.Tensor, w: torch.Tensor, out: torch.Tensor, rows: int
                   _raw_stream(x2.get_device()))
     if err:
         _build.check("repro_rmsnorm", err)
+
+
+def rmsnorm_variant_cuda(x2: torch.Tensor, w: torch.Tensor, out: torch.Tensor, rows: int,
+                         d: int, eps: float, variant: int) -> None:
+    """Launch the many-rows variant ``variant`` (``ROWS`` or ``STREAM``) in
+    place of the plan's choice (``repro_rmsnorm_variant``), to time the two
+    against each other; the serve path never calls it and it counts no
+    launch. The inputs must allow 16-byte loads."""
+    stream = torch._C._cuda_getCurrentRawStream(x2.get_device())
+    err = _build.load().repro_rmsnorm_variant(
+        x2.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d, eps,
+        _build.DTYPE_CODES[x2.dtype], variant, stream)
+    _build.check("repro_rmsnorm_variant", err)
 
 
 def kernel_plan(rows: int, d: int, dtype: torch.dtype, aligned: bool,

@@ -39,7 +39,7 @@ SMEM_PER_SM = 233472       # shared memory of one SM (228 KiB)
 SMEM_PER_BLOCK = 1024      # of which the system keeps per block
 MAX_THREADS = 1024
 ROWS_WARPS = 4             # rows, scalar: warps per block
-ROWS_MAX_BYTES = 4096      # rows: widest row (wider ones stream)
+STREAM_MIN_BYTES = 4096    # stream: narrowest row (narrower ones take rows)
 CONSUMER_WARPS = 8         # stream: warps that reduce and write (+1 producer warp)
 STAGES = 2                 # stream: stages of the ring
 WARP_VECS = 512            # stream: 16-byte vectors of a row one warp takes alone
@@ -81,10 +81,10 @@ def rmsnorm_plan(rows: int, d: int, dtype: torch.dtype, aligned: bool,
     * scalar — any d, any pointer: one warp per row, element loads.
     * latency — 16-byte loads possible and fewer rows than SMs (decode):
       one block per row, each thread one or two vectors of x and w.
-    * rows — 16-byte loads possible, many rows of at most 4 KiB: ``tpr``
+    * rows — 16-byte loads possible, many rows under 4 KiB: ``tpr``
       lanes per row (a power of two, several rows to a warp for narrow
       rows), two passes over the row.
-    * stream — 16-byte loads possible, many rows over 4 KiB: one or two
+    * stream — 16-byte loads possible, many rows of 4 KiB or more: one or two
       persistent blocks per SM stream their rows through a two-stage ring
       of shared memory by bulk copy; ``tpr`` is 1, 2 or 4 warps.
     """
@@ -99,7 +99,7 @@ def rmsnorm_plan(rows: int, d: int, dtype: torch.dtype, aligned: bool,
         threads = 32 * _cdiv(_cdiv(nvec, vpt), 32)
         return RmsnormPlan(LATENCY, rows, threads, threads, vec, vpt, 1, 0, 0)
     row_bytes = d * esize
-    if row_bytes <= ROWS_MAX_BYTES:
+    if row_bytes < STREAM_MIN_BYTES:
         tpr = min(32, _pow2(nvec))
         per_block = 32 * ROWS_WARPS // tpr
         return RmsnormPlan(ROWS, _cdiv(rows, per_block), 32 * ROWS_WARPS, tpr, vec,

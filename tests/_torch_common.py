@@ -29,7 +29,7 @@ TOL = {
 # plan. Rows below and above the SM count, d of every tpr class.
 RMS_PLAN_GRID = [(rows, d, n_sm)
                  for rows in (1, 4, 31, 37, 132, 133, 300)
-                 for d in (1, 3, 4, 8, 16, 24, 100, 128, 136, 1536, 1600, 4100, 8192)
+                 for d in (1, 3, 4, 8, 16, 24, 100, 128, 136, 1024, 1536, 1600, 2048, 4100, 8192)
                  for n_sm in (1, 8, 132)]
 
 

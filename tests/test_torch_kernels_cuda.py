@@ -15,7 +15,7 @@ from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.flash_attention.ref import flash_mha_ref, flash_mha_tiled
 from repro_torch.kernels.rmsnorm import ops as rms_ops
-from repro_torch.kernels.rmsnorm.kernel import kernel_attrs, kernel_plan
+from repro_torch.kernels.rmsnorm.kernel import kernel_attrs, kernel_plan, rmsnorm_variant_cuda
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import (LATENCY, ROWS, SCALAR, STREAM, rmsnorm_plan,
                                              rmsnorm_ref, rmsnorm_tiled)
@@ -61,6 +61,7 @@ def test_rmsnorm_cuda_vs_plain(shape, dt, monkeypatch):
     (4096, 1536, "bf16", 0, ROWS, 32),        # qwen2 prefill
     (49152, 128, "bf16", 0, ROWS, 16),        # qk-norm heads: two rows per warp
     (1000, 24, "bf16", 0, ROWS, 4),           # 3 vectors a row, one idle lane
+    (4096, 2048, "bf16", 0, STREAM, 32),      # 4 KiB rows, the narrowest that stream
     (4096, 1536, "f32", 0, STREAM, 32),       # qwen2 prefill in f32: 6 KiB rows
     (4608, 1600, "f32", 0, STREAM, 32),       # hymba prefill in f32
     (300, 8192, "bf16", 0, STREAM, 64),       # a row across 2 warps
@@ -89,6 +90,26 @@ def test_rmsnorm_each_variant_vs_plain(rows, d, dt, offset, variant, tpr, monkey
     close(got, rmsnorm_tiled(x.cpu(), w.cpu(), 1e-6, plan), TOL[f"rmsnorm_{dt}"])
     attrs = kernel_attrs(plan, tdt)
     assert attrs["spill_bytes"] == 0 and attrs["smem_bytes"] >= plan.smem
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [ROWS, STREAM])
+@pytest.mark.parametrize("rows,d,dt", [(4096, 2304, "bf16"), (4096, 1024, "f32"),
+                                       (300, 8192, "bf16")])
+def test_rmsnorm_forced_variant_vs_plain(rows, d, dt, variant):
+    """The entry point that times rows against stream (chip_smoke.py phase 3)
+    launches the variant it was asked for, right at either width; inputs
+    that rule out 16-byte loads raise."""
+    require_sm90()
+    tdt = _TDT[dt]
+    x = torch.from_numpy(randn(0, (rows, d))).to("cuda", tdt)
+    w = torch.from_numpy(randn(1, (d,))).to("cuda", tdt)
+    y = torch.empty_like(x)
+    rmsnorm_variant_cuda(x, w, y, rows, d, 1e-6, variant)
+    close(y, rmsnorm_ref(x, w, 1e-6), TOL[f"rmsnorm_{dt}"])
+    with pytest.raises(RuntimeError):
+        rmsnorm_variant_cuda(x.view(-1)[1:1 + (rows - 1) * d].view(rows - 1, d), w, y,
+                             rows - 1, d, 1e-6, variant)
 
 
 @pytest.mark.gpu

@@ -81,7 +81,7 @@ def test_plan_partitions_every_row_and_fits_the_card(dt, aligned):
             assert aligned and (d * esize) % 16 == 0 and p.vec * esize == 16, where
         if p.variant in (ROWS, STREAM):
             assert rows >= n_sm and p.grid <= rows, where
-            assert (d * esize <= 4096) == (p.variant == ROWS), where
+            assert (d * esize < 4096) == (p.variant == ROWS), where
         if p.variant == STREAM:
             assert p.tpr >= 32 and p.tile_rows * p.tpr == 256 and p.stages == 2, where
         cov = plan_coverage(p, rows, d)
