@@ -3,14 +3,25 @@
 
   python3 chip_smoke.py
 
-Two main paths are driven, each at full width and full depth: the dense
-decoder qwen2-1.5b and the hybrid hymba-1.5b (attention and Mamba heads,
-sliding window with meta-token sinks). Phases, each of which fails the run
-(non-zero exit, no result line):
+Three main paths are driven: the campaign prescreen of the builtin
+lm_full_pod campaign (qwen3-32b, 72 cells x 192 parameter vectors), and,
+each at full width and full depth, the dense decoder qwen2-1.5b and the
+hybrid hymba-1.5b (attention and Mamba heads, sliding window with
+meta-token sinks). Phases, each of which fails the run (non-zero exit, no
+result line):
 
   1. card   — name and power limit from nvidia-smi;
   2. build  — one nvcc per CUDA source, all started together, and one link
      build the kernels from src/;
+  2b. prescreen — prescreen_cell on the card over all 72 cells of
+     lm_full_pod with one part memo: the list-schedule kernel must launch
+     once per part screen (memo miss), and every launch's makespans and
+     busy times must equal its plain version's on the card bit for bit;
+     the same for one launch at N 6,122 (hlo/qwen2_1_5b_prefill_tp2).
+     Wall time, kernel time (CUDA events) and plain time are printed. Then
+     the seven frozen campaign slices (tests/golden/) run through
+     run_campaign(backend="inline") on the card, and their frozen records
+     must equal the fixtures;
   3. kernels — each kernel against its plain PyTorch version in f32 and
      bf16 at the main-path shapes of both models and at edge shapes; at
      the main-path shapes the kernel, the plain version and one library
@@ -35,8 +46,9 @@ sliding window with meta-token sinks). Phases, each of which fails the run
   6. profile — wall vs device busy time of one prefill and of decode
      steps of each model, with the top kernels (torch.profiler).
 
-The line before the last is a JSON object {"kernels": [...]}; the last line
-is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
+The line before the last is a JSON object {"kernels": [...]} (list_schedule,
+which replaces the prescreen's XLA program and no Pallas kernel, among
+them); the last line is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
 >= 9.0 and nvcc; exits 1 without them.
 """
 from __future__ import annotations
@@ -58,17 +70,20 @@ BF16_FLOPS = 989e12                        # bf16 tensor cores, dense
 TOL = {("rmsnorm", "float32"): 1e-5, ("rmsnorm", "bfloat16"): 2e-2,
        ("flash", "float32"): 1e-4, ("flash", "bfloat16"): 3e-2,
        ("ssm_scan", "float32"): 1e-4, ("ssm_scan", "bfloat16"): 2e-2}
-DENSE, HYBRID = "qwen2-1.5b", "hymba-1.5b"
+DENSE, HYBRID, CAMPAIGN = "qwen2-1.5b", "hymba-1.5b", "lm_full_pod"
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
-            "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:53"}
+            "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:53",
+            # no pl.pallas_call: the XLA program of the vmapped list schedule
+            "list_schedule": "src/repro/core/vectorized.py:238"}
 # the route and source of each kernel on the main paths (bf16 flash at hd 64
 # and 128 runs the tensor-core kernel). The kernels line allows only the
 # routes "cuda" and "triton"; the source names which flash kernel it was.
 ROUTES = {"rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu"),
           "flash_attention": ("cuda",
                               "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"),
-          "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu")}
+          "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu"),
+          "list_schedule": ("cuda", "src/repro_torch/kernels/csrc/list_schedule.cu")}
 # per model: phase-4 batch, prompt and cache; phase-5 prompt range and cache
 PATHS = {
     DENSE: dict(model_B=2, model_S=256, model_smax=512, lo=512, hi=1024, smax=2048,
@@ -140,6 +155,27 @@ def flash_bound(B, Sq, Sk, H, KV, hd, causal, esize, peak, window=0, n_sink=0):
     ops = 4 * hd * pairs                       # QK^T and PV, 2 flops per MAC
     byts = (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) * esize
     t_b, t_o = byts / HBM_BYTES_PER_S, ops / peak
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
+
+
+# f32 operations of one task's duration, by engine class (MXU, VPU, DMA,
+# ICI), as csrc/list_schedule.cu computes it; then 11 for its schedule step
+# (7 max over the dependency slots, 1 with the engine, 1 add, the makespan
+# max, the busy add), and 8 per parameter vector (2 rates, 5 x repeats)
+SCHED_DUR_OPS = (16, 4, 2, 3)
+SCHED_STEP_OPS, SCHED_VECTOR_OPS = 11, 8
+
+
+def sched_bound(ints, K: int):
+    """The list schedule's bound from this call's tasks: each task record
+    (80 B) and parameter vector (52 B) read once, makespan and busy (20 B a
+    vector) written once; the operations its tasks' classes need."""
+    N = ints.shape[0]
+    per_class = ints[:, 0].bincount(minlength=4).tolist()
+    ops = K * (sum(n * (SCHED_DUR_OPS[c] + SCHED_STEP_OPS)
+                   for c, n in enumerate(per_class)) + SCHED_VECTOR_OPS)
+    byts = N * 80 + K * (13 * 4 + 5 * 4)
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / F32_FLOPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
 
 
@@ -255,6 +291,164 @@ def phase_build():
     _build.load(verbose=True)
     log(f"[build] {_build.library_path().name} "
         f"{'built' if built else 'found built'} in {time.perf_counter() - t0:.1f}s")
+
+
+def _same_bits(torch, got, want) -> bool:
+    return all(g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+               and torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+def phase_prescreen(torch):
+    """The campaign prescreen on the card: every cell of lm_full_pod through
+    prescreen_cell with one memo, each launch of the list-schedule kernel
+    held bit for bit against its plain version on the same inputs; one
+    launch at N 6,122; then the frozen campaign slices through run_campaign.
+    Returns the kernels-line row and the main run's launch count."""
+    import numpy as np
+
+    from repro_torch.core import vectorized
+    from repro_torch.core.vectorized import from_tasks, params_of
+    from repro_torch.graph.compiler import CompileOptions, compile_ops
+    from repro_torch.graph.workloads import resolve_workload
+    from repro_torch.kernels.list_schedule.kernel import kernel_attrs
+    from repro_torch.kernels.list_schedule.ops import list_schedule
+    from repro_torch.kernels.list_schedule.ref import list_schedule_ref
+    from repro_torch.sweep import prescreen
+    from repro_torch.sweep.runner import run_campaign
+    from repro_torch.sweep.spec import RefineSpec, SweepSpec, load_builtin_spec
+
+    spec = load_builtin_spec(CAMPAIGN)
+    cells = spec.cells()
+    # the inputs and outputs of every launch of the main run, to hold each
+    # against the plain version afterwards, and the host time spent in each
+    # step of prescreen_cell
+    calls, spent, originals = [], {}, []
+
+    def recorded(feats, ints, params, n_units, repeats=1):
+        out = originals[0][2](feats, ints, params, n_units, repeats)
+        calls.append((feats, ints, params, n_units, repeats, out))
+        return out
+
+    def timed(mod, name):
+        fn = getattr(mod, name)
+
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    originals.append((vectorized, "list_schedule", vectorized.list_schedule))
+    vectorized.list_schedule = recorded
+    for name in ("compile_ops", "from_tasks", "schedule_many_stats", "analytic_power_w"):
+        originals.append((prescreen, name, getattr(prescreen, name)))
+        setattr(prescreen, name, timed(prescreen, name))
+    memo = {}
+    torch.cuda.synchronize()
+    list_schedule.launches = 0
+    t0 = time.perf_counter()
+    screens = [prescreen.prescreen_cell(cell, memo=memo) for cell in cells]
+    wall = time.perf_counter() - t0
+    launches = list_schedule.launches
+    for mod, name, fn in originals:
+        setattr(mod, name, fn)
+    K = len(cells[0].points)
+    log(f"[prescreen] {CAMPAIGN}: {len(cells)} cells x {K} vectors, {len(memo)} part "
+        f"screens, {launches} kernel launches, wall {wall:.3f} s; host time in "
+        + ", ".join(f"{n} {t:.3f} s" for n, t in spent.items())
+        + f", the rest {wall - sum(spent.values()):.3f} s")
+    if launches != len(memo) or len(calls) != len(memo):
+        raise AssertionError(f"list_schedule launched {launches} times for {len(memo)} "
+                             f"part screens")
+    for scr in screens:
+        if scr.time_ns.shape != (K,) or not (np.isfinite(scr.time_ns).all()
+                                             and (scr.time_ns > 0).all()):
+            raise AssertionError(f"{scr.cell.label}: bad makespans")
+        if not ((scr.util >= 0).all() and (scr.util <= 1).all()
+                and np.isfinite(scr.energy_j).all()):
+            raise AssertionError(f"{scr.cell.label}: bad utilization or energy")
+
+    timer = Timer(torch, reps=5)
+    kernel_ms = plain_ms = err = 0.0
+    for feats, ints, params, n_units, repeats, out in calls:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = list_schedule_ref(feats, ints, params, n_units, repeats)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t1) * 1e3
+        if not _same_bits(torch, out, want):
+            raise AssertionError(f"list_schedule N {feats.shape[0]} K {params.shape[0]}: "
+                                 f"kernel != plain version")
+        err = max([err] + [float((g - w).abs().max()) for g, w in zip(out, want)])
+        kernel_ms += timer(lambda: list_schedule(feats, ints, params, n_units, repeats))
+    log(f"[prescreen] all {len(calls)} launches equal the plain version bit for bit; "
+        f"kernel {kernel_ms:.3f} ms in all (CUDA events, median of 5 each, L2 "
+        f"flushed; {100 * kernel_ms / 1e3 / wall:.3f}% of the wall time), plain "
+        f"version {plain_ms:.1f} ms in all (wall, synchronized)")
+
+    # the main shape: the largest part graph of the run (a prefill layer body)
+    feats, ints, params, n_units, repeats, _ = max(calls, key=lambda c: c[0].shape[0])
+    N = feats.shape[0]
+    timer = Timer(torch)
+    ms = timer(lambda: list_schedule(feats, ints, params, n_units, repeats))
+    plain = timer(lambda: list_schedule_ref(feats, ints, params, n_units, repeats))
+    bound, by, byts, ops = sched_bound(ints, K)
+    attrs = kernel_attrs()
+    log(f"[prescreen] list_schedule N {N} K {K}: time {ms * 1e3:.2f} us "
+        f"({ms * 1e6 / N:.1f} ns per dependent step) | bound {bound * 1e6:.2f} ns "
+        f"({by}: {byts} B, {ops} f32 operations) | plain {plain:.3f} ms | no library "
+        f"call computes a list schedule | {attrs['registers']} registers/thread, "
+        f"{attrs['spill_bytes']} B spilled")
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+               library_ms=None, shape=[N, K], dtype="float32", **attrs)
+
+    # the largest task graph of any builtin campaign
+    tp2 = SweepSpec(name="hlo_tp2", workloads=["hlo/qwen2_1_5b_prefill_tp2"],
+                    preset="v5e", axes={"clock_ghz": [0.6, 0.94]}, n_tiles=[2],
+                    refine=RefineSpec(mode="none"))
+    (cell,) = tp2.cells()
+    cw = compile_ops(resolve_workload(cell.workload)(), cell.base_cfg(),
+                     CompileOptions(n_tiles=cell.n_tiles))
+    arrays = from_tasks(cw.tasks)
+    feats, ints = vectorized.task_tensors(arrays, torch.device("cuda"))
+    pm = np.stack([params_of(p.cfg(tp2)) for p in cell.points]).astype(np.float32)
+    params = torch.from_numpy(pm).cuda()
+    for r in (1, 6):
+        got = list_schedule(feats, ints, params, arrays.n_units, r)
+        want = list_schedule_ref(feats, ints, params, arrays.n_units, r)
+        if not _same_bits(torch, got, want):
+            raise AssertionError(f"list_schedule N {len(cw.tasks)} repeats {r}: "
+                                 f"kernel != plain version")
+    ms6 = timer(lambda: list_schedule(feats, ints, params, arrays.n_units, 1))
+    plain6 = Timer(torch, reps=3)(lambda: list_schedule_ref(feats, ints, params,
+                                                            arrays.n_units, 1))
+    bound6, by6, byts6, ops6 = sched_bound(ints, params.shape[0])
+    log(f"[prescreen] list_schedule N {len(cw.tasks)} K {params.shape[0]} "
+        f"(hlo/qwen2_1_5b_prefill_tp2, {arrays.n_units} units): equal to the plain "
+        f"version bit for bit at repeats 1 and 6; time {ms6:.3f} ms "
+        f"({ms6 * 1e6 / len(cw.tasks):.1f} ns per dependent step) | bound "
+        f"{bound6 * 1e6:.2f} ns ({by6}: {byts6} B, {ops6} f32 operations) | plain "
+        f"{plain6:.1f} ms")
+    row.update(n6122_ms=ms6, n6122_plain_ms=plain6, n6122_bound_ms=bound6,
+               prescreen_wall_s=wall, prescreen_kernel_ms=kernel_ms,
+               prescreen_plain_ms=plain_ms, part_screens=len(memo),
+               prescreen_host_s=spent)
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _torch_golden
+
+    for name, gspec in sorted(_torch_golden.specs().items()):
+        t1 = time.perf_counter()
+        res = run_campaign(gspec, backend="inline", use_cache=False)
+        took = time.perf_counter() - t1
+        if _torch_golden.freeze(res.records) != _torch_golden.golden(name):
+            raise AssertionError(f"{name}: records differ from tests/golden/{name}.json")
+        log(f"[prescreen] golden {name}: {len(res.records)} records equal the "
+            f"fixture, {took:.2f} s (prescreen {res.summary['prescreen_s']:.2f} s)")
+    log(f"[prescreen] {json.dumps(dict(name='list_schedule', launches=launches, **row))}")
+    return row, launches
 
 
 def phase_kernels(torch):
@@ -654,6 +848,7 @@ def main() -> int:
             f"capability {torch.cuda.get_device_capability(0)}")
         card = phase_card()
         phase_build()
+        sched_row, sched_launches = phase_prescreen(torch)
         rows = phase_kernels(torch)
         launches = {}
         for arch in (DENSE, HYBRID):
@@ -682,6 +877,10 @@ def main() -> int:
              replaces=REPLACES[name], launches=launches[arch][name], path=arch,
              shape=list(key[1]), dtype=key[2], **rows[key])
         for arch, name, key in entries]
+    kernels.append(dict(name="list_schedule", route=ROUTES["list_schedule"][0],
+                        source=ROUTES["list_schedule"][1],
+                        replaces=REPLACES["list_schedule"], launches=sched_launches,
+                        path=CAMPAIGN, **sched_row))
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "DTYPE_CODES", "build_dir", "library_path",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "rmsnorm.cu", _CSRC / "flash_attention.cu",
-           _CSRC / "flash_attention_wgmma.cu", _CSRC / "ssm_scan.cu")
+           _CSRC / "flash_attention_wgmma.cu", _CSRC / "ssm_scan.cu",
+           _CSRC / "list_schedule.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -52,6 +53,9 @@ _SIGNATURES = {
                                     _INT, _INT, _INT, _INT, _F32, _VP),
     "repro_flash_attention_wgmma_attrs": (_INT, _INT, _INTP, _INTP, _INTP),
     "repro_ssm_scan": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
+    "repro_list_schedule": (_VP, _VP, _VP, _INT, _INT, _INT, _F32, _VP, _VP, _VP,
+                            _VP, _VP),
+    "repro_list_schedule_attrs": (_INTP, _INTP, _INTP),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -56,3 +56,45 @@ def to_np(x) -> np.ndarray:
 
 def close(got, want, tol: float) -> None:
     np.testing.assert_allclose(to_np(got), to_np(want), rtol=tol, atol=tol)
+
+
+def random_task_arrays(seed: int, n: int, n_units: int, *, classes=(0, 1, 2, 3),
+                       cross: float = 0.3, max_deps: int = 8, dep_hi=None):
+    """A random task graph for the list schedule (the port's ``TaskArrays``):
+    engine classes drawn from ``classes``, a share ``cross`` of cross-pod
+    tasks, 0..``max_deps`` dependencies a task. Dependencies lie in [0, i),
+    or in [0, dep_hi) when given (those at i or later read 0.0)."""
+    from repro_torch.core.vectorized import MAX_DEPS, TaskArrays
+
+    rng = np.random.default_rng(seed)
+
+    def logu(lo, hi):
+        return np.exp(rng.uniform(np.log(lo), np.log(hi), n))
+
+    deps = np.full((n, MAX_DEPS), -1, np.int32)
+    for i in range(n):
+        hi = i if dep_hi is None else dep_hi
+        k = int(rng.integers(0, max_deps + 1)) if hi > 0 else 0
+        deps[i, :k] = rng.integers(0, hi, k) if k else []
+    return TaskArrays(
+        engine_class=rng.choice(np.asarray(classes, np.int32), n),
+        engine_unit=rng.integers(0, n_units, n).astype(np.int32), n_units=n_units,
+        flops=logu(1e3, 1e12), elems=logu(1, 1e8), bytes_=logu(1, 1e9),
+        io_bytes=logu(1, 1e9), gemm_m=np.floor(logu(1, 8192)),
+        gemm_n=np.floor(logu(1, 8192)),
+        coll_phases=rng.integers(1, 16, n).astype(np.float64),
+        coll_bytes=logu(1, 1e9), cross_pod=rng.random(n) < cross, deps=deps)
+
+
+def hw_param_matrix() -> np.ndarray:
+    """[12, 13] parameter vectors around the v5e preset: clock x HBM x DCN."""
+    import dataclasses
+
+    from repro_torch.core.vectorized import params_of
+    from repro_torch.hw.presets import resolve_preset
+
+    base = resolve_preset("v5e")
+    return np.stack([params_of(dataclasses.replace(base, clock_ghz=c, hbm_gbps=h,
+                                                   dcn_gbps=d))
+                     for c in (0.6, 0.94, 1.5) for h in (409.0, 819.0)
+                     for d in (25.0, 100.0)])

@@ -59,7 +59,9 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.kernels.ssm_scan.ops", "repro_torch.models.mamba",
                 "repro_torch.models.model", "repro_torch.serve.engine",
-                "repro_torch.launch.serve"):
+                "repro_torch.launch.serve", "repro_torch.core.vectorized",
+                "repro_torch.sweep.runner", "repro_torch.kernels.list_schedule.ops",
+                "repro_torch.graph.ingest", "repro_torch.hw.chip"):
         assert mod in names
 
 
@@ -71,6 +73,13 @@ def test_configs_equal_reference_records(arch):
     for prop in ("hd", "padded_vocab", "n_self_layers"):
         assert getattr(mine, prop) == getattr(ref, prop)
     assert get_config(arch.replace("-", "_")) is mine
+
+
+@pytest.mark.parametrize("arch", sorted(a for a, c in REGISTRY.items()
+                                         if c.family not in ("dense", "hybrid")))
+def test_build_model_refuses_families_not_ported(arch):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_model(REGISTRY[arch])
 
 
 def test_default_device_raises_without_gpu(monkeypatch):

@@ -9,11 +9,16 @@ on the machine with the card:
 import pytest
 import torch
 
-from _torch_common import RMS_PLAN_GRID, TOL, close, randn, require_sm90
+from _torch_common import (RMS_PLAN_GRID, TOL, close, hw_param_matrix, randn,
+                           random_task_arrays, require_sm90)
+from repro_torch.core.vectorized import from_tasks, task_tensors
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.flash_attention.ref import flash_mha_ref, flash_mha_tiled
+from repro_torch.kernels.list_schedule import ops as sched_ops
+from repro_torch.kernels.list_schedule.ops import list_schedule
+from repro_torch.kernels.list_schedule.ref import list_schedule_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.kernel import kernel_attrs, kernel_plan, rmsnorm_variant_cuda
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
@@ -33,6 +38,7 @@ def _no_plain(monkeypatch):
     monkeypatch.setattr(rms_ops, "rmsnorm_ref", boom)
     monkeypatch.setattr(flash_ops, "flash_mha_ref", boom)
     monkeypatch.setattr(scan_ops, "ssm_scan_ref", boom)
+    monkeypatch.setattr(sched_ops, "list_schedule_ref", boom)
 
 
 @pytest.mark.gpu
@@ -253,3 +259,57 @@ def test_ssm_scan_cuda_vs_plain(shape, dt, monkeypatch):
     assert ssm_scan_batched.launches == before + 1
     assert got.dtype == a.dtype and got.shape == a.shape
     close(got, want, TOL[f"scan_{dt}"])
+
+
+def _schedule_bitwise(arrays, pm, repeats, monkeypatch):
+    """The kernel equals its plain version on the card bit for bit."""
+    feats, ints = task_tensors(arrays, torch.device("cuda"))
+    params = torch.from_numpy(pm.astype("float32")).cuda()
+    want = list_schedule_ref(feats, ints, params, arrays.n_units, repeats)
+    with monkeypatch.context() as m:
+        _no_plain(m)
+        before = list_schedule.launches
+        got = list_schedule(feats, ints, params, arrays.n_units, repeats)
+        torch.cuda.synchronize()
+        assert list_schedule.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert bool(torch.isfinite(g).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,n_units,classes,cross,max_deps,dep_hi", [
+    (1, 1, (0,), 0.0, 8, None),            # a single task of each class
+    (1, 1, (1,), 0.0, 8, None),
+    (1, 1, (2,), 0.0, 8, None),
+    (1, 1, (3,), 1.0, 8, None),
+    (200, 4, (0, 1, 2, 3), 0.3, 0, None),  # every dependency slot -1
+    (200, 3, (3,), 0.5, 8, None),          # collectives, half cross-pod
+    (500, 7, (0, 1, 2, 3), 0.3, 8, None),  # every engine class
+    (300, 5, (0, 1, 2, 3), 0.3, 8, 320),   # dependencies at i or past N read 0.0
+])
+def test_list_schedule_cuda_vs_plain(n, n_units, classes, cross, max_deps, dep_hi,
+                                     monkeypatch):
+    require_sm90()
+    arrays = random_task_arrays(n, n, n_units, classes=classes, cross=cross,
+                                max_deps=max_deps, dep_hi=dep_hi)
+    for pm in (hw_param_matrix(), hw_param_matrix()[:1],
+               hw_param_matrix()[[i % 12 for i in range(192)]]):
+        _schedule_bitwise(arrays, pm, 1, monkeypatch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("repeats", [1, 6])
+def test_list_schedule_cuda_vs_plain_hlo_tp2(repeats, monkeypatch):
+    """The largest captured graph of the builtin campaigns, N 6,122."""
+    require_sm90()
+    from repro_torch.graph.compiler import CompileOptions, compile_ops
+    from repro_torch.graph.workloads import resolve_workload
+    from repro_torch.hw.presets import resolve_preset
+
+    cw = compile_ops(resolve_workload("hlo/qwen2_1_5b_prefill_tp2")(),
+                     resolve_preset("v5e"), CompileOptions(n_tiles=2))
+    arrays = from_tasks(cw.tasks)
+    assert len(cw.tasks) == 6122 and arrays.n_units == 6
+    _schedule_bitwise(arrays, hw_param_matrix()[:2], repeats, monkeypatch)
