@@ -18,10 +18,18 @@ result line):
      once per part screen (memo miss), and every launch's makespans and
      busy times must equal its plain version's on the card bit for bit;
      the same for one launch at N 6,122 (hlo/qwen2_1_5b_prefill_tp2).
-     Wall time, kernel time (CUDA events) and plain time are printed. Then
-     the seven frozen campaign slices (tests/golden/) run through
+     Wall time, kernel time (CUDA events) and plain time are printed. At
+     the largest part (N 42, K 192) and at N 6,122, K 2, every variant of
+     the kernel's plan (shared, global), forced, must equal
+     the plain version bit for bit and is timed. Registers, spill and
+     shared memory of each variant, ns per dependent step and the chain
+     bound (N x an assumed latency of one step at the top SM clock) are
+     printed in the log; the kernels line carries only measured numbers
+     and bound_ms.
+     Then the seven frozen campaign slices (tests/golden/) run through
      run_campaign(backend="inline") on the card, and their frozen records
-     must equal the fixtures;
+     must equal the fixtures; one of them also through the pool (2 forked
+     workers) and the spool (one spawned worker), byte-identical to inline;
   3. kernels — each kernel against its plain PyTorch version in f32 and
      bf16 at the main-path shapes of both models and at edge shapes; at
      the main-path shapes the kernel, the plain version and one library
@@ -75,7 +83,7 @@ REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
             "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:53",
             # no pl.pallas_call: the XLA program of the vmapped list schedule
-            "list_schedule": "src/repro/core/vectorized.py:238"}
+            "list_schedule": "src/repro/core/vectorized.py:239"}
 # the route and source of each kernel on the main paths (bf16 flash at hd 64
 # and 128 runs the tensor-core kernel). The kernels line allows only the
 # routes "cuda" and "triton"; the source names which flash kernel it was.
@@ -177,6 +185,27 @@ def sched_bound(ints, K: int):
     byts = N * 80 + K * (13 * 4 + 5 * 4)
     t_b, t_o = byts / HBM_BYTES_PER_S, ops / F32_FLOPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
+
+
+# the dependent latency of one step of the list schedule's chain, in SM
+# cycles: a shared-memory load to its use, one max, one add (assumed from
+# published microbenchmarks of Hopper and its predecessors; not measured here)
+SMEM_LOAD_CYCLES, FP32_DEP_CYCLES = 30, 4
+CHAIN_STEP_CYCLES = SMEM_LOAD_CYCLES + 2 * FP32_DEP_CYCLES
+
+
+def sm_clocks() -> dict:
+    """The SM clock now and its maximum, MHz (nvidia-smi)."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                       timeout=60, check=True)
+    now, top = (float(x) for x in r.stdout.strip().splitlines()[0].split(","))
+    return {"sm_mhz": now, "max_mhz": top}
+
+
+def sched_chain_bound(N: int, clock: dict) -> float:
+    """ms: N dependent steps of CHAIN_STEP_CYCLES at the card's top SM clock."""
+    return N * CHAIN_STEP_CYCLES / (clock["max_mhz"] * 1e6) * 1e3
 
 
 def scan_bound(B, S, C, esize):
@@ -304,16 +333,17 @@ def phase_prescreen(torch):
     prescreen_cell with one memo, each launch of the list-schedule kernel
     held bit for bit against its plain version on the same inputs; one
     launch at N 6,122; then the frozen campaign slices through run_campaign.
-    Returns the kernels-line row and the main run's launch count."""
+    Returns the kernels-line row, the main run's launch count and its
+    launches by variant."""
     import numpy as np
 
     from repro_torch.core import vectorized
     from repro_torch.core.vectorized import from_tasks, params_of
     from repro_torch.graph.compiler import CompileOptions, compile_ops
     from repro_torch.graph.workloads import resolve_workload
-    from repro_torch.kernels.list_schedule.kernel import kernel_attrs
+    from repro_torch.kernels.list_schedule.kernel import kernel_attrs, kernel_plan
     from repro_torch.kernels.list_schedule.ops import list_schedule
-    from repro_torch.kernels.list_schedule.ref import list_schedule_ref
+    from repro_torch.kernels.list_schedule.ref import VARIANTS, list_schedule_ref
     from repro_torch.sweep import prescreen
     from repro_torch.sweep.runner import run_campaign
     from repro_torch.sweep.spec import RefineSpec, SweepSpec, load_builtin_spec
@@ -348,10 +378,12 @@ def phase_prescreen(torch):
     memo = {}
     torch.cuda.synchronize()
     list_schedule.launches = 0
+    list_schedule.variant_launches = dict.fromkeys(VARIANTS, 0)
     t0 = time.perf_counter()
     screens = [prescreen.prescreen_cell(cell, memo=memo) for cell in cells]
     wall = time.perf_counter() - t0
     launches = list_schedule.launches
+    variants = {v: n for v, n in list_schedule.variant_launches.items() if n}
     for mod, name, fn in originals:
         setattr(mod, name, fn)
     K = len(cells[0].points)
@@ -383,26 +415,43 @@ def phase_prescreen(torch):
                                  f"kernel != plain version")
         err = max([err] + [float((g - w).abs().max()) for g, w in zip(out, want)])
         kernel_ms += timer(lambda: list_schedule(feats, ints, params, n_units, repeats))
-    log(f"[prescreen] all {len(calls)} launches equal the plain version bit for bit; "
-        f"kernel {kernel_ms:.3f} ms in all (CUDA events, median of 5 each, L2 "
-        f"flushed; {100 * kernel_ms / 1e3 / wall:.3f}% of the wall time), plain "
-        f"version {plain_ms:.1f} ms in all (wall, synchronized)")
+    log(f"[prescreen] all {len(calls)} launches equal the plain version bit for bit "
+        f"(variants {variants}); kernel {kernel_ms:.3f} ms in all (CUDA events, median "
+        f"of 5 each, L2 flushed; {100 * kernel_ms / 1e3 / wall:.3f}% of the wall time), "
+        f"plain version {plain_ms:.1f} ms in all (wall, synchronized)")
 
-    # the main shape: the largest part graph of the run (a prefill layer body)
+    clock = sm_clocks()
+    log(f"[prescreen] SM clock {clock['sm_mhz']} MHz now, {clock['max_mhz']} MHz at most "
+        f"(nvidia-smi); chain bound = N x {CHAIN_STEP_CYCLES} cycles (shared load-to-use "
+        f"{SMEM_LOAD_CYCLES} + max {FP32_DEP_CYCLES} + add {FP32_DEP_CYCLES}) at "
+        f"{clock['max_mhz']} MHz")
+    for v in VARIANTS:
+        a = kernel_attrs(v)
+        log(f"[prescreen] variant {v}: {a['registers']} registers/thread, "
+            f"{a['spill_bytes']} B spilled, {a['smem_bytes']} B static shared")
+
+    # the main shape: the largest part graph of the run (a prefill layer body);
+    # every variant, forced, against the plain version and timed
     feats, ints, params, n_units, repeats, _ = max(calls, key=lambda c: c[0].shape[0])
     N = feats.shape[0]
     timer = Timer(torch)
-    ms = timer(lambda: list_schedule(feats, ints, params, n_units, repeats))
+    times = sched_variants(torch, timer, feats, ints, params, n_units, repeats,
+                           VARIANTS, clock)
+    planned = kernel_plan(N, K, n_units).variant
     plain = timer(lambda: list_schedule_ref(feats, ints, params, n_units, repeats))
     bound, by, byts, ops = sched_bound(ints, K)
-    attrs = kernel_attrs()
-    log(f"[prescreen] list_schedule N {N} K {K}: time {ms * 1e3:.2f} us "
-        f"({ms * 1e6 / N:.1f} ns per dependent step) | bound {bound * 1e6:.2f} ns "
-        f"({by}: {byts} B, {ops} f32 operations) | plain {plain:.3f} ms | no library "
-        f"call computes a list schedule | {attrs['registers']} registers/thread, "
-        f"{attrs['spill_bytes']} B spilled")
+    chain = sched_chain_bound(N, clock)
+    ms = times[planned]
+    log(f"[prescreen] list_schedule N {N} K {K} ({planned}): time {ms * 1e3:.2f} us "
+        f"({ms * 1e6 / N:.1f} ns per dependent step; global variant "
+        f"{times['global'] * 1e3:.2f} us) | bound {bound * 1e6:.2f} ns ({by}: {byts} B, "
+        f"{ops} f32 operations) | chain bound {chain * 1e3:.3f} us (assumed latencies) | "
+        f"plain {plain:.3f} ms "
+        f"| no library call computes a list schedule")
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-               library_ms=None, shape=[N, K], dtype="float32", **attrs)
+               library_ms=None, shape=[N, K], dtype="float32", variant=planned,
+               ns_per_step=ms * 1e6 / N, variant_ms=times, sm_clock_mhz=clock,
+               **kernel_attrs(planned))
 
     # the largest task graph of any builtin campaign
     tp2 = SweepSpec(name="hlo_tp2", workloads=["hlo/qwen2_1_5b_prefill_tp2"],
@@ -415,23 +464,28 @@ def phase_prescreen(torch):
     feats, ints = vectorized.task_tensors(arrays, torch.device("cuda"))
     pm = np.stack([params_of(p.cfg(tp2)) for p in cell.points]).astype(np.float32)
     params = torch.from_numpy(pm).cuda()
-    for r in (1, 6):
-        got = list_schedule(feats, ints, params, arrays.n_units, r)
-        want = list_schedule_ref(feats, ints, params, arrays.n_units, r)
-        if not _same_bits(torch, got, want):
-            raise AssertionError(f"list_schedule N {len(cw.tasks)} repeats {r}: "
-                                 f"kernel != plain version")
-    ms6 = timer(lambda: list_schedule(feats, ints, params, arrays.n_units, 1))
+    N6, K6 = len(cw.tasks), params.shape[0]
+    want6 = list_schedule_ref(feats, ints, params, arrays.n_units, 6)
+    if not _same_bits(torch, list_schedule(feats, ints, params, arrays.n_units, 6), want6):
+        raise AssertionError(f"list_schedule N {N6} repeats 6: kernel != plain version")
+    planned6 = kernel_plan(N6, K6, arrays.n_units).variant
+    times6 = sched_variants(torch, timer, feats, ints, params, arrays.n_units, 1,
+                            VARIANTS, clock)
     plain6 = Timer(torch, reps=3)(lambda: list_schedule_ref(feats, ints, params,
                                                             arrays.n_units, 1))
-    bound6, by6, byts6, ops6 = sched_bound(ints, params.shape[0])
-    log(f"[prescreen] list_schedule N {len(cw.tasks)} K {params.shape[0]} "
-        f"(hlo/qwen2_1_5b_prefill_tp2, {arrays.n_units} units): equal to the plain "
-        f"version bit for bit at repeats 1 and 6; time {ms6:.3f} ms "
-        f"({ms6 * 1e6 / len(cw.tasks):.1f} ns per dependent step) | bound "
-        f"{bound6 * 1e6:.2f} ns ({by6}: {byts6} B, {ops6} f32 operations) | plain "
+    bound6, by6, byts6, ops6 = sched_bound(ints, K6)
+    chain6 = sched_chain_bound(N6, clock)
+    ms6 = times6[planned6]
+    log(f"[prescreen] list_schedule N {N6} K {K6} (hlo/qwen2_1_5b_prefill_tp2, "
+        f"{arrays.n_units} units, {planned6}): equal to the plain version bit for bit at "
+        f"repeats 1 and 6; time {ms6:.3f} ms ({ms6 * 1e6 / N6:.1f} ns per dependent step; "
+        f"global variant {times6['global']:.3f} ms) | bound {bound6 * 1e6:.2f} ns ({by6}: "
+        f"{byts6} B, {ops6} f32 operations) | chain bound {chain6 * 1e3:.3f} us (assumed "
+        f"latencies) | plain "
         f"{plain6:.1f} ms")
-    row.update(n6122_ms=ms6, n6122_plain_ms=plain6, n6122_bound_ms=bound6,
+    row.update(n6122_ms=ms6, n6122_variant=planned6, n6122_global_ms=times6["global"],
+               n6122_ns_per_step=ms6 * 1e6 / N6, n6122_plain_ms=plain6,
+               n6122_bound_ms=bound6,
                prescreen_wall_s=wall, prescreen_kernel_ms=kernel_ms,
                prescreen_plain_ms=plain_ms, part_screens=len(memo),
                prescreen_host_s=spent)
@@ -447,8 +501,68 @@ def phase_prescreen(torch):
             raise AssertionError(f"{name}: records differ from tests/golden/{name}.json")
         log(f"[prescreen] golden {name}: {len(res.records)} records equal the "
             f"fixture, {took:.2f} s (prescreen {res.summary['prescreen_s']:.2f} s)")
+    backends_on_the_card(run_campaign, _torch_golden)
     log(f"[prescreen] {json.dumps(dict(name='list_schedule', launches=launches, **row))}")
-    return row, launches
+    return row, launches, variants
+
+
+def sched_variants(torch, timer, feats, ints, params, n_units, repeats, variants, clock):
+    """Each variant, forced, equal to the plain version bit for bit; its
+    median time (ms)."""
+    from repro_torch.kernels.list_schedule.ops import list_schedule
+    from repro_torch.kernels.list_schedule.kernel import kernel_plan
+    from repro_torch.kernels.list_schedule.ref import list_schedule_ref
+
+    N, K = feats.shape[0], params.shape[0]
+    want = list_schedule_ref(feats, ints, params, n_units, repeats)
+    times = {}
+    for v in variants:
+        if not _same_bits(torch, list_schedule(feats, ints, params, n_units, repeats,
+                                               variant=v), want):
+            raise AssertionError(f"list_schedule N {N} K {K} {v}: kernel != plain version")
+        times[v] = timer(lambda v=v: list_schedule(feats, ints, params, n_units, repeats,
+                                                   variant=v))
+        p = kernel_plan(N, K, n_units, v)
+        log(f"  list_schedule N {N} K {K} {v} (T {p.vectors}, grid {p.grid}, "
+            f"{p.threads} threads, {p.smem} B dynamic shared): bit for bit the plain "
+            f"version; {times[v] * 1e3:.2f} us, {times[v] * 1e6 / N:.1f} ns per step, "
+            f"{times[v] * 1e-3 * clock['max_mhz'] * 1e6 / N:.0f} cycles per step at "
+            f"{clock['max_mhz']} MHz")
+    return times
+
+
+def backends_on_the_card(run_campaign, golden):
+    """One golden slice through inline, pool (2 forked workers, after the
+    pre-screen has initialised CUDA in this process) and spool (one spawned
+    worker): byte-identical records, equal to the fixture."""
+    import shutil
+
+    from repro_torch.exec import SpoolBackend
+
+    name = "lm_decode_kv_slice"
+    spec = golden.specs()[name]
+    root = os.path.join(HERE, "build", "chip_smoke_spool")
+    shutil.rmtree(root, ignore_errors=True)
+    blobs = {}
+    try:
+        for bk, kw in (("inline", dict(backend="inline")), ("pool", dict(workers=2)),
+                       ("spool", dict(backend=SpoolBackend(root, workers=1, poll_s=0.05,
+                                                           timeout_s=300)))):
+            t1 = time.perf_counter()
+            res = run_campaign(spec, use_cache=False, **kw)
+            if res.summary["backend"] != bk:
+                raise AssertionError(f"{name}: ran {res.summary['backend']}, not {bk}")
+            blobs[bk] = json.dumps(res.records, sort_keys=True)
+            log(f"[prescreen] {name} through {bk}: {len(res.records)} records, "
+                f"{time.perf_counter() - t1:.2f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not blobs["inline"] == blobs["pool"] == blobs["spool"]:
+        raise AssertionError(f"{name}: inline, pool and spool records differ")
+    if golden.freeze(json.loads(blobs["inline"])) != golden.golden(name):
+        raise AssertionError(f"{name}: records differ from tests/golden/{name}.json")
+    log(f"[prescreen] {name}: inline, pool and spool records byte-identical on the card, "
+        f"equal to the fixture")
 
 
 def phase_kernels(torch):
@@ -848,7 +962,7 @@ def main() -> int:
             f"capability {torch.cuda.get_device_capability(0)}")
         card = phase_card()
         phase_build()
-        sched_row, sched_launches = phase_prescreen(torch)
+        sched_row, sched_launches, sched_variants_launched = phase_prescreen(torch)
         rows = phase_kernels(torch)
         launches = {}
         for arch in (DENSE, HYBRID):
@@ -880,7 +994,8 @@ def main() -> int:
     kernels.append(dict(name="list_schedule", route=ROUTES["list_schedule"][0],
                         source=ROUTES["list_schedule"][1],
                         replaces=REPLACES["list_schedule"], launches=sched_launches,
-                        path=CAMPAIGN, **sched_row))
+                        variants_launched=sched_variants_launched, path=CAMPAIGN,
+                        **sched_row))
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

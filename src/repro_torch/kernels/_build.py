@@ -53,9 +53,10 @@ _SIGNATURES = {
                                     _INT, _INT, _INT, _INT, _F32, _VP),
     "repro_flash_attention_wgmma_attrs": (_INT, _INT, _INTP, _INTP, _INTP),
     "repro_ssm_scan": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
-    "repro_list_schedule": (_VP, _VP, _VP, _INT, _INT, _INT, _F32, _VP, _VP, _VP,
-                            _VP, _VP),
-    "repro_list_schedule_attrs": (_INTP, _INTP, _INTP),
+    "repro_list_schedule": (_VP, _VP, _VP, _INT, _INT, _INT, _F32, _INT, _VP, _VP,
+                            _VP, _VP, _VP),
+    "repro_list_schedule_plan": (_INT, _INT, _INT, _INT, _INTP),
+    "repro_list_schedule_attrs": (_INT, _INTP, _INTP, _INTP),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -6,22 +6,27 @@ task records of ``ref.py`` and K parameter vectors and returns (makespan
 [K], busy [K, 4]) in f32, both times ``repeats``. Engine classes must lie
 in [0, 4) and units in [0, n_units); the caller checks them. A CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises.
-``list_schedule.launches`` counts kernel launches and nothing else.
+``variant`` forces one of ``ref.VARIANTS`` in place of the plan's choice
+(to time and test each). On the card the plan is the C side's own
+(``kernel.kernel_plan``); the global variant's scratch ``done`` and
+``free`` are allocated only when it runs. ``list_schedule.launches``
+counts kernel launches and nothing else, ``list_schedule.variant_launches``
+the same by variant.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from .kernel import list_schedule_cuda
-from .ref import FEATS, INT_COLS, N_CLASSES, N_PARAMS, list_schedule_ref
+from .kernel import kernel_plan, list_schedule_cuda
+from .ref import FEATS, INT_COLS, N_CLASSES, N_PARAMS, VARIANTS, list_schedule_ref
 
 __all__ = ["list_schedule"]
 
 
 def list_schedule(feats: torch.Tensor, ints: torch.Tensor, params: torch.Tensor,
-                  n_units: int, repeats: int = 1
+                  n_units: int, repeats: int = 1, variant: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     N, K = feats.shape[0], params.shape[0]
     if (feats.shape != (N, len(FEATS)) or ints.shape != (N, INT_COLS)
@@ -42,17 +47,25 @@ def list_schedule(feats: torch.Tensor, ints: torch.Tensor, params: torch.Tensor,
         return list_schedule_ref(feats, ints, params, n_units, repeats)
     if feats.device.type != "cuda":
         raise ValueError(f"list_schedule: unsupported device {feats.device}")
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"list_schedule: unknown variant {variant!r}")
     feats, ints, params = feats.contiguous(), ints.contiguous(), params.contiguous()
     if feats.data_ptr() % 16 or ints.data_ptr() % 16:
         raise ValueError("list_schedule: feats and ints must be 16-byte aligned")
     dev = feats.device
     makespan = torch.empty((K,), dtype=torch.float32, device=dev)
     busy = torch.empty((K, N_CLASSES), dtype=torch.float32, device=dev)
-    done = torch.empty((N, K), dtype=torch.float32, device=dev)
-    free = torch.empty((n_units, K), dtype=torch.float32, device=dev)
-    list_schedule_cuda(feats, ints, params, n_units, repeats, done, free, makespan, busy)
+    plan = kernel_plan(N, K, n_units, variant)
+    done = free = None
+    if plan.variant == "global":
+        done = torch.empty((N, K), dtype=torch.float32, device=dev)
+        free = torch.empty((n_units, K), dtype=torch.float32, device=dev)
+    list_schedule_cuda(feats, ints, params, n_units, repeats, variant, done, free,
+                       makespan, busy)
     list_schedule.launches += 1
+    list_schedule.variant_launches[plan.variant] += 1
     return makespan, busy
 
 
 list_schedule.launches = 0
+list_schedule.variant_launches = dict.fromkeys(VARIANTS, 0)

@@ -5,7 +5,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --reduced --device cpu --dtype float32
 
-Same options as ``python -m repro.launch.serve``, plus ``--device`` (default
+Same options as the JAX package's ``launch/serve.py``, plus ``--device`` (default
 ``cuda``; raises when no GPU is present) and ``--dtype``. Parameters are
 drawn from seed 0; no weights are downloaded.
 """

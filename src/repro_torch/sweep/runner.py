@@ -7,8 +7,8 @@
   list-schedule kernel (on ``device``: the card unless told otherwise),
 * selects the Pareto-interesting points per cell,
 * refines only those on the ground-truth event engine + Power-EM through
-  a pluggable execution **backend** (``repro_torch.exec``: inline; the
-  pool and spool backends are not ported yet) behind a content-hashed
+  a pluggable execution **backend** (``repro_torch.exec``: inline / local
+  process pool / resumable filesystem job spool) behind a content-hashed
   on-disk cache,
 * journals per-point progress (status, wall time, worker id, cache-hit
   counters) to an append-only JSONL stream,
@@ -210,10 +210,14 @@ def run_campaign(spec: SweepSpec, *, workers: Optional[int] = 0,
     """Execute one campaign.
 
     ``backend`` picks the refinement execution service: ``"inline"``
-    (deterministic, test-friendly) or a ready ``repro_torch.exec``
-    Backend instance. The reference's ``"pool"`` and ``"spool"`` are not
-    ported yet: asking for them raises ImportError. When ``backend`` is
+    (deterministic, test-friendly), ``"pool"`` (``workers`` local
+    processes; None = one per core), ``"spool"`` (resumable filesystem
+    job queue at ``spool_dir``, drained by ``workers`` spawned daemons
+    plus any externally attached ``python -m repro_torch.exec worker``),
+    or a ready ``repro_torch.exec`` Backend instance. When ``backend`` is
     None the legacy ``workers`` convention applies: 0/1 inline, else pool.
+    Refinement is numpy only and never touches the card, so the pool may
+    fork its workers after the pre-screen has initialised CUDA.
 
     The cache (``cache_dir`` or ``spec.cache_dir``) makes repeated and
     interrupted campaigns incremental; ``journal_path`` streams

@@ -36,11 +36,15 @@ def test_golden_slice_through_the_port(name):
 
 
 @pytest.mark.parametrize("backend", ["pool", "spool"])
-def test_pool_and_spool_are_not_ported_yet(backend):
+def test_get_backend_builds_the_ports_pool_and_spool(backend):
+    """The pool and spool backends are ported now: ``get_backend`` builds
+    them from the port's own modules (their records are held to inline's
+    in ``tests/test_torch_exec.py``)."""
     from repro_torch.exec.backend import get_backend
 
-    with pytest.raises(ImportError):
-        get_backend(backend, workers=1, spool_dir="unused")
+    bk = get_backend(backend, workers=1, spool_dir="unused")
+    assert bk.name == backend
+    assert type(bk).__module__ == f"repro_torch.exec.{backend}"
 
 
 def test_journal_and_cache_through_the_port(tmp_path):

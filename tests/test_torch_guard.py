@@ -61,7 +61,9 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.models.model", "repro_torch.serve.engine",
                 "repro_torch.launch.serve", "repro_torch.core.vectorized",
                 "repro_torch.sweep.runner", "repro_torch.kernels.list_schedule.ops",
-                "repro_torch.graph.ingest", "repro_torch.hw.chip"):
+                "repro_torch.graph.ingest", "repro_torch.hw.chip",
+                "repro_torch.exec.pool", "repro_torch.exec.spool",
+                "repro_torch.exec.worker", "repro_torch.obs.perfetto"):
         assert mod in names
 
 

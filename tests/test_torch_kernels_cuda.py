@@ -17,8 +17,10 @@ from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.flash_attention.ref import flash_mha_ref, flash_mha_tiled
 from repro_torch.kernels.list_schedule import ops as sched_ops
+from repro_torch.kernels.list_schedule.kernel import kernel_plan as sched_kernel_plan
 from repro_torch.kernels.list_schedule.ops import list_schedule
-from repro_torch.kernels.list_schedule.ref import list_schedule_ref
+from repro_torch.kernels.list_schedule.ref import (SMEM_LIMIT, VARIANTS, list_schedule_plan,
+                                                   list_schedule_ref)
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.kernel import kernel_attrs, kernel_plan, rmsnorm_variant_cuda
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
@@ -261,17 +263,20 @@ def test_ssm_scan_cuda_vs_plain(shape, dt, monkeypatch):
     close(got, want, TOL[f"scan_{dt}"])
 
 
-def _schedule_bitwise(arrays, pm, repeats, monkeypatch):
-    """The kernel equals its plain version on the card bit for bit."""
+def _schedule_bitwise(arrays, pm, repeats, monkeypatch, variant=None):
+    """The kernel (the plan's variant, or ``variant`` forced) equals its
+    plain version on the card bit for bit."""
     feats, ints = task_tensors(arrays, torch.device("cuda"))
     params = torch.from_numpy(pm.astype("float32")).cuda()
     want = list_schedule_ref(feats, ints, params, arrays.n_units, repeats)
+    ran = list_schedule_plan(len(arrays.deps), len(pm), arrays.n_units, variant).variant
     with monkeypatch.context() as m:
         _no_plain(m)
-        before = list_schedule.launches
-        got = list_schedule(feats, ints, params, arrays.n_units, repeats)
+        before = list_schedule.launches, list_schedule.variant_launches[ran]
+        got = list_schedule(feats, ints, params, arrays.n_units, repeats, variant=variant)
         torch.cuda.synchronize()
-        assert list_schedule.launches == before + 1
+        assert (list_schedule.launches, list_schedule.variant_launches[ran]) == \
+            (before[0] + 1, before[1] + 1)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
@@ -313,3 +318,60 @@ def test_list_schedule_cuda_vs_plain_hlo_tp2(repeats, monkeypatch):
     arrays = from_tasks(cw.tasks)
     assert len(cw.tasks) == 6122 and arrays.n_units == 6
     _schedule_bitwise(arrays, hw_param_matrix()[:2], repeats, monkeypatch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("n,n_units,dep_hi", [
+    (300, 5, 320),     # dependency slots at i or later, and past N
+    (500, 7, None),
+    (2000, 1, None),   # one engine: every step forwards the free time
+])
+def test_list_schedule_each_variant_vs_plain(variant, n, n_units, dep_hi, monkeypatch):
+    require_sm90()
+    arrays = random_task_arrays(n, n, n_units, dep_hi=dep_hi)
+    for pm in (hw_param_matrix()[:1], hw_param_matrix()[[i % 12 for i in range(192)]]):
+        _schedule_bitwise(arrays, pm, 3, monkeypatch, variant=variant)
+
+
+@pytest.mark.gpu
+def test_list_schedule_c_plan_is_the_python_plan():
+    require_sm90()
+    for n in (1, 2, 42, 1000, 3623, 3624, 6122, 7263, 9676, 9677, 9682, 9683, 9684, 29000,
+              200000):
+        for k in (1, 2, 192, 1000):
+            for n_units in (1, 6, 40):
+                for variant in (None,) + VARIANTS:
+                    want = list_schedule_plan(n, k, n_units, variant)
+                    want = type(want)(want.variant, want.vectors, want.grid, want.threads,
+                                      min(want.smem, SMEM_LIMIT + 1))
+                    assert sched_kernel_plan(n, k, n_units, variant) == want, \
+                        (n, k, n_units, variant)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [9683, 60000])
+def test_list_schedule_refuses_shared_memory_above_the_limit(n):
+    """The shared variant forced where even T 1 does not fit is refused at
+    launch and raises; it returns nothing."""
+    require_sm90()
+    arrays = random_task_arrays(0, n, 6)
+    feats, ints = task_tensors(arrays, torch.device("cuda"))
+    params = torch.from_numpy(hw_param_matrix()[:2].astype("float32")).cuda()
+    assert list_schedule_plan(n, 2, 6, "shared").smem > SMEM_LIMIT
+    before = list_schedule.launches
+    with pytest.raises(RuntimeError, match="repro_list_schedule"):
+        list_schedule(feats, ints, params, 6, variant="shared")
+    assert list_schedule.launches == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [9683, 60000])
+def test_list_schedule_global_plan_above_the_shared_limit(n, monkeypatch):
+    """A graph that does not fit in shared memory at T 1 takes the global
+    variant, and the wrapper allocates its scratch."""
+    require_sm90()
+    arrays = random_task_arrays(1, n, 6)
+    assert list_schedule_plan(n, 2, 6).variant == "global"
+    _schedule_bitwise(arrays, hw_param_matrix()[:2], 1, monkeypatch)

@@ -4,9 +4,14 @@ The port imports nothing of ``repro``, so the numpy simulator that the
 campaign path runs (event engine, hardware models, compiler, Power-EM,
 fleet simulator, sweep and exec plumbing) lives in ``repro_torch`` as
 copies at the same relative paths. Each copy must equal its source byte
-for byte once ``repro_torch`` is read as ``repro``: the package name in
-docstrings is the only edit, besides the ones ``DOC_EDITS`` lists (the
-reference's change-history tags in one docstring, left out of the copy).
+for byte once ``repro_torch`` is read as ``repro``: the package name is
+the only edit, besides the ones ``DOC_EDITS`` lists (the reference's
+change-history tags in one docstring, left out of the copy). Mostly it
+sits in docstrings; in ``exec/spool.py`` (the spawned worker: ``import
+repro_torch``, ``python -m repro_torch.exec``) and in the ``prog`` of the
+``exec`` and ``obs`` CLIs it is code, so the port runs its own worker.
+``tests/test_torch_exec.py`` scans every module for a leftover import or
+spawn of ``repro``, which this comparison cannot see.
 The ported modules are not copies:
 ``core/vectorized.py``, ``sweep/prescreen.py``, ``sweep/runner.py``,
 ``configs/__init__.py`` and ``serve/__init__.py``.
@@ -25,10 +30,11 @@ COPIES = [f"{m}.py" for m in (
     "hw/chip",
     "graph/tasks", "graph/workloads", "graph/compiler", "graph/hlo_parser", "graph/ingest",
     "power/__init__", "power/characterization", "power/dvfs", "power/powerem",
-    "obs/__init__", "obs/metrics", "obs/progress",
+    "obs/__init__", "obs/metrics", "obs/progress", "obs/perfetto", "obs/__main__",
     "serve/traffic", "serve/fleet",
     "sweep/__init__", "sweep/spec", "sweep/cache", "sweep/pareto", "sweep/refine",
-    "exec/__init__", "exec/backend", "exec/journal",
+    "exec/__init__", "exec/backend", "exec/journal", "exec/pool", "exec/spool",
+    "exec/worker", "exec/janitor", "exec/faults", "exec/__main__",
     "configs/hubert_xlarge", "configs/hymba_1_5b", "configs/llama32_vision_90b",
     "configs/minicpm_2b", "configs/phi35_moe_42b_a6_6b", "configs/qwen2_1_5b",
     "configs/qwen3_32b", "configs/qwen3_moe_30b_a3b", "configs/smollm_135m",
