@@ -3,12 +3,12 @@
 
   python3 chip_smoke.py
 
-Three main paths are driven: the campaign prescreen of the builtin
-lm_full_pod campaign (qwen3-32b, 72 cells x 192 parameter vectors), and,
-each at full width and full depth, the dense decoder qwen2-1.5b and the
-hybrid hymba-1.5b (attention and Mamba heads, sliding window with
-meta-token sinks). Phases, each of which fails the run (non-zero exit, no
-result line):
+Four main paths are driven: the campaign prescreen of the builtin
+lm_full_pod campaign (qwen3-32b, 72 cells x 192 parameter vectors);
+serving, each at full width and full depth, the dense decoder qwen2-1.5b
+and the hybrid hymba-1.5b (attention and Mamba heads, sliding window with
+meta-token sinks); and training qwen2-1.5b at full width and depth. Phases,
+each of which fails the run (non-zero exit, no result line):
 
   1. card   — name and power limit from nvidia-smi;
   2. build  — one nvcc per CUDA source, all started together, and one link
@@ -52,16 +52,35 @@ result line):
      just before the run and read just after, must equal what the path
      implies, and every flash launch must be the tensor-core kernel's;
   6. profile — wall vs device busy time of one prefill and of decode
-     steps of each model, with the top kernels (torch.profiler).
+     steps of each model, with the top kernels (torch.profiler);
+  7. train  — the backward kernels (rmsnorm: dx, dw; flash attention: dQ,
+     dK, dV) at the train shapes through the wrappers' autograd, against
+     the plain versions' autograd on the card (bf16 flash against the plain
+     backward in f32 of the same inputs, each gradient within a share of its
+     max, beside the readings of two wrong kernels), each timed alone
+     (median of 25, L2 flushed) beside its bound, the plain version's
+     backward and the library call's backward (F.rms_norm, SDPA); launch/train.py::train for
+     qwen2-1.5b, f32, B 4, S 1024, remat "full", 4 steps, with every
+     kernel's count (forward and backward) zeroed just before and checked
+     exactly just after, ms per step and peak memory, and one profiled
+     step; 3 bf16 steps whose flash forwards must all be tensor-core
+     launches; one step at full width and 4 layers with the kernels, then
+     with the plain versions patched in, from the same state: loss, grad
+     norm, each leaf's gradient (its first AdamW moment) and new parameters
+     must agree, and a step with a wrong dK must fail the gradient check;
+  8. cli    — python -m repro_torch.sweep run on a golden slice's spec on the
+     card (a subprocess): its frozen records must equal the fixture.
 
 The line before the last is a JSON object {"kernels": [...]} (list_schedule,
-which replaces the prescreen's XLA program and no Pallas kernel, among
-them); the last line is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
+which replaces the prescreen's XLA program and no Pallas kernel, and the
+train path's rows, its backward kernels among them); the last line is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
 >= 9.0 and nvcc; exits 1 without them.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -78,12 +97,30 @@ BF16_FLOPS = 989e12                        # bf16 tensor cores, dense
 TOL = {("rmsnorm", "float32"): 1e-5, ("rmsnorm", "bfloat16"): 2e-2,
        ("flash", "float32"): 1e-4, ("flash", "bfloat16"): 3e-2,
        ("ssm_scan", "float32"): 1e-4, ("ssm_scan", "bfloat16"): 2e-2}
+# backward kernels vs the plain versions' autograd on the card: f32 differs in
+# sum order; bf16 rmsnorm by one rounding of each gradient
+BWD_TOL = {("rmsnorm", "float32"): 1e-4, ("rmsnorm", "bfloat16"): 3e-2,
+           ("flash", "float32"): 1e-4}
+# bf16 flash backward: max |got - want| <= BWD_FLASH_BF16 * max |want| for each
+# of dQ, dK, dV, with want the plain backward in f32 of the same bf16 inputs.
+# A sound kernel differs by the rounding of each gradient to bf16 and of the
+# saved output that D = rowsum(dO * O) reads (the tensor-core forward rounds
+# P); a dQ 10% off or a dS without D reads far above it (both are shown)
+BWD_FLASH_BF16 = 2e-2
+# the 4-layer train step, kernels vs plain: each leaf's first AdamW moment
+# (0.1 x its clipped gradient) within this share of the leaf's max
+STEP_GRAD_TOL = 1e-4
 DENSE, HYBRID, CAMPAIGN = "qwen2-1.5b", "hymba-1.5b", "lm_full_pod"
+TRAIN = dict(arch=DENSE, steps=4, batch=4, seq=1024, bf16_steps=3, check_layers=4)
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
             "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:53",
             # no pl.pallas_call: the XLA program of the vmapped list schedule
             "list_schedule": "src/repro/core/vectorized.py:239"}
+# the backward kernels (no pl.pallas_call: each replaces jax.grad of the jnp
+# function the Pallas kernel's forward computes)
+REPLACES["rmsnorm_bwd"] = "src/repro/kernels/rmsnorm/kernel.py:36"
+REPLACES["flash_attention_bwd"] = "src/repro/kernels/flash_attention/kernel.py:99"
 # the route and source of each kernel on the main paths (bf16 flash at hd 64
 # and 128 runs the tensor-core kernel). The kernels line allows only the
 # routes "cuda" and "triton"; the source names which flash kernel it was.
@@ -91,7 +128,12 @@ ROUTES = {"rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu"),
           "flash_attention": ("cuda",
                               "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"),
           "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu"),
-          "list_schedule": ("cuda", "src/repro_torch/kernels/csrc/list_schedule.cu")}
+          "list_schedule": ("cuda", "src/repro_torch/kernels/csrc/list_schedule.cu"),
+          "rmsnorm_bwd": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu"),
+          "flash_attention_bwd": ("cuda",
+                                  "src/repro_torch/kernels/csrc/flash_attention_bwd.cu")}
+# f32 flash attention (the train path's dtype) runs the scalar kernel
+SCALAR_FLASH = "src/repro_torch/kernels/csrc/flash_attention.cu"
 # per model: phase-4 batch, prompt and cache; phase-5 prompt range and cache
 PATHS = {
     DENSE: dict(model_B=2, model_S=256, model_smax=512, lo=512, hi=1024, smax=2048,
@@ -206,6 +248,27 @@ def sm_clocks() -> dict:
 def sched_chain_bound(N: int, clock: dict) -> float:
     """ms: N dependent steps of CHAIN_STEP_CYCLES at the card's top SM clock."""
     return N * CHAIN_STEP_CYCLES / (clock["max_mhz"] * 1e6) * 1e3
+
+
+def rms_bwd_bound(rows: int, d: int, esize: int):
+    """The function's bound: x, g and w read and dx and dw written once;
+    ~10 f32 operations an element. (The kernel's dw partial rows are its
+    design's overhead, not the function's, and stay out.)"""
+    byts = (3 * rows * d + 2 * d) * esize
+    ops = 10 * rows * d
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
+
+
+def flash_bwd_bound(B, S, H, KV, hd, causal, esize, peak, window=0, n_sink=0):
+    """Five products over the visible pairs (q.k, dO.v, P.dO, dS.k, dS.q),
+    2 * hd flops each; q, o, dO read and dq written, k, v read and dk, dv
+    written once."""
+    pairs = B * H * (visible_pairs(S, S, window, n_sink) if causal else S * S)
+    ops = 10 * hd * pairs
+    byts = (4 * B * S * H * hd + 4 * B * S * KV * hd) * esize
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / peak
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
 
 
 def scan_bound(B, S, C, esize):
@@ -868,10 +931,11 @@ def phase_serve(torch, arch):
     return launches, model, params
 
 
-def _device_ms(torch, fn, steps: int):
+def _device_ms(torch, fn, steps: int, keys=("flash_attention",)):
     """Device kernel time per step (ms), kernels launched per step and the
-    top kernels (and the flash attention kernels, wherever they rank), from
-    torch.profiler with CUDA activity only; None if it saw no kernel."""
+    top kernels (and those whose name holds one of ``keys``, wherever they
+    rank), from torch.profiler with CUDA activity only; None if it saw no
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -888,7 +952,7 @@ def _device_ms(torch, fn, steps: int):
     if not rows:
         return None, 0, []
     rows.sort(reverse=True)
-    shown = rows[:6] + [r for r in rows[6:] if "flash_attention" in r[1]]
+    shown = rows[:6] + [r for r in rows[6:] if any(k in r[1] for k in keys)]
     return sum(ms for ms, _ in rows), launched / steps, shown
 
 
@@ -939,6 +1003,454 @@ def phase_profile(torch, model, params):
                 log(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
 
 
+def _bwd_time(torch, timer, out, inputs, grad):
+    """Median time of the backward alone: autograd.grad through a graph
+    built once (retain_graph), for the plain version and the library call."""
+    return timer(lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True))
+
+
+def _flash_bwd_dense(torch, q, k, v, do, kw, drop_d=False):
+    """The attention backward written out in f32, P, dP and dS materialised
+    (dS = P (dP - D), D = rowsum(dO O)); with drop_d, dS = P dP: a kernel
+    that left out D."""
+    from repro_torch.kernels.flash_attention.ref import visible
+
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qf, df = (t.float().permute(0, 2, 1, 3) for t in (q, do))                 # [B,H,S,hd]
+    kh, vh = (t.float().permute(0, 2, 1, 3).repeat_interleave(G, 1) for t in (k, v))
+    idx = torch.arange(S, device=q.device)
+    seen = visible(idx[:, None], idx[None, :], S, **kw)
+    p = torch.softmax((qf @ kh.transpose(-1, -2) * scale).masked_fill(~seen, float("-inf")), -1)
+    delta = 0.0 if drop_d else (df * (p @ vh)).sum(-1, keepdim=True)
+    ds = p * (df @ vh.transpose(-1, -2) - delta)
+    dq = ds @ kh * scale
+    dk = (ds.transpose(-1, -2) @ qf * scale).unflatten(1, (-1, G)).sum(2)
+    dv = (p.transpose(-1, -2) @ df).unflatten(1, (-1, G)).sum(2)
+    return tuple(t.permute(0, 2, 1, 3) for t in (dq, dk, dv))
+
+
+def _flash_bf16_check(torch, name, inputs, kw, grads) -> float:
+    """bf16 flash backward: each of dQ, dK, dV within BWD_FLASH_BF16 of the
+    max |want|, want the plain backward in f32 of the same bf16 inputs.
+    Beside each reading, those of two wrong kernels on the same inputs (the
+    kernel's gradient x 1.1; dS without D, which leaves dV alone), each of
+    which must fail the limit, and of the written-out f32 backward that
+    computes the second (a check of that harness). Returns the max abs
+    error."""
+    from repro_torch.kernels.flash_attention.ref import flash_mha_bwd_ref
+
+    f32 = [t.float() for t in inputs]
+    want = flash_mha_bwd_ref(*f32[:3], f32[3], **kw)
+    dense = _flash_bwd_dense(torch, *f32, kw)
+    no_d = _flash_bwd_dense(torch, *f32, kw, drop_d=True)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for g, got, w, t_dense, t_no_d in zip(("dQ", "dK", "dV"), grads, want, dense, no_d):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} {g}: non-finite kernel output")
+        top = float(w.abs().max())
+
+        def share(t):
+            return float((t.float() - w).abs().max()) / top
+
+        sound, scaled, dropped, harness = (share(got), share(got.float() * 1.1),
+                                           share(t_no_d), share(t_dense))
+        ok = sound <= BWD_FLASH_BF16
+        log(f"  {name} {g}: max|err| / max|want| {sound:.3e} (limit {BWD_FLASH_BF16:g}, "
+            f"max|want| {top:.3e}) {'ok' if ok else 'FAIL'} | wrong kernels: x1.1 "
+            f"{scaled:.3e}, dS without D {dropped:.3e} | f32 written-out backward {harness:.1e}")
+        if harness > 1e-4:
+            raise AssertionError(f"{name} {g}: the written-out backward disagrees with autograd")
+        if not ok:
+            raise AssertionError(f"{name} {g}: kernel disagrees with its plain version")
+        if scaled <= BWD_FLASH_BF16 or (g != "dV" and dropped <= BWD_FLASH_BF16):
+            raise AssertionError(f"{name} {g}: the limit would pass a wrong kernel")
+        worst = max(worst, sound * top)
+    del want, dense, no_d
+    return worst
+
+
+def train_kernels(torch):
+    """The backward kernels at the train path's shapes, forward and backward
+    through the wrappers against the plain versions' autograd on the card,
+    then timed alone beside their bound, the plain version's backward and
+    the library call's backward. Returns kernels-line rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+    from repro_torch.kernels.flash_attention.ref import flash_mha_bwd_ref, flash_mha_ref
+    from repro_torch.kernels.rmsnorm.kernel import bwd_blocks, rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    timer = Timer(torch)
+    rows = {}
+
+    def randn(shape, dt, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(dt)
+
+    log("[train] rmsnorm backward vs plain (dx, dw)")
+    # qwen2 at B 4, S 1024: ln1/ln2/final rows, and the [B*S*H, hd] rows of
+    # a qk-norm model
+    for shape in ((4 * 1024, 1536), (4 * 1024 * 12, 128)):
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[1]
+            x, w, g = randn(shape, dt), randn(shape[-1:], dt, 0.1, 1.0), randn(shape, dt)
+            xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            before = rmsnorm.bwd_launches
+            rmsnorm(xr, wr, 1e-6).backward(g)
+            if rmsnorm.bwd_launches != before + 1:
+                raise AssertionError(f"rmsnorm backward {list(shape)}: no launch counted")
+            want = rmsnorm_bwd_ref(x, w, g, 1e-6)
+            tol = BWD_TOL[("rmsnorm", dn)]
+            err = max(compare(f"rmsnorm_bwd {list(shape)} {dn} dx", xr.grad, want[0], tol),
+                      compare(f"rmsnorm_bwd {list(shape)} {dn} dw", wr.grad, want[1], tol))
+            dx, dw = torch.empty_like(x), torch.empty_like(w)
+            rows_, d = shape
+            code = 0 if dt == torch.float32 else 1
+            ms = timer(lambda: rmsnorm_bwd_cuda(x, w, g, dx, dw, rows_, d, 1e-6, code))
+            xp, wp = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            plain = _bwd_time(torch, timer, rmsnorm_ref(xp, wp, 1e-6), (xp, wp), g)
+            yl = F.rms_norm(xp, (d,), wp, 1e-6)
+            lib = _bwd_time(torch, timer, yl, (xp, wp), g)
+            blocks = bwd_blocks(rows_, 0)
+            bound, by, byts, ops = rms_bwd_bound(rows_, d, x.element_size())
+            extra = 2 * blocks * d * 4           # the partial rows, written and read
+            log(f"    time {ms * 1e3:.2f} us | bound {bound * 1e3:.2f} us ({by}: "
+                f"{byts / 1e6:.2f} MB, {ops / 1e6:.1f} MFLOP) | design overhead: {blocks} dw "
+                f"partial rows, {extra / 1e6:.2f} MB, {extra / HBM_BYTES_PER_S * 1e6:.2f} us | "
+                f"plain backward {plain * 1e3:.1f} us | F.rms_norm backward {lib * 1e3:.2f} us "
+                f"| {100 * bound / ms:.1f}% of its bound, kernel/library {ms / lib:.2f}x")
+            rows[("rmsnorm_bwd", shape, dn)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib)
+            del x, w, g, xr, wr, xp, wp, yl, dx, dw, want
+
+    log("[train] flash attention backward vs plain (dQ, dK, dV)")
+    # (B, S, H, KV, hd, window, n_sink): qwen2 causal; hymba's window and sinks
+    cases = [((4, 1024, 12, 2, 128, 0, 0), (torch.float32, torch.bfloat16)),
+             ((4, 1152, 25, 5, 64, 1024, 128), (torch.float32, torch.bfloat16))]
+    for case, dts in cases:
+        B, S, H, KV, hd, win, ns = case
+        kw = dict(causal=True, window=win, n_sink=ns)
+        for dt in dts:
+            dn = str(dt).split(".")[1]
+            q, k, v = randn((B, S, H, hd), dt), randn((B, S, KV, hd), dt), randn((B, S, KV, hd), dt)
+            do = randn((B, S, H, hd), dt)
+            qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+            before = flash_mha.launches, flash_mha.bwd_launches
+            out = flash_mha(qr, kr, vr, **kw)
+            out.backward(do)
+            if (flash_mha.launches, flash_mha.bwd_launches) != (before[0] + 1, before[1] + 1):
+                raise AssertionError(f"flash {case} {dn}: launches not counted")
+            name = f"flash_bwd B={B} S={S} H={H} KV={KV} hd={hd} window={win} sinks={ns} {dn}"
+            grads = (qr.grad, kr.grad, vr.grad)
+            if dt == torch.float32:
+                want = flash_mha_bwd_ref(q, k, v, do, **kw)
+                err = max(compare(f"{name} {g}", got, w, BWD_TOL[("flash", dn)])
+                          for g, got, w in zip(("dQ", "dK", "dV"), grads, want))
+                del want
+            else:
+                err = _flash_bf16_check(torch, name, (q, k, v, do), kw, grads)
+            o = out.detach()
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            ms = timer(lambda: flash_attention_bwd_cuda(q, k, v, o, do, dq, dk, dv, **kw))
+            qp, kp, vp = (t.clone().requires_grad_(True) for t in (q, k, v))
+            plain = _bwd_time(torch, timer, flash_mha_ref(qp, kp, vp, **kw), (qp, kp, vp), do)
+            qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            if win:
+                r = torch.arange(S, device="cuda")[:, None]
+                c = torch.arange(S, device="cuda")[None, :]
+                mask = (c <= r) & ((c > r - win) | (c < ns))
+                yl = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            else:
+                yl = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib = _bwd_time(torch, timer, yl, (qt, kt, vt), do.transpose(1, 2).contiguous())
+            peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+            bound, by, byts, ops = flash_bwd_bound(B, S, H, KV, hd, True, q.element_size(),
+                                                   peak, win, ns)
+            log(f"    time {ms:.3f} ms | bound {bound * 1e3:.2f} us ({by}: {byts / 1e6:.2f} MB, "
+                f"{ops / 1e9:.2f} GFLOP at {peak / 1e12:g} TFLOP/s) | plain backward "
+                f"{plain:.3f} ms | SDPA{' (bool mask)' if win else ''} backward {lib:.3f} ms | "
+                f"{100 * bound / ms:.1f}% of its bound, kernel/SDPA {ms / lib:.2f}x")
+            rows[("flash_attention_bwd", case, dn)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib)
+            del q, k, v, do, qr, kr, vr, out, o, dq, dk, dv, qp, kp, vp, qt, kt, vt, yl, grads
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _zero_counts():
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+
+    rmsnorm.launches = rmsnorm.bwd_launches = 0
+    flash_mha.launches = flash_mha.wgmma_launches = flash_mha.bwd_launches = 0
+
+
+def _read_counts() -> dict:
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+
+    return {"rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm.bwd_launches,
+            "flash_attention": flash_mha.launches, "flash_attention_bwd": flash_mha.bwd_launches,
+            "wgmma": flash_mha.wgmma_launches}
+
+
+def _check_run(history, what):
+    for i, rec in enumerate(history):
+        if not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm", "lr")):
+            raise AssertionError(f"{what}: non-finite metrics at step {i}: {rec}")
+        if rec["grad_norm"] <= 0:
+            raise AssertionError(f"{what}: grad_norm {rec['grad_norm']} at step {i}")
+    if len(history) > 1 and history[0]["loss"] == history[1]["loss"]:
+        raise AssertionError(f"{what}: the loss did not change from step 1 to step 2")
+
+
+def phase_train(torch):
+    """The train path at full width: launch/train.py::train for qwen2-1.5b,
+    f32 (the launcher's default), remat "full", B 4, S 1024, 4 steps, with
+    every kernel's count zeroed just before and read just after; then one
+    profiled step; then 3 bf16 steps, whose flash forwards must all be
+    tensor-core launches. Returns the main run's launches and its numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.train import SyntheticData, make_train_step, schedule_for
+    from repro_torch.configs.base import ShapeSpec
+
+    cfg = get_config(TRAIN["arch"])
+    L, steps = cfg.n_layers, TRAIN["steps"]
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    # per step: the forward runs ln1, ln2 per layer and the final norm and one
+    # attention per layer; remat "full" recomputes each layer's forward once
+    # in the backward (the final norm sits outside the layers and is not
+    # recomputed); the backward runs each norm's and attention's once
+    per_step = {"rmsnorm": 2 * L + 1 + 2 * L, "rmsnorm_bwd": 2 * L + 1,
+                "flash_attention": 2 * L, "flash_attention_bwd": L}
+    # the earlier phases leave hundreds of thousands of Python objects
+    # (campaign records, profiler events): a full collection over them is
+    # slow and would land inside a timed step, so collect them now and
+    # exempt the survivors from later collections
+    gc.collect()
+    gc.freeze()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state, history = train(TRAIN["arch"], steps=steps, batch=B, seq=S, dtype=torch.float32,
+                           log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check_run(history, f"{cfg.name} f32")
+    step_ms = [1e3 * h["step_s"] for h in history]
+    log(f"[train] {cfg.name} f32 L={L} d={cfg.d_model} B={B} S={S}, remat full: losses "
+        + ", ".join(f"{h['loss']:.4f}" for h in history) + "; grad norms "
+        + ", ".join(f"{h['grad_norm']:.3f}" for h in history))
+    log(f"[train] ms per step {', '.join(f'{t:.1f}' for t in step_ms)} (median of steps 2-"
+        f"{steps}: {statistics.median(step_ms[1:]):.1f} ms, "
+        f"{B * S / statistics.median(step_ms[1:]) * 1e3:,.0f} tok/s); "
+        f"max_memory_allocated {peak:.2f} GiB")
+    want = {k: n * steps for k, n in per_step.items()}
+    log(f"[train] launches: " + ", ".join(f"{k} {launches[k]} (want {per_step[k]} x {steps})"
+                                          for k in per_step)
+        + f"; per step rmsnorm 4L+1, rmsnorm_bwd 2L+1, flash 2L, flash_bwd L at L={L}")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"train: {k} launched {launches[k]} times, want {n}")
+
+    # profile one more f32 step on the trained state: where a step's time goes
+    model = build_model(cfg)
+    step_fn = make_train_step(model, lr_schedule=schedule_for(cfg, 3e-4, 1, steps))
+    data = SyntheticData(cfg, ShapeSpec("cli", S, B, "train"), seed=0, device="cuda")
+    batch = data.batch_at(steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    busy, kernels, top = _device_ms(torch, lambda: step_fn(state, batch), 1,
+                                    keys=("fa_bwd", "flash_attention", "rmsnorm"))
+    wall = (time.perf_counter() - t0) * 1e3
+    if busy is None:
+        log(f"[profile] {cfg.name} train step f32: device time not measured (the profiler "
+            f"saw no CUDA kernel)")
+    else:
+        log(f"[profile] {cfg.name} train step f32 B={B} S={S}: wall {wall:.1f} ms under the "
+            f"profiler, device busy {busy:.1f} ms ({100 * busy / wall:.1f}% busy), "
+            f"{kernels:.0f} kernels")
+        for ms, key in top:
+            log(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # bf16 (init_state's default): every flash forward on the tensor cores
+    gc.collect()                                # the profiler's events
+    gc.freeze()
+    _zero_counts()
+    _, hist16 = train(TRAIN["arch"], steps=TRAIN["bf16_steps"], batch=B, seq=S,
+                      dtype=torch.bfloat16, log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    c16 = _read_counts()
+    _check_run(hist16, f"{cfg.name} bf16")
+    n16 = TRAIN["bf16_steps"]
+    log(f"[train] {cfg.name} bf16 {n16} steps: losses "
+        + ", ".join(f"{h['loss']:.4f}" for h in hist16)
+        + "; ms per step " + ", ".join("%.1f" % (1e3 * h["step_s"]) for h in hist16)
+        + f"; flash "
+        f"forwards {c16['flash_attention']} of which tensor-core {c16['wgmma']}, backwards "
+        f"{c16['flash_attention_bwd']}")
+    if c16["wgmma"] != c16["flash_attention"] or c16["flash_attention"] != per_step[
+            "flash_attention"] * n16 or c16["flash_attention_bwd"] != L * n16:
+        raise AssertionError(f"bf16 train: flash launches {c16}")
+    gc.unfreeze()
+    torch.cuda.empty_cache()
+    return launches, dict(step_ms=step_ms, peak_gib=peak, losses=[h["loss"] for h in history],
+                          bf16_step_ms=[1e3 * h["step_s"] for h in hist16])
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The path of each leaf, in the order of train.optim.tree_leaves."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree) for n in _leaf_names(t, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def train_step_vs_plain(torch):
+    """One f32 train step at full width and 4 layers with the kernels, then
+    the same step from the same state with the plain versions patched in
+    (here, not by a switch in the package): loss and grad norm at rel 1e-4;
+    each leaf's gradient, read from its first AdamW moment (0.1 x the
+    clipped gradient after one step from zero), within STEP_GRAD_TOL of the
+    leaf's max; new parameters at atol 2 lr. One Adam step moves each
+    element by about lr sign(g), so the parameters alone compare signs; the
+    moments compare values. A third step, the plain versions with dK x 1.1,
+    must fail the moment check: the reading of a wrong backward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention.ref import flash_mha_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.train import SyntheticData, init_state, make_train_step, schedule_for
+    from repro_torch.train.optim import tree_leaves, tree_map
+
+    class ScaleGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * 1.1
+
+    def flash_dk_off(q, k, v, **kw):
+        return flash_mha_ref(q, ScaleGrad.apply(k), v, **kw)
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=TRAIN["check_layers"])
+    model = build_model(cfg)
+    lr = 3e-4
+    step_fn = make_train_step(model, lr_schedule=schedule_for(cfg, lr, 0, 100))
+    state = init_state(model, torch.Generator(device="cuda").manual_seed(2),
+                       dtype=torch.float32, device="cuda")
+    twin = tree_map(lambda t: t.clone(), state)
+    wrong = tree_map(lambda t: t.clone(), state)
+    batch = SyntheticData(cfg, ShapeSpec("cli", TRAIN["seq"], TRAIN["batch"], "train"),
+                          seed=1, device="cuda").batch_at(0)
+    _zero_counts()
+    _, mk = step_fn(state, batch)
+    ran = _read_counts()
+    saved = layers_mod.rmsnorm, attention_mod.flash_mha
+    try:
+        layers_mod.rmsnorm, attention_mod.flash_mha = rmsnorm_ref, flash_mha_ref
+        _zero_counts()
+        _, mp = step_fn(twin, batch)
+        plain_ran = _read_counts()
+        attention_mod.flash_mha = flash_dk_off
+        step_fn(wrong, batch)
+    finally:
+        layers_mod.rmsnorm, attention_mod.flash_mha = saved
+    torch.cuda.synchronize()
+    if min(ran[k] for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                            "flash_attention_bwd")) == 0 or any(plain_ran.values()):
+        raise AssertionError(f"kernel step launched {ran}, plain step {plain_ran}")
+    rel = {k: abs(float(mk[k]) - float(mp[k])) / abs(float(mp[k])) for k in ("loss", "grad_norm")}
+    diffs = [(a - b).abs() for a, b in zip(tree_leaves(state["params"]),
+                                           tree_leaves(twin["params"]))]
+    worst = max(float(d.max()) for d in diffs)
+    mean = float(sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs))
+
+    def moment_shares(opt):
+        """Each leaf's max |m - m_plain| over the plain step's max |m|."""
+        return {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for n, a, b in zip(_leaf_names(twin["opt"]["m"]), tree_leaves(opt["m"]),
+                                   tree_leaves(twin["opt"]["m"]))}
+
+    grads_k, grads_w = moment_shares(state["opt"]), moment_shares(wrong["opt"])
+    leaf_k, leaf_w = max(grads_k, key=grads_k.get), max(grads_w, key=grads_w.get)
+    log(f"[train] {cfg.name} at {cfg.n_layers} layers, one f32 step, kernels vs plain on the "
+        f"card: loss {float(mk['loss']):.6f} / {float(mp['loss']):.6f} (rel {rel['loss']:.2e}), "
+        f"grad_norm {float(mk['grad_norm']):.6f} / {float(mp['grad_norm']):.6f} (rel "
+        f"{rel['grad_norm']:.2e}); new params max |diff| {worst:.3e} (atol 2 lr = {2 * lr:g}), "
+        f"mean {mean:.3e} (at most 1e-3 lr = {1e-3 * lr:g})")
+    log(f"[train] gradients (first AdamW moments), {len(grads_k)} leaves, max |diff| / max "
+        f"|plain| (limit {STEP_GRAD_TOL:g}): kernels {grads_k[leaf_k]:.3e} (worst leaf "
+        f"{leaf_k}); a wrong backward (dK x 1.1, plain versions) {grads_w[leaf_w]:.3e} "
+        f"(worst leaf {leaf_w})")
+    if rel["loss"] > 1e-4 or rel["grad_norm"] > 1e-4 or worst > 2 * lr or mean > 1e-3 * lr:
+        raise AssertionError("the kernel step and the plain step disagree")
+    if grads_k[leaf_k] > STEP_GRAD_TOL:
+        raise AssertionError(f"the kernel step's gradient of {leaf_k} disagrees with the plain "
+                             f"step's")
+    if grads_w[leaf_w] <= STEP_GRAD_TOL:
+        raise AssertionError("the gradient check would pass a backward with dK x 1.1")
+    del state, twin, wrong
+    torch.cuda.empty_cache()
+
+
+def cli_on_the_card():
+    """python -m repro_torch.sweep run on a golden slice's spec, on the card
+    (the default device), in a subprocess: its frozen records must equal the
+    fixture."""
+    import shutil
+    import tempfile
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _torch_golden
+
+    name = "lm_decode_kv_slice"
+    tmp = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(HERE, "build"))
+    try:
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump(_torch_golden.specs()[name].to_dict(), f)
+        out = os.path.join(tmp, "out.json")
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.sweep", "run", spec,
+                            "--workers", "0", "--no-cache", "--out", out],
+                           capture_output=True, text=True, timeout=300, env=env, cwd=tmp)
+        if r.returncode != 0:
+            raise AssertionError(f"sweep CLI failed ({r.returncode}): {r.stderr[-2000:]}")
+        with open(out) as f:
+            records = json.load(f)["records"]
+        if _torch_golden.freeze(records) != _torch_golden.golden(name):
+            raise AssertionError(f"sweep CLI: {name} records differ from tests/golden/")
+        line = next((ln for ln in r.stdout.splitlines() if ln.startswith("prescreen_s,")), "")
+        log(f"[cli] python -m repro_torch.sweep run {name} (the card, --workers 0): "
+            f"{len(records)} records equal the fixture, {time.perf_counter() - t0:.1f} s; {line}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -971,6 +1483,10 @@ def main() -> int:
             phase_profile(torch, model, params)
             del model, params
             torch.cuda.empty_cache()
+        rows.update(train_kernels(torch))
+        train_launches, train_stats = phase_train(torch)
+        train_step_vs_plain(torch)
+        cli_on_the_card()
     except Exception:
         traceback.print_exc()
         return 1
@@ -996,6 +1512,23 @@ def main() -> int:
                         replaces=REPLACES["list_schedule"], launches=sched_launches,
                         variants_launched=sched_variants_launched, path=CAMPAIGN,
                         **sched_row))
+    # the train path (f32, the launcher's default): its forward kernels (f32
+    # flash runs the scalar kernel) and the backward kernels, timed at its
+    # main shapes; launches from the 4-step full-width run
+    train_path = f"train/{TRAIN['arch']}"
+    f32_flash = ("flash", (4, 1024, 1024, 12, 2, 128, True, 0, 0), "float32")
+    for name, key, source in (
+            ("rmsnorm", ("rmsnorm", (4096, 1536), "float32"), ROUTES["rmsnorm"][1]),
+            ("flash_attention", f32_flash, SCALAR_FLASH),
+            ("rmsnorm_bwd", ("rmsnorm_bwd", (4096, 1536), "float32"), ROUTES["rmsnorm_bwd"][1]),
+            ("flash_attention_bwd", ("flash_attention_bwd", (4, 1024, 12, 2, 128, 0, 0),
+                                     "float32"), ROUTES["flash_attention_bwd"][1])):
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=REPLACES[name],
+                            launches=train_launches[name], path=train_path, shape=list(key[1]),
+                            dtype=key[2], **rows[key]))
+    kernels[-1].update(train_step_ms=train_stats["step_ms"],
+                       train_peak_gib=train_stats["peak_gib"],
+                       train_bf16_step_ms=train_stats["bf16_step_ms"])
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,10 @@ arrays — the JAX package's pytree after ``np.asarray`` on every leaf, with
 bf16 leaves as a ``uint16`` view (the convention of
 ``repro/train/checkpoint.py``, since numpy has no bfloat16) — into the
 port's parameters, path for path along ``model.template()``. It imports no
-JAX: the caller does the conversion to numpy.
+JAX: the caller does the conversion to numpy. ``params_to_numpy`` goes the
+other way, for any tree of dicts and lists of tensors (the JAX package's
+pytree of the same paths, once each leaf is read with ``jnp.asarray`` and
+bf16 ``uint16`` views are taken back as bf16).
 """
 from __future__ import annotations
 
@@ -16,12 +19,13 @@ import torch
 
 from .models.layers import PT
 
-__all__ = ["tensor_from_numpy", "tensor_to_numpy", "params_from_numpy"]
+__all__ = ["tensor_from_numpy", "tensor_to_numpy", "params_from_numpy",
+           "params_to_numpy"]
 
 
 def tensor_from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:
     """numpy -> tensor; a ``uint16`` array is read as the bits of bf16."""
-    arr = np.ascontiguousarray(arr)
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))    # keeps a 0-d shape
     if arr.dtype == np.uint16:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
@@ -59,3 +63,12 @@ def _walk(tmpl, tree, path: str, device):
 def params_from_numpy(model, tree: Any, device=None):
     """The port's parameter tree from a numpy tree with the same paths."""
     return _walk(model.template(), tree, "", device)
+
+
+def params_to_numpy(tree: Any):
+    """A numpy tree with the paths of a tree of tensors (bf16 as ``uint16``)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tensor_to_numpy(tree)

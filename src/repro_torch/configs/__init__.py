@@ -12,7 +12,7 @@ from typing import Dict, List
 from . import (hubert_xlarge, hymba_1_5b, llama32_vision_90b, minicpm_2b,
                phi35_moe_42b_a6_6b, qwen2_1_5b, qwen3_32b, qwen3_moe_30b_a3b,
                smollm_135m, xlstm_125m)
-from .base import ArchConfig
+from .base import SHAPES, ArchConfig, ShapeSpec, applicable, skip_reason
 
 _MODULES = (smollm_135m, minicpm_2b, qwen2_1_5b, qwen3_32b, hubert_xlarge,
             qwen3_moe_30b_a3b, phi35_moe_42b_a6_6b, xlstm_125m,
@@ -36,4 +36,11 @@ def get_config(name: str) -> ArchConfig:
     raise KeyError(f"unknown arch {name!r}; known: {', '.join(REGISTRY)}")
 
 
-__all__ = ["ArchConfig", "REGISTRY", "list_archs", "get_config"]
+def get_shape(name: str) -> ShapeSpec:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {', '.join(SHAPES)}")
+    return SHAPES[name]
+
+
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "REGISTRY", "applicable",
+           "skip_reason", "list_archs", "get_config", "get_shape"]

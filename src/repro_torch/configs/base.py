@@ -6,14 +6,19 @@ numbers; ``reduced()`` derives the CPU smoke-test variant. This is the
 port's own copy of the record of the JAX package (``repro.configs.base``):
 the same fields, defaults and derived properties, so a config compares
 equal field for field with its reference.
+
+``ShapeSpec`` describes one input-shape cell (train_4k / prefill_32k /
+decode_32k / long_500k) and knows which program it lowers (``train_step``
+vs ``serve_step``) and whether it applies to a family; ``SHAPES`` and
+``skip_reason`` are copies of the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
-__all__ = ["ArchConfig"]
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "applicable", "skip_reason"]
 
 
 @dataclass(frozen=True)
@@ -129,3 +134,42 @@ class ArchConfig:
         head = 0 if self.tie_embeddings else self.vocab_size * d
         per_attn = d * H * hd + 2 * d * KV * hd + H * hd * d
         return emb + head + L * (per_attn + 3 * d * self.d_ff)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def program(self) -> str:
+        return "train_step" if self.kind == "train" else "serve_step"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def skip_reason(cfg: ArchConfig, shape: ShapeSpec) -> Optional[str]:
+    """Structural (arch-family) skip for a shape cell, or None if runnable:
+    encoder-only archs have no autoregressive step; long_500k is defined
+    for sub-quadratic archs only."""
+    if cfg.encoder_only and shape.kind == "decode":
+        return "encoder-only architecture: no autoregressive decode step"
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return (
+            "pure full-attention architecture: 512k dense-attention decode is "
+            "quadratic-cost/KV-infeasible by design; shape defined for "
+            "sub-quadratic (SSM/hybrid) archs"
+        )
+    return None
+
+
+def applicable(cfg: ArchConfig, shape: ShapeSpec) -> bool:
+    return skip_reason(cfg, shape) is None

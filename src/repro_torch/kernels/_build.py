@@ -30,9 +30,9 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "DTYPE_CODES", "build_dir", "library_path",
            "load", "check"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "rmsnorm.cu", _CSRC / "flash_attention.cu",
-           _CSRC / "flash_attention_wgmma.cu", _CSRC / "ssm_scan.cu",
-           _CSRC / "list_schedule.cu")
+SOURCES = (_CSRC / "rmsnorm.cu", _CSRC / "rmsnorm_bwd.cu", _CSRC / "flash_attention.cu",
+           _CSRC / "flash_attention_wgmma.cu", _CSRC / "flash_attention_bwd.cu",
+           _CSRC / "ssm_scan.cu", _CSRC / "list_schedule.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -47,11 +47,15 @@ _SIGNATURES = {
     "repro_rmsnorm_variant": (_VP, _VP, _VP, _INT, _INT, _F32, _INT, _INT, _VP),
     "repro_rmsnorm_plan": (_INT, _INT, _INT, _INT, _INT, _INTP),
     "repro_rmsnorm_attrs": (_INT, _INT, _INT, _INT, _INTP, _INTP, _INTP),
+    "repro_rmsnorm_bwd": (_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _F32, _INT, _VP),
     "repro_flash_attention": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                               _INT, _INT, _INT, _INT, _INT, _F32, _INT, _VP),
     "repro_flash_attention_wgmma": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                                     _INT, _INT, _INT, _INT, _F32, _VP),
     "repro_flash_attention_wgmma_attrs": (_INT, _INT, _INTP, _INTP, _INTP),
+    "repro_flash_attention_bwd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
+                                  _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _F32,
+                                  _INT, _VP),
     "repro_ssm_scan": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "repro_list_schedule": (_VP, _VP, _VP, _INT, _INT, _INT, _F32, _INT, _VP, _VP,
                             _VP, _VP, _VP),

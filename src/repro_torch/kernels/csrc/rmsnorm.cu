@@ -69,6 +69,7 @@ constexpr int kSmemPerSm = 233472;     // shared memory of one SM (228 KiB)
 constexpr int kSmemPerBlock = 1024;    // of which the system keeps per block
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxD = 8192;
+constexpr int kMaxDevices = 64;
 constexpr int kRowsWarps = 4;          // rows, scalar: warps per block
 constexpr int kStreamMinBytes = 4096;   // stream: narrowest row (narrower ones take rows)
 constexpr int kConsumerWarps = 8;      // stream: warps that reduce and write
@@ -434,12 +435,17 @@ int launch(const Plan& p, const void* x, const void* w, void* y, int rows, int d
     else
       rmsnorm_latency<T, 2><<<p.grid, p.threads, 0, stream>>>(xt, wt, yt, d, eps);
   } else {
-    static bool opted_in = false;  // dynamic shared memory above 48 KiB, once
-    if (!opted_in) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          rmsnorm_stream<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    // dynamic shared memory above 48 KiB: an attribute of each device, set
+    // once per device
+    static bool opted_in[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= kMaxDevices || !opted_in[dev]) {
+      err = cudaFuncSetAttribute(rmsnorm_stream<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemLimit);
       if (err != cudaSuccess) return static_cast<int>(err);
-      opted_in = true;
+      if (dev < kMaxDevices) opted_in[dev] = true;
     }
     rmsnorm_stream<T><<<p.grid, p.threads, p.smem, stream>>>(xt, wt, yt, rows, d, eps, p.tpr);
   }

@@ -15,16 +15,23 @@ at the reduced configs' hd 16/32) to the scalar kernel
 (``csrc/flash_attention.cu``). The tensor-core path raises on what it does
 not take (a pointer that is not 16-byte aligned); with Sk = 0 it launches
 nothing and returns the zero rows that the kernel's contract gives.
-``flash_mha.launches`` counts every kernel launch and nothing else;
-``flash_mha.wgmma_launches`` counts the tensor-core kernel's launches.
+``flash_mha.launches`` counts every forward kernel launch and nothing
+else; ``flash_mha.wgmma_launches`` counts the tensor-core kernel's launches.
+
+Under autograd (grad enabled and q, k or v requiring grad) the forward
+launch runs inside ``_FlashFn``, a ``torch.autograd.Function`` that saves
+q, k, v and the output; its backward launches ``csrc/flash_attention_bwd.cu``
+(dQ, dK, dV in three kernels, FA2's order, no atomics), whatever kernel ran
+the forward. ``flash_mha.bwd_launches`` counts backward calls, each one such
+launch. On the CPU the plain version's autograd is the backward.
 """
 from __future__ import annotations
 
 import torch
 
 from .._build import DTYPE_CODES
-from .kernel import (HEAD_DIMS, WGMMA_HEAD_DIMS, flash_attention_cuda,
-                     flash_attention_wgmma_cuda)
+from .kernel import (HEAD_DIMS, WGMMA_HEAD_DIMS, flash_attention_bwd_cuda,
+                     flash_attention_cuda, flash_attention_wgmma_cuda)
 from .ref import flash_mha_ref
 
 __all__ = ["flash_mha"]
@@ -53,10 +60,19 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_mha: head dim {hd} not in {HEAD_DIMS}")
     if window < 0 or n_sink < 0:
         raise ValueError(f"flash_mha: window {window} and n_sink {n_sink} must be >= 0")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    mask = (causal, window, n_sink)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashFn.apply(q, k, v, mask)
+    return _forward(q, k, v, mask)
+
+
+def _forward(q, k, v, mask) -> torch.Tensor:
+    causal, window, n_sink = mask
+    B, S, H, hd = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if B * H * S == 0:
         return out
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
         if k.shape[1] == 0:          # no key: every row comes out 0
             return out.zero_()
@@ -74,5 +90,30 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+class _FlashFn(torch.autograd.Function):
+    """The forward kernels and the backward kernel as one differentiable op
+    (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        out = _forward(q, k, v, mask)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = mask
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        if q.numel() == 0 or k.shape[1] == 0:    # no visible pair: every gradient is 0
+            return dq.zero_(), dk.zero_(), dv.zero_(), None
+        causal, window, n_sink = ctx.mask
+        flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), dq, dk, dv,
+                                 causal=causal, window=window, n_sink=n_sink)
+        flash_mha.bwd_launches += 1
+        return dq, dk, dv, None
+
+
 flash_mha.launches = 0
 flash_mha.wgmma_launches = 0
+flash_mha.bwd_launches = 0

@@ -11,7 +11,9 @@ takes the plain version; a CUDA tensor launches the kernel or raises.
 (``kernel.kernel_plan``); the global variant's scratch ``done`` and
 ``free`` are allocated only when it runs. ``list_schedule.launches``
 counts kernel launches and nothing else, ``list_schedule.variant_launches``
-the same by variant.
+the same by variant. The kernel has no backward: on the card, a call
+under autograd with feats or params requiring grad raises rather than
+return a result without a gradient path.
 """
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ def list_schedule(feats: torch.Tensor, ints: torch.Tensor, params: torch.Tensor,
         raise ValueError(f"list_schedule: unsupported device {feats.device}")
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"list_schedule: unknown variant {variant!r}")
+    if torch.is_grad_enabled() and (feats.requires_grad or params.requires_grad):
+        raise NotImplementedError("list_schedule has no backward kernel")
     feats, ints, params = feats.contiguous(), ints.contiguous(), params.contiguous()
     if feats.data_ptr() % 16 or ints.data_ptr() % 16:
         raise ValueError("list_schedule: feats and ints must be 16-byte aligned")

@@ -7,6 +7,10 @@ for fewer rows than SMs (decode), lane groups per row in two passes for
 many rows under 4 KiB (bf16 prefill, qk-norm heads), persistent blocks
 streaming wider rows through shared memory by bulk copy (f32 prefill), and
 element loads where 16-byte loads are ruled out.
+
+``rmsnorm_bwd_cuda`` binds the backward (``csrc/rmsnorm_bwd.cu``): dx with
+one warp a row, and dw summed without atomics, as ``[blocks, d]`` f32
+partial rows added in a fixed order by a second launch.
 """
 from __future__ import annotations
 
@@ -17,7 +21,13 @@ import torch
 from .. import _build
 from .ref import RmsnormPlan
 
-__all__ = ["rmsnorm_cuda", "rmsnorm_variant_cuda", "kernel_plan", "kernel_attrs"]
+__all__ = ["rmsnorm_cuda", "rmsnorm_variant_cuda", "rmsnorm_bwd_cuda", "bwd_blocks",
+           "kernel_plan", "kernel_attrs"]
+
+# blocks of the backward's rows launch per SM (each writes one partial row
+# of dw)
+BWD_BLOCKS_PER_SM = 2
+_n_sm = {}          # device index -> SM count
 
 _launch = None      # the C entry point, bound at the first launch
 _raw_stream = None  # device index -> the current stream's cudaStream_t
@@ -77,3 +87,28 @@ def kernel_attrs(plan: RmsnormPlan, dtype: torch.dtype) -> dict:
         ctypes.byref(local), ctypes.byref(smem)))
     return {"registers": regs.value, "spill_bytes": local.value,
             "smem_bytes": smem.value + plan.smem}
+
+
+def bwd_blocks(rows: int, device_index: int) -> int:
+    """Blocks of the backward's rows launch: min(rows, 2 x SMs); the dw
+    partial buffer has one row per block."""
+    n_sm = _n_sm.get(device_index)
+    if n_sm is None:
+        n_sm = _n_sm[device_index] = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    return max(1, min(rows, BWD_BLOCKS_PER_SM * n_sm))
+
+
+def rmsnorm_bwd_cuda(x2: torch.Tensor, w: torch.Tensor, g2: torch.Tensor, dx: torch.Tensor,
+                     dw: torch.Tensor, rows: int, d: int, eps: float, dtype_code: int) -> None:
+    """Launch the backward on ``x2``, ``g2`` (``rows * d`` contiguous
+    elements) into ``dx`` and ``dw``; the caller has checked device, dtype,
+    shape and contiguity. The dw partial rows are allocated here."""
+    dev = x2.get_device()
+    blocks = bwd_blocks(rows, dev)
+    part = torch.empty((blocks, d), dtype=torch.float32, device=x2.device)
+    err = _build.load().repro_rmsnorm_bwd(
+        x2.data_ptr(), w.data_ptr(), g2.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+        part.data_ptr(), rows, d, blocks, eps, dtype_code,
+        torch._C._cuda_getCurrentRawStream(dev))
+    _build.check("repro_rmsnorm_bwd", err)

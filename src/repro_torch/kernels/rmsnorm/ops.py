@@ -2,15 +2,23 @@
 ``repro/kernels/rmsnorm/ops.py::rmsnorm``).
 
 ``rmsnorm(x, w, eps)`` normalises over the last dim of ``x`` [..., d].
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. ``rmsnorm.launches`` counts kernel launches and nothing else.
+A CPU tensor takes the plain version (and autograd of it); a CUDA tensor
+launches the kernel or raises. ``rmsnorm.launches`` counts forward kernel
+launches and nothing else.
+
+Under autograd (grad enabled and ``x`` or ``w`` requiring grad) the launch
+runs inside ``_RmsnormFn``, a ``torch.autograd.Function`` that saves x and
+w (not r: the backward recomputes it) and whose backward launches the
+backward kernel (``csrc/rmsnorm_bwd.cu``: dx, and dw without atomics).
+``rmsnorm.bwd_launches`` counts backward calls, each one such launch (two
+kernels: dx with the dw partials, then their fixed-order sum).
 """
 from __future__ import annotations
 
 import torch
 
 from .._build import DTYPE_CODES
-from .kernel import rmsnorm_cuda
+from .kernel import rmsnorm_bwd_cuda, rmsnorm_cuda
 from .ref import rmsnorm_ref
 
 __all__ = ["rmsnorm", "MAX_D"]
@@ -34,13 +42,46 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
         raise ValueError(f"rmsnorm: d={d} outside 1..{MAX_D}")
     if not x.is_contiguous():
         x = x.contiguous()
+    if not w.is_contiguous():
+        w = w.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RmsnormFn.apply(x, w, eps)
+    return _forward(x, w, eps, d, code)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, eps: float, d: int, code: int) -> torch.Tensor:
     out = torch.empty_like(x)
     rows = x.numel() // d
     if rows == 0:
         return out
-    rmsnorm_cuda(x, w if w.is_contiguous() else w.contiguous(), out, rows, d, eps, code)
+    rmsnorm_cuda(x, w, out, rows, d, eps, code)
     rmsnorm.launches += 1
     return out
 
 
+class _RmsnormFn(torch.autograd.Function):
+    """The kernel's forward and backward as one differentiable op (CUDA
+    tensors only)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _forward(x, w, eps, x.shape[-1], DTYPE_CODES[x.dtype])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        d = x.shape[-1]
+        rows = x.numel() // d
+        dx, dw = torch.empty_like(x), torch.empty_like(w)
+        if rows == 0:
+            return dx, dw.zero_(), None
+        g = g.contiguous()
+        rmsnorm_bwd_cuda(x, w, g, dx, dw, rows, d, ctx.eps, DTYPE_CODES[x.dtype])
+        rmsnorm.bwd_launches += 1
+        return dx, dw, None
+
+
 rmsnorm.launches = 0
+rmsnorm.bwd_launches = 0

@@ -1,5 +1,7 @@
 """Plain PyTorch version of fused RMSNorm (counterpart of
 ``repro/kernels/rmsnorm/ref.py::rmsnorm_ref``): math in f32, cast back.
+Its backward is autograd of it (``rmsnorm_bwd_ref``), the counterpart of
+``jax.grad`` of the reference.
 
 Beside it, the CPU twins of the CUDA kernel (``csrc/rmsnorm.cu``):
 
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rmsnorm_ref", "RmsnormPlan", "rmsnorm_plan", "plan_coverage",
+__all__ = ["rmsnorm_ref", "rmsnorm_bwd_ref", "RmsnormPlan", "rmsnorm_plan", "plan_coverage",
            "rmsnorm_tiled", "SCALAR", "LATENCY", "ROWS", "STREAM", "VARIANTS",
            "SMEM_LIMIT", "MAX_THREADS"]
 
@@ -28,6 +30,16 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Te
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                    eps: float = 1e-6):
+    """(dx, dw) of ``rmsnorm_ref`` at (x, w) for the output gradient ``g``,
+    by autograd."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        wr = w.detach().requires_grad_(True)
+        return torch.autograd.grad(rmsnorm_ref(xr, wr, eps), (xr, wr), g)
 
 
 # -- the plan (constants as in csrc/rmsnorm.cu) --------------------------------

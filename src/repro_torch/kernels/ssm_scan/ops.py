@@ -6,6 +6,11 @@ h_t = a_t·h_{t-1} + b_t along axis -2 (h_{-1} = 0), state in f32, result
 in ``a.dtype``. A CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. ``ssm_scan_batched.launches`` counts kernel
 launches and nothing else.
+
+The kernel has no backward yet: on the card, a call under autograd (grad
+enabled and ``a`` or ``b`` requiring grad) raises ``NotImplementedError``
+rather than return a result that would silently drop the gradient. On the
+CPU, autograd of the plain version differentiates as before.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ def ssm_scan_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("ssm_scan_batched: a and b must share device and dtype")
     if a.dtype not in DTYPE_CODES:
         raise TypeError(f"ssm_scan_batched: dtype {a.dtype} not supported")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise NotImplementedError("ssm_scan has no backward kernel yet")
     out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
     if a.numel() == 0:
         return out

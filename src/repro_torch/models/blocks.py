@@ -62,6 +62,10 @@ class Block:
     prefill: Callable[..., Tuple[torch.Tensor, Any]]
     decode: Callable[..., Tuple[torch.Tensor, Any]]
     cache_template: Callable[[ArchConfig, int, BlockCtx], Any]
+    # apply cut at its attention, for the "save-attn" remat policy:
+    # (in(cfg, p, x, ctx) -> (q, k, v), mix(q, k, v, ctx) -> o,
+    #  out(cfg, p, x, o) -> x); None where the block has no such cut
+    split: Optional[Tuple[Callable, Callable, Callable]] = None
 
 
 def stackify(tmpl, n: int):
@@ -155,14 +159,25 @@ def _ffn(cfg: ArchConfig, p, x, res):
 _ffn_decode = _ffn
 
 
-def _attn_core(cfg: ArchConfig, p, x, ctx: BlockCtx):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, h, ctx.rope)
-    o = attention(q, k, v, causal=ctx.causal, window=ctx.window,
-                  n_sink=ctx.n_sink)
+def _attn_in(cfg: ArchConfig, p, x, ctx: BlockCtx):
+    """ln1 and the projections: the part of the block before attention."""
+    return _qkv(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps), ctx.rope)
+
+
+def _attn_mix(q, k, v, ctx: BlockCtx):
+    return attention(q, k, v, causal=ctx.causal, window=ctx.window, n_sink=ctx.n_sink)
+
+
+def _attn_out(cfg: ArchConfig, p, x, o):
+    """Out-projection, residual and FFN: the part of the block after
+    attention."""
     res = _res_scale(cfg)
-    x = _ffn(cfg, p, _residual(x, _out_proj(o, p["wo"]), res), res)
-    return x, k, v
+    return _ffn(cfg, p, _residual(x, _out_proj(o, p["wo"]), res), res)
+
+
+def _attn_core(cfg: ArchConfig, p, x, ctx: BlockCtx):
+    q, k, v = _attn_in(cfg, p, x, ctx)
+    return _attn_out(cfg, p, x, _attn_mix(q, k, v, ctx)), k, v
 
 
 def _attn_apply(cfg: ArchConfig, p, x, ctx: BlockCtx) -> torch.Tensor:
@@ -250,6 +265,7 @@ ATTN_BLOCK = Block(
     prefill=_attn_prefill,
     decode=_attn_decode,
     cache_template=_attn_cache_template,
+    split=(_attn_in, _attn_mix, _attn_out),
 )
 
 

@@ -14,6 +14,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.rmsnorm.ops import rmsnorm
 
@@ -25,6 +26,7 @@ __all__ = [
     "rope_table",
     "apply_rope",
     "swiglu",
+    "cross_entropy_chunked",
 ]
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -124,3 +126,43 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
     u = x @ wi
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ wo
+
+
+def _ce_chunk(hx: torch.Tensor, lm_head: torch.Tensor, lx: torch.Tensor,
+              mx: torch.Tensor, logit_scale: float) -> torch.Tensor:
+    """Summed masked NLL of one chunk: f32 logits, logsumexp over the
+    (padded) vocabulary, the target logit by ``gather`` (the value of the
+    reference's one-hot contraction)."""
+    logits = (hx @ lm_head).float() * logit_scale
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, lx.long()[..., None])[..., 0]
+    return ((lse - tgt) * mx).sum()
+
+
+def cross_entropy_chunked(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, *,
+                          logit_scale: float = 1.0, n_chunks: int = 8,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Memory-bounded mean cross entropy of h [B,S,d] @ lm_head [d,V]
+    against labels [B,S] (counterpart of
+    ``repro/models/layers.py::cross_entropy_chunked``): the sequence is cut
+    into ``n_chunks`` chunks (fewer if they do not divide S), and each
+    chunk's loss runs under ``torch.utils.checkpoint``, so its [B,Sc,V] f32
+    logits are recomputed in the backward and never alive for the whole
+    sequence at once."""
+    B, S, _ = h.shape
+    while S % n_chunks:
+        n_chunks -= 1
+    Sc = S // n_chunks
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        sl = slice(i * Sc, (i + 1) * Sc)
+        mx = mask[:, sl].float()
+        args = (h[:, sl], lm_head, labels[:, sl], mx, logit_scale)
+        nll = checkpoint(_ce_chunk, *args, use_reentrant=False) if remat else _ce_chunk(*args)
+        tot = tot + nll
+        cnt = cnt + mx.sum()
+    return tot / cnt.clamp_min(1.0)

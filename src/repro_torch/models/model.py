@@ -15,6 +15,17 @@ preallocated and updated in place by ``prefill`` and ``decode_step``.
 Hymba prepends ``n_meta_tokens`` learned meta tokens to every prompt: they
 are the sinks of its windowed layers, ``forward`` returns [B, S+M, d], and
 ``pos`` counts real tokens only.
+
+Training: ``loss`` is the memory-bounded chunked cross entropy of the
+forward. When grad is enabled and ``remat`` is set, ``forward`` recomputes
+each layer in the backward (``torch.utils.checkpoint``, non-reentrant, in
+place of ``jax.checkpoint``): policy "full" keeps nothing of a layer but
+its input; "save-attn" keeps the attention's inputs and output, running the
+layer as two checkpointed parts around the attention call (the reference
+names that output for ``save_only_these_names``; a kernel launched through
+``ctypes`` inside an autograd Function is invisible to
+``create_selective_checkpoint_contexts``, so the cut is made by hand).
+Prefill and decode ignore remat.
 """
 from __future__ import annotations
 
@@ -23,12 +34,16 @@ from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from .blocks import BLOCKS, BlockCtx, rope_at, stackify
-from .layers import PT, init_params, map_templates, rms_norm, rope_table
+from .layers import (PT, cross_entropy_chunked, init_params, map_templates, rms_norm,
+                     rope_table)
 
-__all__ = ["Model", "Segment", "plan_segments", "build_model"]
+__all__ = ["Model", "Segment", "plan_segments", "build_model", "REMAT_POLICIES"]
+
+REMAT_POLICIES = ("full", "save-attn")
 
 
 @dataclass(frozen=True)
@@ -70,21 +85,36 @@ def plan_segments(cfg: ArchConfig) -> List[Segment]:
 
 
 def _layers(seg: Segment, tree) -> Iterator[Dict[str, Any]]:
-    """The per-layer trees of a segment: views into a stacked tree, or the
-    single block's own tree."""
+    """The per-layer trees of a segment: views into a stacked tree (one
+    ``unbind`` per leaf, whose backward stacks the layers' gradients in one
+    pass, where indexing would add a zero-filled [n, ...] gradient per
+    layer), or the single block's own tree."""
     if not seg.scanned:
         yield tree
         return
+    cols = {k: v.unbind(0) for k, v in tree.items()}
     for i in range(seg.n):
-        yield {k: v[i] for k, v in tree.items()}
+        yield {k: c[i] for k, c in cols.items()}
 
 
 class Model:
     """One architecture's program set, built from its ArchConfig."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, *, remat: bool = True, remat_policy: str = "full",
+                 ce_chunks: int = 8):
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} not in {REMAT_POLICIES}")
         self.cfg = cfg
         self.segments = plan_segments(cfg)
+        if remat and remat_policy == "save-attn":
+            for seg in self.segments:
+                if BLOCKS[seg.kind].split is None:
+                    raise NotImplementedError(
+                        f"remat_policy 'save-attn': the {seg.kind!r} block is not cut "
+                        f"at its attention")
+        self.remat = remat
+        self.remat_policy = remat_policy
+        self.ce_chunks = ce_chunks
 
     # ------------------------------------------------------------------
     # parameter templates
@@ -162,12 +192,40 @@ class Model:
         cfg = self.cfg
         x = self._embed_prompt(params, batch["tokens"])
         rope = self._rope_for(x.shape[1], x.device)
+        remat = self.remat and torch.is_grad_enabled()
         for seg, p in zip(self.segments, params["segments"]):
             ctx = self._ctx(seg, rope=rope)
             blk = BLOCKS[seg.kind]
             for lp in _layers(seg, p):
-                x = blk.apply(cfg, lp, x, ctx)
+                x = self._remat_layer(blk, lp, x, ctx) if remat else blk.apply(cfg, lp, x, ctx)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    def _remat_layer(self, blk, lp, x, ctx: BlockCtx) -> torch.Tensor:
+        """One layer whose activations are recomputed in the backward."""
+        cfg = self.cfg
+        if self.remat_policy == "full":
+            return checkpoint(blk.apply, cfg, lp, x, ctx, use_reentrant=False)
+        first, mix, last = blk.split                # "save-attn"
+        q, k, v = checkpoint(first, cfg, lp, x, ctx, use_reentrant=False)
+        return checkpoint(last, cfg, lp, x, mix(q, k, v, ctx), use_reentrant=False)
+
+    # -- training loss --------------------------------------------------
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (meta tokens dropped; tied head = embed.T;
+        MiniCPM's logit scale 1 / (d / dim_model_base))."""
+        cfg = self.cfg
+        h = self.forward(params, batch)
+        if cfg.n_meta_tokens:
+            h = h[:, cfg.n_meta_tokens:]
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        return cross_entropy_chunked(h, head, batch["labels"], logit_scale=self._logit_scale(),
+                                     n_chunks=self.ce_chunks)
+
+    def _logit_scale(self) -> float:
+        """MiniCPM's muP logit scale, 1 / (d / dim_model_base); 1 elsewhere."""
+        cfg = self.cfg
+        return 1.0 / (cfg.d_model / cfg.dim_model_base) if cfg.dim_model_base else 1.0
 
     # -- serving ----------------------------------------------------------
     def _logits(self, params, h_last: torch.Tensor) -> torch.Tensor:
@@ -178,7 +236,7 @@ class Model:
             logits = h_last @ params["head"]
         logits = logits.float()
         if cfg.dim_model_base:
-            logits = logits * (1.0 / (cfg.d_model / cfg.dim_model_base))
+            logits = logits * self._logit_scale()
         return logits
 
     def prefill(self, params, batch, smax: int):
@@ -223,5 +281,6 @@ class Model:
         return self._logits(params, h[:, 0]), cache
 
 
-def build_model(cfg: ArchConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ArchConfig, *, remat: bool = True, remat_policy: str = "full",
+                ce_chunks: int = 8) -> Model:
+    return Model(cfg, remat=remat, remat_policy=remat_policy, ce_chunks=ce_chunks)

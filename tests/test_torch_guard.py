@@ -63,7 +63,11 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.sweep.runner", "repro_torch.kernels.list_schedule.ops",
                 "repro_torch.graph.ingest", "repro_torch.hw.chip",
                 "repro_torch.exec.pool", "repro_torch.exec.spool",
-                "repro_torch.exec.worker", "repro_torch.obs.perfetto"):
+                "repro_torch.exec.worker", "repro_torch.obs.perfetto",
+                "repro_torch.graph.stackem", "repro_torch.sweep.__main__",
+                "repro_torch.train.optim", "repro_torch.train.loop",
+                "repro_torch.train.compress", "repro_torch.train.data",
+                "repro_torch.train.checkpoint", "repro_torch.launch.train"):
         assert mod in names
 
 
@@ -77,6 +81,25 @@ def test_configs_equal_reference_records(arch):
     assert get_config(arch.replace("-", "_")) is mine
 
 
+def test_shape_records_equal_reference():
+    from repro.configs import SHAPES as JAX_SHAPES, get_shape as jax_get_shape, \
+        skip_reason as jax_skip_reason
+    from repro_torch.configs import SHAPES, applicable, get_shape, skip_reason
+
+    assert list(SHAPES) == list(JAX_SHAPES)
+    for name, shape in SHAPES.items():
+        assert dataclasses.asdict(shape) == dataclasses.asdict(JAX_SHAPES[name])
+        assert shape.program == JAX_SHAPES[name].program
+        assert get_shape(name) is shape and jax_get_shape(name) is JAX_SHAPES[name]
+        for arch in REGISTRY:
+            assert skip_reason(REGISTRY[arch], shape) == \
+                jax_skip_reason(JAX_REGISTRY[arch], JAX_SHAPES[name])
+            assert applicable(REGISTRY[arch], shape) == (skip_reason(REGISTRY[arch], shape)
+                                                         is None)
+    with pytest.raises(KeyError):
+        get_shape("train_8k")
+
+
 @pytest.mark.parametrize("arch", sorted(a for a, c in REGISTRY.items()
                                          if c.family not in ("dense", "hybrid")))
 def test_build_model_refuses_families_not_ported(arch):
@@ -84,7 +107,7 @@ def test_build_model_refuses_families_not_ported(arch):
         build_model(REGISTRY[arch])
 
 
-def test_default_device_raises_without_gpu(monkeypatch):
+def test_default_device_raises_without_gpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
@@ -93,6 +116,17 @@ def test_default_device_raises_without_gpu(monkeypatch):
     from repro_torch.launch.serve import main
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--arch", "qwen2-1.5b", "--reduced"])
+    from repro_torch.launch.train import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train("smollm-135m", reduced=True, steps=1)
+    from repro_torch.train.loop import init_state
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_state(build_model(REGISTRY["smollm-135m"].reduced()), torch.Generator())
+    from repro_torch.sweep.__main__ import main as sweep_main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep_main(["run", "dvfs_bw", "--workers", "0", "--no-cache",
+                    "--out", str(tmp_path / "o.json")])
+    assert not (tmp_path / "o.json").exists()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

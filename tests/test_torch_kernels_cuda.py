@@ -15,7 +15,8 @@ from repro_torch.core.vectorized import from_tasks, task_tensors
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_mha
-from repro_torch.kernels.flash_attention.ref import flash_mha_ref, flash_mha_tiled
+from repro_torch.kernels.flash_attention.ref import (flash_mha_bwd_ref, flash_mha_bwd_tiled,
+                                                     flash_mha_ref, flash_mha_tiled)
 from repro_torch.kernels.list_schedule import ops as sched_ops
 from repro_torch.kernels.list_schedule.kernel import kernel_plan as sched_kernel_plan
 from repro_torch.kernels.list_schedule.ops import list_schedule
@@ -24,8 +25,8 @@ from repro_torch.kernels.list_schedule.ref import (SMEM_LIMIT, VARIANTS, list_sc
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.kernel import kernel_attrs, kernel_plan, rmsnorm_variant_cuda
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
-from repro_torch.kernels.rmsnorm.ref import (LATENCY, ROWS, SCALAR, STREAM, rmsnorm_plan,
-                                             rmsnorm_ref, rmsnorm_tiled)
+from repro_torch.kernels.rmsnorm.ref import (LATENCY, ROWS, SCALAR, STREAM, rmsnorm_bwd_ref,
+                                             rmsnorm_plan, rmsnorm_ref, rmsnorm_tiled)
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -375,3 +376,116 @@ def test_list_schedule_global_plan_above_the_shared_limit(n, monkeypatch):
     arrays = random_task_arrays(1, n, 6)
     assert list_schedule_plan(n, 2, 6).variant == "global"
     _schedule_bitwise(arrays, hw_param_matrix()[:2], 1, monkeypatch)
+
+
+# -- backward kernels -----------------------------------------------------------
+
+# kernel vs the plain version's autograd on the card: f32 differs in sum
+# order; bf16 rmsnorm by one rounding of each gradient
+_BWD_TOL = {("rmsnorm", "f32"): 1e-4, ("rmsnorm", "bf16"): 3e-2, ("flash", "f32"): 1e-4}
+# bf16 flash: max |got - want| within this share of max |want| for each of dQ,
+# dK, dV, want the plain backward in f32 of the same bf16 inputs (a sound
+# kernel differs by the rounding of each gradient and of the saved output
+# that D reads; a gradient 10% off or a dS without D reads far above it)
+_FLASH_BWD_BF16 = 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4096, 1536), (2, 1024, 12, 128), (37, 100), (5, 8192),
+                                   (3, 16), (600, 64)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rmsnorm_backward_cuda_vs_plain(shape, dt, monkeypatch):
+    require_sm90()
+    x = torch.from_numpy(randn(0, shape)).to("cuda", _TDT[dt])
+    w = (1 + 0.1 * torch.from_numpy(randn(1, shape[-1:]))).to("cuda", _TDT[dt])
+    g = torch.from_numpy(randn(2, shape)).to("cuda", _TDT[dt])
+    want = rmsnorm_bwd_ref(x, w, g, 1e-6)
+    _no_plain(monkeypatch)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    before = rmsnorm.launches, rmsnorm.bwd_launches
+    out = rmsnorm(xr, wr, 1e-6)
+    assert out.grad_fn is not None
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches, rmsnorm.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert xr.grad.dtype == x.dtype and wr.grad.dtype == w.dtype
+    tol = _BWD_TOL[("rmsnorm", dt)]
+    close(xr.grad, want[0], tol)
+    close(wr.grad, want[1], tol)
+    # dw is summed in a fixed order, without atomics: the same bits again
+    first = wr.grad.clone()
+    wr.grad = None
+    rmsnorm(xr, wr, 1e-6).backward(g)
+    assert torch.equal(wr.grad, first)
+
+
+_FLASH_BWD_CASES = [
+    # B, S, H, KV, hd, causal, window, n_sink
+    (4, 1024, 12, 2, 128, True, 0, 0),        # qwen2 train
+    (2, 300, 12, 2, 128, True, 0, 0),         # ragged S
+    (2, 300, 6, 2, 64, False, 0, 0),          # non-causal
+    (1, 256, 8, 1, 64, True, 0, 0),           # MQA
+    (2, 130, 4, 4, 32, True, 0, 0),           # MHA, hd 32
+    (2, 40, 4, 2, 16, True, 16, 8),           # hymba reduced
+    (1, 700, 25, 5, 64, True, 256, 128),      # window and sinks, skipped tiles
+    (2, 300, 4, 2, 64, True, 100, 7),         # ragged window and sinks
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,n_sink", _FLASH_BWD_CASES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_backward_cuda_vs_plain(B, S, H, KV, hd, causal, window, n_sink, dt,
+                                      monkeypatch):
+    require_sm90()
+    q = torch.from_numpy(randn(0, (B, S, H, hd))).to("cuda", _TDT[dt])
+    k = torch.from_numpy(randn(1, (B, S, KV, hd))).to("cuda", _TDT[dt])
+    v = torch.from_numpy(randn(2, (B, S, KV, hd))).to("cuda", _TDT[dt])
+    do = torch.from_numpy(randn(3, (B, S, H, hd))).to("cuda", _TDT[dt])
+    kw = dict(causal=causal, window=window, n_sink=n_sink)
+    want = flash_mha_bwd_ref(q, k, v, do, **kw)
+    want32 = flash_mha_bwd_ref(q.float(), k.float(), v.float(), do.float(), **kw)
+    _no_plain(monkeypatch)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = flash_mha.launches, flash_mha.bwd_launches
+    out = flash_mha(qr, kr, vr, **kw)
+    assert out.grad_fn is not None
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_mha.launches, flash_mha.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for got, w, w32 in zip((qr.grad, kr.grad, vr.grad), want, want32):
+        assert got.dtype == w.dtype
+        if dt == "f32":
+            close(got, w, _BWD_TOL[("flash", dt)])
+        else:
+            assert bool(torch.isfinite(got).all())
+            err = float((got.float() - w32).abs().max())
+            assert err <= _FLASH_BWD_BF16 * float(w32.abs().max()), err
+    if dt == "f32":     # the emulation of the three launches, on the same inputs
+        tol = _BWD_TOL[("flash", dt)]
+        for got, w in zip((qr.grad, kr.grad, vr.grad),
+                          flash_mha_bwd_tiled(q, k, v, out.detach(), do, **kw)):
+            close(got, w, tol)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_raises_under_grad_on_the_card():
+    require_sm90()
+    a = torch.rand(2, 8, 16, device="cuda", requires_grad=True)
+    b = torch.randn(2, 8, 16, device="cuda")
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ssm_scan_batched(a, b)
+    with torch.no_grad():
+        assert ssm_scan_batched(a, b).shape == a.shape
+
+
+@pytest.mark.gpu
+def test_list_schedule_raises_under_grad_on_the_card():
+    require_sm90()
+    arrays = random_task_arrays(0, 30, 2)
+    feats, ints = task_tensors(arrays, torch.device("cuda"))
+    params = torch.from_numpy(hw_param_matrix()).float().cuda().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        list_schedule(feats, ints, params, arrays.n_units)
+    with torch.no_grad():
+        assert list_schedule(feats, ints, params, arrays.n_units)[0].shape == (12,)

@@ -14,7 +14,8 @@ repro_torch``, ``python -m repro_torch.exec``) and in the ``prog`` of the
 spawn of ``repro``, which this comparison cannot see.
 The ported modules are not copies:
 ``core/vectorized.py``, ``sweep/prescreen.py``, ``sweep/runner.py``,
-``configs/__init__.py`` and ``serve/__init__.py``.
+``sweep/__main__.py`` (the CLI, with ``--device``), ``configs/__init__.py``
+and ``serve/__init__.py``.
 """
 import os
 import re
@@ -29,6 +30,7 @@ COPIES = [f"{m}.py" for m in (
     "hw/presets", "hw/memory", "hw/mxu", "hw/vecunit", "hw/dma", "hw/ici", "hw/pod",
     "hw/chip",
     "graph/tasks", "graph/workloads", "graph/compiler", "graph/hlo_parser", "graph/ingest",
+    "graph/stackem",
     "power/__init__", "power/characterization", "power/dvfs", "power/powerem",
     "obs/__init__", "obs/metrics", "obs/progress", "obs/perfetto", "obs/__main__",
     "serve/traffic", "serve/fleet",
@@ -46,7 +48,7 @@ DATA = sorted(os.path.join(d, f) for d in ("configs/sweeps", "configs/hlo")
 # docstrings only
 DOC_EDITS = {"sweep/refine.py": [(rb"Since ISSUE \d+ a ", b"A ", 3)]}
 PORTED = ["core/vectorized.py", "sweep/prescreen.py", "sweep/runner.py",
-          "configs/__init__.py", "serve/__init__.py"]
+          "sweep/__main__.py", "configs/__init__.py", "serve/__init__.py"]
 
 
 def _read(pkg, rel):
