@@ -54,17 +54,23 @@ each of which fails the run (non-zero exit, no result line):
   6. profile — wall vs device busy time of one prefill and of decode
      steps of each model, with the top kernels (torch.profiler);
   7. train  — the backward kernels (rmsnorm: dx, dw; flash attention: dQ,
-     dK, dV) at the train shapes through the wrappers' autograd, against
-     the plain versions' autograd on the card (bf16 flash against the plain
-     backward in f32 of the same inputs, each gradient within a share of its
-     max, beside the readings of two wrong kernels), each timed alone
-     (median of 25, L2 flushed) beside its bound, the plain version's
-     backward and the library call's backward (F.rms_norm, SDPA); launch/train.py::train for
+     dK, dV; bf16 at hd 64/128 on the tensor cores) at the train shapes
+     through the wrappers' autograd, against the plain versions' autograd
+     on the card (bf16 flash against the plain backward in f32 of the same
+     inputs, each gradient within a share of its max, beside the readings
+     of two wrong kernels), and a second backward on the same inputs that
+     must give the same bits; each timed alone (median of 25, L2 flushed)
+     beside its bound, the previous design's time, the plain version's backward and the
+     library call's backward (F.rms_norm, SDPA), with its plan or its
+     kernels' registers, spill and shared memory; the flash forward under
+     autograd (the instance that stores L) timed alone beside the serve
+     instance, whose output it must equal bit for bit; launch/train.py::train for
      qwen2-1.5b, f32, B 4, S 1024, remat "full", 4 steps, with every
      kernel's count (forward and backward) zeroed just before and checked
      exactly just after, ms per step and peak memory, and one profiled
-     step; 3 bf16 steps whose flash forwards must all be tensor-core
-     launches; one step at full width and 4 layers with the kernels, then
+     step; 3 bf16 steps with the same exact counts, whose flash forwards
+     and backwards must all be tensor-core launches, and one profiled bf16
+     step; one step at full width and 4 layers with the kernels, then
      with the plain versions patched in, from the same state: loss, grad
      norm, each leaf's gradient (its first AdamW moment) and new parameters
      must agree, and a step with a wrong dK must fail the gradient check;
@@ -73,7 +79,8 @@ each of which fails the run (non-zero exit, no result line):
 
 The line before the last is a JSON object {"kernels": [...]} (list_schedule,
 which replaces the prescreen's XLA program and no Pallas kernel, and the
-train path's rows, its backward kernels among them); the last line is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
+train path's rows in f32 and bf16, its backward kernels among them); the
+last line is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
 >= 9.0 and nvcc; exits 1 without them.
 """
 from __future__ import annotations
@@ -82,6 +89,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1072,26 +1080,59 @@ def _flash_bf16_check(torch, name, inputs, kw, grads) -> float:
     return worst
 
 
+# the previous design's readings of the backward kernels (scalar, one warp a
+# row) and of the forward under autograd (then the serve instance), as
+# PERF.md §6 records them (NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# this run's
+BEFORE_MS = {("rmsnorm_bwd", (4096, 1536), "float32"): 0.07658,
+           ("rmsnorm_bwd", (4096, 1536), "bfloat16"): 0.05462,
+           ("rmsnorm_bwd", (49152, 128), "float32"): 0.05875,
+           ("rmsnorm_bwd", (49152, 128), "bfloat16"): 0.05088,
+           ("flash_attention_bwd", (4, 1024, 12, 2, 128, 0, 0), "float32"): 6.147,
+           ("flash_attention_bwd", (4, 1024, 12, 2, 128, 0, 0), "bfloat16"): 6.075,
+           ("flash_attention_bwd", (4, 1152, 25, 5, 64, 1024, 128), "float32"): 5.417,
+           ("flash_attention_bwd", (4, 1152, 25, 5, 64, 1024, 128), "bfloat16"): 5.421,
+           ("flash_attention_fwd", (4, 1024, 12, 2, 128, 0, 0), "float32"): 1.577,
+           ("flash_attention_fwd", (4, 1024, 12, 2, 128, 0, 0), "bfloat16"): 0.056,
+           ("flash_attention_fwd", (4, 1152, 25, 5, 64, 1024, 128), "float32"): 1.576,
+           ("flash_attention_fwd", (4, 1152, 25, 5, 64, 1024, 128), "bfloat16"): 0.098}
+
+
+def _attrs_str(a: dict) -> str:
+    return (f"{a['registers']} registers/thread at launch, {a['spill_bytes']} B spilled, "
+            f"{a['smem_bytes'] / 1024:.1f} KiB shared/block")
+
+
 def train_kernels(torch):
     """The backward kernels at the train path's shapes, forward and backward
-    through the wrappers against the plain versions' autograd on the card,
-    then timed alone beside their bound, the plain version's backward and
-    the library call's backward. Returns kernels-line rows."""
+    through the wrappers against the plain versions' autograd on the card
+    (and a second backward on the same inputs, which must give the same
+    bits), then timed alone beside their bound, the plain version's backward
+    and the library call's backward; the flash forward under autograd (the
+    instance that stores L) timed alone beside the serve instance. Returns
+    kernels-line rows."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        WGMMA_HEAD_DIMS, bwd_kernel_attrs, flash_attention_bwd_cuda, flash_attention_cuda,
+        flash_attention_wgmma_cuda, lse_rows, wgmma_kernel_attrs)
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.flash_attention.ref import flash_mha_bwd_ref, flash_mha_ref
-    from repro_torch.kernels.rmsnorm.kernel import bwd_blocks, rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.ref import BWD_VARIANTS, rmsnorm_bwd_ref, rmsnorm_ref
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     timer = Timer(torch)
     rows = {}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(shape, dt, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(dt)
+
+    def same_bits(what, first, again):
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"{what}: two backward calls on the same inputs differ")
 
     log("[train] rmsnorm backward vs plain (dx, dw)")
     # qwen2 at B 4, S 1024: ln1/ln2/final rows, and the [B*S*H, hd] rows of
@@ -1109,44 +1150,64 @@ def train_kernels(torch):
             tol = BWD_TOL[("rmsnorm", dn)]
             err = max(compare(f"rmsnorm_bwd {list(shape)} {dn} dx", xr.grad, want[0], tol),
                       compare(f"rmsnorm_bwd {list(shape)} {dn} dw", wr.grad, want[1], tol))
+            first = xr.grad.clone(), wr.grad.clone()
+            xr.grad = wr.grad = None
+            rmsnorm(xr, wr, 1e-6).backward(g)
+            same_bits(f"rmsnorm_bwd {list(shape)} {dn}", first, (xr.grad, wr.grad))
             dx, dw = torch.empty_like(x), torch.empty_like(w)
             rows_, d = shape
             code = 0 if dt == torch.float32 else 1
-            ms = timer(lambda: rmsnorm_bwd_cuda(x, w, g, dx, dw, rows_, d, 1e-6, code))
+            blocks = rms_kernel.bwd_blocks(rows_, 0)
+            plan = rms_kernel.bwd_kernel_plan(rows_, d, dt, True, blocks)
+            attrs = rms_kernel.bwd_kernel_attrs(plan, dt)
+            ms = timer(lambda: rms_kernel.rmsnorm_bwd_cuda(x, w, g, dx, dw, rows_, d, 1e-6,
+                                                           code))
+            # the partial rows' count: the wrapper's one block an SM, against
+            # two (timed, not on the path)
+            two = rms_kernel.bwd_kernel_plan(rows_, d, dt, True, min(rows_, 2 * n_sm))
+            ms_two = timer(lambda: rms_kernel.rmsnorm_bwd_cuda(x, w, g, dx, dw, rows_, d, 1e-6,
+                                                               code, blocks=2 * n_sm))
             xp, wp = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
             plain = _bwd_time(torch, timer, rmsnorm_ref(xp, wp, 1e-6), (xp, wp), g)
             yl = F.rms_norm(xp, (d,), wp, 1e-6)
             lib = _bwd_time(torch, timer, yl, (xp, wp), g)
-            blocks = bwd_blocks(rows_, 0)
             bound, by, byts, ops = rms_bwd_bound(rows_, d, x.element_size())
-            extra = 2 * blocks * d * 4           # the partial rows, written and read
-            log(f"    time {ms * 1e3:.2f} us | bound {bound * 1e3:.2f} us ({by}: "
-                f"{byts / 1e6:.2f} MB, {ops / 1e6:.1f} MFLOP) | design overhead: {blocks} dw "
-                f"partial rows, {extra / 1e6:.2f} MB, {extra / HBM_BYTES_PER_S * 1e6:.2f} us | "
-                f"plain backward {plain * 1e3:.1f} us | F.rms_norm backward {lib * 1e3:.2f} us "
-                f"| {100 * bound / ms:.1f}% of its bound, kernel/library {ms / lib:.2f}x")
+            extra = 2 * plan.blocks * d * 4      # the partial rows, written and read
+            prev = BEFORE_MS[("rmsnorm_bwd", shape, dn)]
+            log(f"    plan {BWD_VARIANTS[plan.variant]}: {plan.tpr} lanes a row, {plan.vpt} "
+                f"loads of {plan.vec} a lane, {plan.blocks} blocks ({_attrs_str(attrs)})")
+            log(f"    time {ms * 1e3:.2f} us (before: {prev * 1e3:.2f} us) | bound "
+                f"{bound * 1e3:.2f} us ({by}: {byts / 1e6:.2f} MB, {ops / 1e6:.1f} MFLOP) | "
+                f"design overhead: {plan.blocks} dw partial rows, {extra / 1e6:.2f} MB, "
+                f"{extra / HBM_BYTES_PER_S * 1e6:.2f} us | with {two.blocks} blocks "
+                f"{ms_two * 1e3:.2f} us | plain backward {plain * 1e3:.1f} us | F.rms_norm "
+                f"backward {lib * 1e3:.2f} us | {100 * bound / ms:.1f}% of its bound, "
+                f"kernel/library {ms / lib:.2f}x")
             rows[("rmsnorm_bwd", shape, dn)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=lib)
-            del x, w, g, xr, wr, xp, wp, yl, dx, dw, want
+                library_ms=lib, **attrs)
+            del x, w, g, xr, wr, xp, wp, yl, dx, dw, want, first
 
     log("[train] flash attention backward vs plain (dQ, dK, dV)")
     # (B, S, H, KV, hd, window, n_sink): qwen2 causal; hymba's window and sinks
     cases = [((4, 1024, 12, 2, 128, 0, 0), (torch.float32, torch.bfloat16)),
              ((4, 1152, 25, 5, 64, 1024, 128), (torch.float32, torch.bfloat16))]
+    names = ("launches", "wgmma_launches", "bwd_launches", "wgmma_bwd_launches")
     for case, dts in cases:
         B, S, H, KV, hd, win, ns = case
         kw = dict(causal=True, window=win, n_sink=ns)
         for dt in dts:
             dn = str(dt).split(".")[1]
+            tc = dt == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
             q, k, v = randn((B, S, H, hd), dt), randn((B, S, KV, hd), dt), randn((B, S, KV, hd), dt)
             do = randn((B, S, H, hd), dt)
             qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
-            before = flash_mha.launches, flash_mha.bwd_launches
+            before = [getattr(flash_mha, n) for n in names]
             out = flash_mha(qr, kr, vr, **kw)
             out.backward(do)
-            if (flash_mha.launches, flash_mha.bwd_launches) != (before[0] + 1, before[1] + 1):
-                raise AssertionError(f"flash {case} {dn}: launches not counted")
+            rose = [getattr(flash_mha, n) - b for n, b in zip(names, before)]
+            if rose != [1, int(tc), 1, int(tc)]:
+                raise AssertionError(f"flash {case} {dn}: counts {names} rose by {rose}")
             name = f"flash_bwd B={B} S={S} H={H} KV={KV} hd={hd} window={win} sinks={ns} {dn}"
             grads = (qr.grad, kr.grad, vr.grad)
             if dt == torch.float32:
@@ -1156,9 +1217,32 @@ def train_kernels(torch):
                 del want
             else:
                 err = _flash_bf16_check(torch, name, (q, k, v, do), kw, grads)
-            o = out.detach()
+            first = tuple(t.clone() for t in grads)
+            qr.grad = kr.grad = vr.grad = None
+            flash_mha(qr, kr, vr, **kw).backward(do)
+            same_bits(name, first, (qr.grad, kr.grad, vr.grad))
+            # the forward under autograd (stores L) and the serve instance,
+            # then the backward, each alone
+            fwd = flash_attention_wgmma_cuda if tc else flash_attention_cuda
+            o, o2 = torch.empty_like(q), torch.empty_like(q)
+            lse = torch.empty((B * H, lse_rows(S)), dtype=torch.float32, device="cuda")
+            fwd_ms = timer(lambda: fwd(q, k, v, o, lse=lse, **kw))
+            serve_ms = timer(lambda: fwd(q, k, v, o2, **kw))
+            if not torch.equal(o, o2):
+                raise AssertionError(f"{name}: the forward that stores L changed the output")
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-            ms = timer(lambda: flash_attention_bwd_cuda(q, k, v, o, do, dq, dk, dv, **kw))
+
+            def bwd():
+                flash_attention_bwd_cuda(q, k, v, o, do, lse, dq, dk, dv, **kw)
+
+            ms = timer(bwd)
+            # where the backward's time goes: its kernels by name (profiler,
+            # 5 calls back to back, L2 warm)
+            busy, _, top = _device_ms(torch, lambda: [bwd() for _ in range(5)], 5,
+                                      keys=("fa_bwd",))
+            split = ("; ".join(f"{re.search(r'fa_bwd_[a-z_]+', key).group(0)} {t * 1e3:.1f} us"
+                               for t, key in top if "fa_bwd" in key)
+                     if busy is not None else "not measured (the profiler saw no kernel)")
             qp, kp, vp = (t.clone().requires_grad_(True) for t in (q, k, v))
             plain = _bwd_time(torch, timer, flash_mha_ref(qp, kp, vp, **kw), (qp, kp, vp), do)
             qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(True)
@@ -1174,14 +1258,29 @@ def train_kernels(torch):
             peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
             bound, by, byts, ops = flash_bwd_bound(B, S, H, KV, hd, True, q.element_size(),
                                                    peak, win, ns)
-            log(f"    time {ms:.3f} ms | bound {bound * 1e3:.2f} us ({by}: {byts / 1e6:.2f} MB, "
-                f"{ops / 1e9:.2f} GFLOP at {peak / 1e12:g} TFLOP/s) | plain backward "
+            prev = BEFORE_MS[("flash_attention_bwd", case, dn)]
+            prev_fwd = BEFORE_MS[("flash_attention_fwd", case, dn)]
+            attrs = {kn: bwd_kernel_attrs(kn, hd, dt) for kn in ("dkdv", "dq")}
+            log(f"    {'tensor-core (wgmma)' if tc else 'CUDA-core (SIMT)'} kernels: dK/dV "
+                f"{_attrs_str(attrs['dkdv'])}; dQ {_attrs_str(attrs['dq'])}"
+                + (f"; forward that stores L {_attrs_str(wgmma_kernel_attrs(hd, win > 0, True))}"
+                   if tc else ""))
+            log(f"    backward {ms:.3f} ms (before: {prev:.3f} ms, {prev / ms:.1f}x) | bound "
+                f"{bound * 1e3:.2f} us ({by}: the function's 5 products, {byts / 1e6:.2f} MB, "
+                f"{ops / 1e9:.2f} GFLOP at {peak / 1e12:g} TFLOP/s; the kernels compute 7, "
+                f"{ops * 1.4 / 1e9:.2f} GFLOP, {bound * 1.4e3:.2f} us) | plain backward "
                 f"{plain:.3f} ms | SDPA{' (bool mask)' if win else ''} backward {lib:.3f} ms | "
                 f"{100 * bound / ms:.1f}% of its bound, kernel/SDPA {ms / lib:.2f}x")
+            log(f"    backward by kernel (profiler, L2 warm): {split}")
+            log(f"    forward under autograd (stores L) {fwd_ms:.3f} ms, serve instance "
+                f"{serve_ms:.3f} ms (before, the forward under autograd: {prev_fwd:.3f} ms) | "
+                f"forward + backward {fwd_ms + ms:.3f} ms (before: {prev_fwd + prev:.3f} ms)")
             rows[("flash_attention_bwd", case, dn)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=lib)
-            del q, k, v, do, qr, kr, vr, out, o, dq, dk, dv, qp, kp, vp, qt, kt, vt, yl, grads
+                library_ms=lib, forward_autograd_ms=fwd_ms, forward_serve_ms=serve_ms,
+                **{f"{kn}_{key}": val for kn, a in attrs.items() for key, val in a.items()})
+            del q, k, v, do, qr, kr, vr, out, o, o2, lse, dq, dk, dv, qp, kp, vp, qt, kt, vt
+            del yl, grads, first
     torch.cuda.empty_cache()
     return rows
 
@@ -1192,6 +1291,7 @@ def _zero_counts():
 
     rmsnorm.launches = rmsnorm.bwd_launches = 0
     flash_mha.launches = flash_mha.wgmma_launches = flash_mha.bwd_launches = 0
+    flash_mha.wgmma_bwd_launches = 0
 
 
 def _read_counts() -> dict:
@@ -1200,7 +1300,7 @@ def _read_counts() -> dict:
 
     return {"rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm.bwd_launches,
             "flash_attention": flash_mha.launches, "flash_attention_bwd": flash_mha.bwd_launches,
-            "wgmma": flash_mha.wgmma_launches}
+            "wgmma": flash_mha.wgmma_launches, "wgmma_bwd": flash_mha.wgmma_bwd_launches}
 
 
 def _check_run(history, what):
@@ -1217,8 +1317,9 @@ def phase_train(torch):
     """The train path at full width: launch/train.py::train for qwen2-1.5b,
     f32 (the launcher's default), remat "full", B 4, S 1024, 4 steps, with
     every kernel's count zeroed just before and read just after; then one
-    profiled step; then 3 bf16 steps, whose flash forwards must all be
-    tensor-core launches. Returns the main run's launches and its numbers."""
+    profiled step; then 3 bf16 steps with the same exact counts, whose flash
+    forwards and backwards must all be tensor-core launches, and one
+    profiled bf16 step. Returns the two runs' launches and their numbers."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
     from repro_torch.models import build_model
@@ -1265,34 +1366,38 @@ def phase_train(torch):
         if launches[k] != n:
             raise AssertionError(f"train: {k} launched {launches[k]} times, want {n}")
 
-    # profile one more f32 step on the trained state: where a step's time goes
-    model = build_model(cfg)
-    step_fn = make_train_step(model, lr_schedule=schedule_for(cfg, 3e-4, 1, steps))
-    data = SyntheticData(cfg, ShapeSpec("cli", S, B, "train"), seed=0, device="cuda")
-    batch = data.batch_at(steps)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    busy, kernels, top = _device_ms(torch, lambda: step_fn(state, batch), 1,
-                                    keys=("fa_bwd", "flash_attention", "rmsnorm"))
-    wall = (time.perf_counter() - t0) * 1e3
-    if busy is None:
-        log(f"[profile] {cfg.name} train step f32: device time not measured (the profiler "
-            f"saw no CUDA kernel)")
-    else:
-        log(f"[profile] {cfg.name} train step f32 B={B} S={S}: wall {wall:.1f} ms under the "
-            f"profiler, device busy {busy:.1f} ms ({100 * busy / wall:.1f}% busy), "
+    def profile_step(state, dtype_name, steps_done):
+        """One more step on the trained state under torch.profiler: where a
+        step's time goes."""
+        model = build_model(cfg)
+        step_fn = make_train_step(model, lr_schedule=schedule_for(cfg, 3e-4, 1, steps_done))
+        data = SyntheticData(cfg, ShapeSpec("cli", S, B, "train"), seed=0, device="cuda")
+        batch = data.batch_at(steps_done)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        busy, kernels, top = _device_ms(torch, lambda: step_fn(state, batch), 1,
+                                        keys=("fa_bwd", "flash_attention", "rmsnorm"))
+        wall = (time.perf_counter() - t0) * 1e3
+        if busy is None:
+            log(f"[profile] {cfg.name} train step {dtype_name}: device time not measured "
+                f"(the profiler saw no CUDA kernel)")
+            return
+        log(f"[profile] {cfg.name} train step {dtype_name} B={B} S={S}: wall {wall:.1f} ms "
+            f"under the profiler, device busy {busy:.1f} ms ({100 * busy / wall:.1f}% busy), "
             f"{kernels:.0f} kernels")
         for ms, key in top:
             log(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
-    del state, step_fn, batch
+
+    profile_step(state, "f32", steps)
+    del state
     torch.cuda.empty_cache()
 
     # bf16 (init_state's default): every flash forward on the tensor cores
     gc.collect()                                # the profiler's events
     gc.freeze()
     _zero_counts()
-    _, hist16 = train(TRAIN["arch"], steps=TRAIN["bf16_steps"], batch=B, seq=S,
-                      dtype=torch.bfloat16, log_every=1, device="cuda")
+    state16, hist16 = train(TRAIN["arch"], steps=TRAIN["bf16_steps"], batch=B, seq=S,
+                            dtype=torch.bfloat16, log_every=1, device="cuda")
     torch.cuda.synchronize()
     c16 = _read_counts()
     _check_run(hist16, f"{cfg.name} bf16")
@@ -1302,14 +1407,20 @@ def phase_train(torch):
         + "; ms per step " + ", ".join("%.1f" % (1e3 * h["step_s"]) for h in hist16)
         + f"; flash "
         f"forwards {c16['flash_attention']} of which tensor-core {c16['wgmma']}, backwards "
-        f"{c16['flash_attention_bwd']}")
-    if c16["wgmma"] != c16["flash_attention"] or c16["flash_attention"] != per_step[
-            "flash_attention"] * n16 or c16["flash_attention_bwd"] != L * n16:
-        raise AssertionError(f"bf16 train: flash launches {c16}")
+        f"{c16['flash_attention_bwd']} of which tensor-core {c16['wgmma_bwd']} (want "
+        f"{L} x {n16})")
+    want16 = {k: n * n16 for k, n in per_step.items()}
+    if (c16["wgmma"] != c16["flash_attention"] or c16["wgmma_bwd"] != c16["flash_attention_bwd"]
+            or any(c16[k] != n for k, n in want16.items())):
+        raise AssertionError(f"bf16 train: launches {c16}, want {want16} and every flash "
+                             f"launch on the tensor cores")
+    profile_step(state16, "bf16", n16)
+    del state16
     gc.unfreeze()
     torch.cuda.empty_cache()
-    return launches, dict(step_ms=step_ms, peak_gib=peak, losses=[h["loss"] for h in history],
-                          bf16_step_ms=[1e3 * h["step_s"] for h in hist16])
+    return launches, c16, dict(step_ms=step_ms, peak_gib=peak,
+                               losses=[h["loss"] for h in history],
+                               bf16_step_ms=[1e3 * h["step_s"] for h in hist16])
 
 
 def _leaf_names(tree, prefix: str = "") -> list:
@@ -1484,7 +1595,7 @@ def main() -> int:
             del model, params
             torch.cuda.empty_cache()
         rows.update(train_kernels(torch))
-        train_launches, train_stats = phase_train(torch)
+        train_launches, bf16_launches, train_stats = phase_train(torch)
         train_step_vs_plain(torch)
         cli_on_the_card()
     except Exception:
@@ -1512,23 +1623,32 @@ def main() -> int:
                         replaces=REPLACES["list_schedule"], launches=sched_launches,
                         variants_launched=sched_variants_launched, path=CAMPAIGN,
                         **sched_row))
-    # the train path (f32, the launcher's default): its forward kernels (f32
-    # flash runs the scalar kernel) and the backward kernels, timed at its
-    # main shapes; launches from the 4-step full-width run
-    train_path = f"train/{TRAIN['arch']}"
-    f32_flash = ("flash", (4, 1024, 1024, 12, 2, 128, True, 0, 0), "float32")
-    for name, key, source in (
-            ("rmsnorm", ("rmsnorm", (4096, 1536), "float32"), ROUTES["rmsnorm"][1]),
-            ("flash_attention", f32_flash, SCALAR_FLASH),
-            ("rmsnorm_bwd", ("rmsnorm_bwd", (4096, 1536), "float32"), ROUTES["rmsnorm_bwd"][1]),
-            ("flash_attention_bwd", ("flash_attention_bwd", (4, 1024, 12, 2, 128, 0, 0),
-                                     "float32"), ROUTES["flash_attention_bwd"][1])):
-        kernels.append(dict(name=name, route="cuda", source=source, replaces=REPLACES[name],
-                            launches=train_launches[name], path=train_path, shape=list(key[1]),
-                            dtype=key[2], **rows[key]))
-    kernels[-1].update(train_step_ms=train_stats["step_ms"],
-                       train_peak_gib=train_stats["peak_gib"],
-                       train_bf16_step_ms=train_stats["bf16_step_ms"])
+    # the train path, f32 (the launcher's default) and bf16: its forward
+    # kernels (f32 flash runs the scalar kernel, bf16 the tensor-core one, both
+    # in the instance that stores L, timed under autograd in phase 7) and the
+    # backward kernels (bf16 flash on the tensor cores), timed at its main
+    # shapes; launches from the 4-step f32 and the 3-step bf16 full-width runs
+    qwen_fa = (4, 1024, 12, 2, 128, 0, 0)
+    for dt, counts, fwd_source in (("float32", train_launches, SCALAR_FLASH),
+                                   ("bfloat16", bf16_launches, ROUTES["flash_attention"][1])):
+        train_path = f"train/{TRAIN['arch']}/{dt}"
+        bwd = rows[("flash_attention_bwd", qwen_fa, dt)]
+        fwd = dict(rows[("flash", (4, 1024, 1024, 12, 2, 128, True, 0, 0), dt)],
+                   ms=bwd["forward_autograd_ms"], serve_instance_ms=bwd["forward_serve_ms"])
+        for name, key, source, row in (
+                ("rmsnorm", ("rmsnorm", (4096, 1536), dt), ROUTES["rmsnorm"][1], None),
+                ("flash_attention", None, fwd_source, fwd),
+                ("rmsnorm_bwd", ("rmsnorm_bwd", (4096, 1536), dt), ROUTES["rmsnorm_bwd"][1],
+                 None),
+                ("flash_attention_bwd", ("flash_attention_bwd", qwen_fa, dt),
+                 ROUTES["flash_attention_bwd"][1], None)):
+            kernels.append(dict(name=name, route="cuda", source=source,
+                                replaces=REPLACES[name], launches=counts[name], path=train_path,
+                                shape=list(key[1]) if key else list(qwen_fa), dtype=dt,
+                                **(row if row is not None else rows[key])))
+        kernels[-1].update(train_step_ms=train_stats["step_ms" if dt == "float32"
+                                                     else "bf16_step_ms"])
+    kernels[-1].update(train_peak_gib_f32=train_stats["peak_gib"])
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

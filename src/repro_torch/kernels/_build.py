@@ -10,7 +10,8 @@ shared library with a plain C interface, loaded with ``ctypes``:
 
 The library is built at first use, into ``build/repro_torch/`` at the root
 of the checkout (``$REPRO_TORCH_BUILD_DIR`` overrides it). Its file name
-carries a hash of the sources and flags, so a stale build is never loaded.
+carries a hash of the flags and of every file under ``csrc/`` (the sources
+and the headers they include), so a stale build is never loaded.
 A failed build raises; nothing falls back to the plain versions.
 """
 from __future__ import annotations
@@ -26,8 +27,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "DTYPE_CODES", "build_dir", "library_path",
-           "load", "check"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "DTYPE_CODES", "csrc_files", "build_dir",
+           "library_path", "load", "check"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "rmsnorm.cu", _CSRC / "rmsnorm_bwd.cu", _CSRC / "flash_attention.cu",
@@ -48,14 +49,18 @@ _SIGNATURES = {
     "repro_rmsnorm_plan": (_INT, _INT, _INT, _INT, _INT, _INTP),
     "repro_rmsnorm_attrs": (_INT, _INT, _INT, _INT, _INTP, _INTP, _INTP),
     "repro_rmsnorm_bwd": (_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _F32, _INT, _VP),
-    "repro_flash_attention": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+    "repro_rmsnorm_bwd_plan": (_INT, _INT, _INT, _INT, _INT, _INTP),
+    "repro_rmsnorm_bwd_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP),
+    "repro_flash_attention": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                               _INT, _INT, _INT, _INT, _INT, _F32, _INT, _VP),
-    "repro_flash_attention_wgmma": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+    "repro_flash_attention_wgmma": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                                     _INT, _INT, _INT, _INT, _F32, _VP),
-    "repro_flash_attention_wgmma_attrs": (_INT, _INT, _INTP, _INTP, _INTP),
-    "repro_flash_attention_bwd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
-                                  _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _F32,
-                                  _INT, _VP),
+    "repro_flash_attention_wgmma_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP),
+    "repro_flash_attention_bwd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                  _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                                  _INT, _INT, _F32, _INT, _VP),
+    "repro_flash_attention_bwd_slots": (_INT, _INT, _INT, _INT, _INT, _INT, _INT),
+    "repro_flash_attention_bwd_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP),
     "repro_ssm_scan": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "repro_list_schedule": (_VP, _VP, _VP, _INT, _INT, _INT, _F32, _INT, _VP, _VP,
                             _VP, _VP, _VP),
@@ -73,9 +78,14 @@ def build_dir() -> Path:
     return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 
+def csrc_files() -> list:
+    """Every file the build reads: the sources and the headers beside them."""
+    return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in csrc_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return build_dir() / f"librepro_torch_{h.hexdigest()[:16]}.so"

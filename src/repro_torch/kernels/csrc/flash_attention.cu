@@ -47,6 +47,7 @@ constexpr int kKeys = 32;           // keys per shared-memory tile
 constexpr int kThreadsPerRow = 4;
 constexpr int kThreads = kRows * kThreadsPerRow;
 constexpr float kNeg = -1e30f;
+constexpr int kLseAlign = 64;       // lse rows padded to this (the backward's tile)
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -61,13 +62,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // q, o: [B, Sq, H, HD]; k, v: [B, Sk, KV, HD]; all contiguous. kWindow:
-// causal with window > 0.
-template <typename T, int HD, bool kWindow>
+// causal with window > 0. kLse: also store each row's logsumexp for the
+// backward, in the exp2 domain the backward reads (that of the tensor-core
+// forward): lse[bh * lse_stride + row] = m * log2(e) + log2(l), +inf for a
+// row that sees no key. The serve path launches the instance without it.
+template <typename T, int HD, bool kWindow, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
                        int H, int KV, float scale, int causal, int window,
-                       int n_sink) {
+                       int n_sink, float* __restrict__ lse, int lse_stride) {
   constexpr int kChunks = HD / 4;                          // float4 chunks in a row
   constexpr int kMine = kChunks / kThreadsPerRow;          // chunks per thread
   static_assert(kMine >= 1 && kChunks % kThreadsPerRow == 0, "unsupported head dim");
@@ -179,6 +183,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!row_ok) return;
+  if constexpr (kLse) {
+    if (part == 0)
+      lse[static_cast<long long>(bh) * lse_stride + row] =
+          l > 0.f ? fmaf(m, 1.4426950408889634f, log2f(l)) : __int_as_float(0x7f800000);
+  }
   const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
   for (int c = 0; c < kMine; ++c) {
@@ -189,30 +198,39 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-void launch_hd(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-               int H, int KV, float scale, int causal, int window, int n_sink,
+void launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+               int Sk, int H, int KV, float scale, int causal, int window, int n_sink,
                cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
-  if (causal && window > 0) {
-    flash_attention_kernel<T, HD, true><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, window, n_sink);
+  const int ls = (Sq + kLseAlign - 1) / kLseAlign * kLseAlign;
+  const bool windowed = causal && window > 0;
+  if (windowed && lse) {
+    flash_attention_kernel<T, HD, true, true><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, window, n_sink, lse, ls);
+  } else if (windowed) {
+    flash_attention_kernel<T, HD, true, false><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, window, n_sink, nullptr, 0);
+  } else if (lse) {
+    flash_attention_kernel<T, HD, false, true><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, 0, 0, lse, ls);
   } else {
-    flash_attention_kernel<T, HD, false><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, 0, 0);
+    flash_attention_kernel<T, HD, false, false><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, 0, 0, nullptr, 0);
   }
 }
 
 template <typename T>
-bool launch_dtype(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                  int Sk, int H, int KV, int hd, float scale, int causal, int window,
+bool launch_dtype(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                  int Sq, int Sk, int H, int KV, int hd, float scale, int causal, int window,
                   int n_sink, cudaStream_t stream) {
-#define REPRO_FA_CASE(HD)                                                                   \
-  case HD:                                                                                  \
-    launch_hd<T, HD>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, n_sink, stream); \
+#define REPRO_FA_CASE(HD)                                                                    \
+  case HD:                                                                                   \
+    launch_hd<T, HD>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal, window, n_sink,     \
+                     stream);                                                                \
     return true;
   switch (hd) {
     REPRO_FA_CASE(16)
@@ -227,22 +245,26 @@ bool launch_dtype(const void* q, const void* k, const void* v, void* o, int B, i
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 128}; H % KV == 0;
-// window >= 0 and n_sink >= 0 act only when causal (0 = no window).
+// window >= 0 and n_sink >= 0 act only when causal (0 = no window). lse:
+// nullptr (the serve path's instance), or [B*H, round_up(Sq, 64)] f32 that
+// receives each row's logsumexp in the exp2 domain (see the kernel).
 // Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int B, int Sq, int Sk, int H, int KV, int hd,
+                                     void* lse, int B, int Sq, int Sk, int H, int KV, int hd,
                                      int causal, int window, int n_sink, float scale,
                                      int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk < 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
       n_sink < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   bool ok = false;
   if (dtype == 0) {
-    ok = launch_dtype<float>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal, window, n_sink, s);
+    ok = launch_dtype<float>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, scale, causal, window,
+                             n_sink, s);
   } else if (dtype == 1) {
-    ok = launch_dtype<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal, window,
-                                     n_sink, s);
+    ok = launch_dtype<__nv_bfloat16>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, scale, causal,
+                                     window, n_sink, s);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -49,10 +49,7 @@
 //
 // The kernel allocates nothing and launches on the caller's stream.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -60,8 +57,8 @@ constexpr int kWarpgroups = 2;                    // consumer warpgroups, 64 row
 constexpr int kRows = 64 * kWarpgroups;           // query rows per block
 constexpr int kKeys = 128;                        // keys per K/V tile (wgmma N of S)
 constexpr int kThreads = 128 * (kWarpgroups + 1);  // + one producer warpgroup
-constexpr int kBox = 64;                          // columns per TMA box (128 bytes)
 constexpr float kNeg = -1e30f;
+constexpr int kLseAlign = 64;                     // lse rows padded to this (the backward's tile)
 
 template <int HD>
 struct Cfg {
@@ -73,154 +70,6 @@ struct Cfg {
   // 1024 bytes of slack to align the swizzled tiles, then Q, K/V stages, barriers
   static constexpr int kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 };
-
-// -- PTX wrappers -------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed (the spin stays
-// inside one asm block, so the warp leaves it converged).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One box of a 4-D tensor map (coordinates innermost first) into shared memory.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled tile (1024-byte
-// aligned atoms of 8 rows x 128 bytes). lbo/sbo in bytes.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across an
-// asynchronous wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D[64x64] (+)= A[64x16] * B[16x64], A from registers, B MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// D[64x128] (+)= A[64x16] * B[16x128], A and B by shared-memory descriptor, both K-major
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64x128] (+)= A[64x16] * B[16x128], A from registers, B MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
-                                         int scale_d) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db, scale_d);
-  else wgmma_rs_n128(d, a, db, scale_d);
-}
 
 // -- the kernel ---------------------------------------------------------------
 
@@ -237,14 +86,18 @@ __device__ __forceinline__ bool tile_visited(int k0, int q0, int Sk, int causal,
 
 // q, o: [B, Sq, H, HD]; k, v: [B, Sk, KV, HD], bf16, read through the tensor
 // maps (boxes of kBox columns x 1 head x rows x 1 batch). kWindow: causal with
-// window > 0; the plain instance carries no window test.
-template <int HD, bool kWindow>
+// window > 0; the plain instance carries no window test. kLse: also store
+// each row's logsumexp for the backward, in the exp2 domain of the online
+// softmax, lse[bh * lse_stride + row] = m * scale_log2 + log2(l) (+inf for a
+// row that sees no key); the serve path launches the instance without it.
+template <int HD, bool kWindow, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
                              __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KV,
-                             float scale_log2, int causal, int window, int n_sink) {
+                             float scale_log2, int causal, int window, int n_sink,
+                             float* __restrict__ lse, int lse_stride) {
   using C = Cfg<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -424,6 +277,17 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
+  if constexpr (kLse) {
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < Sq)
+          lse[static_cast<long long>(bh) * lse_stride + row] =
+              l[r] > 0.f ? fmaf(m[r], scale_log2, log2f(l[r])) : __int_as_float(0x7f800000);
+      }
+    }
+  }
   const long long row_stride = static_cast<long long>(H) * HD;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -439,90 +303,70 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// -- host side ----------------------------------------------------------------
-
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// Tensor map over a contiguous bf16 [batch, seq, heads, hd]; boxes of kBox
-// columns x 1 head x `rows` x 1 batch, 128-byte swizzle, zero fill past the
-// edges.
-bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int hd,
-              int rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t row_bytes = static_cast<cuuint64_t>(hd) * 2;
-  const cuuint64_t strides[3] = {row_bytes, row_bytes * heads,
-                                 row_bytes * heads * static_cast<cuuint64_t>(seq)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBox), 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int HD, bool kWindow>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
-           int KV, float scale_log2, int causal, int window, int n_sink, cudaStream_t stream) {
+template <int HD, bool kWindow, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+           int Sk, int H, int KV, float scale_log2, int causal, int window, int n_sink,
+           cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, B, Sq, H, HD, kRows) || !make_map(&km, k, B, Sk, KV, HD, kKeys) ||
       !make_map(&vm, v, B, Sk, KV, HD, kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD, kWindow>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD, kWindow, kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Cfg<HD>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-  flash_attention_wgmma_kernel<HD, kWindow><<<grid, kThreads, Cfg<HD>::kSmem, stream>>>(
+  flash_attention_wgmma_kernel<HD, kWindow, kLse><<<grid, kThreads, Cfg<HD>::kSmem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV, scale_log2, causal, window,
-      n_sink);
+      n_sink, lse, (Sq + kLseAlign - 1) / kLseAlign * kLseAlign);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, bool kWindow>
-int attrs(int* regs, int* local_bytes, int* smem_bytes) {
+// the instance for (hd, windowed, lse): a function of the call's shape only
+template <int HD, bool kWindow, bool kLse>
+int launch_or_attrs(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                    int Sq, int Sk, int H, int KV, float scale_log2, int causal, int window,
+                    int n_sink, cudaStream_t stream, int* attr) {
+  if (attr == nullptr)
+    return launch<HD, kWindow, kLse>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2, causal,
+                                     window, n_sink, stream);
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, flash_attention_wgmma_kernel<HD, kWindow>);
+  cudaError_t err = cudaFuncGetAttributes(&a, flash_attention_wgmma_kernel<HD, kWindow, kLse>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *regs = a.numRegs;
-  *local_bytes = static_cast<int>(a.localSizeBytes);
-  *smem_bytes = static_cast<int>(a.sharedSizeBytes) + Cfg<HD>::kSmem;
+  attr[0] = a.numRegs;
+  attr[1] = static_cast<int>(a.localSizeBytes);
+  attr[2] = static_cast<int>(a.sharedSizeBytes) + Cfg<HD>::kSmem;
   return 0;
+}
+
+template <int HD>
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+             int Sk, int H, int KV, float scale_log2, int causal, int window, int n_sink,
+             cudaStream_t s, int* attr) {
+  const bool windowed = causal && window > 0;
+  if (windowed)
+    return lse ? launch_or_attrs<HD, true, true>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2,
+                                                1, window, n_sink, s, attr)
+               : launch_or_attrs<HD, true, false>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                                  scale_log2, 1, window, n_sink, s, attr);
+  return lse ? launch_or_attrs<HD, false, true>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2,
+                                               causal, 0, 0, s, attr)
+             : launch_or_attrs<HD, false, false>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2,
+                                                 causal, 0, 0, s, attr);
 }
 
 }  // namespace
 
 // bf16 only; hd in {64, 128}; Sq, Sk > 0 (a tensor map has no empty
 // dimension); H % KV == 0; q, k, v, o contiguous and 16-byte aligned; window
-// >= 0 and n_sink >= 0 act only when causal (0 = no window). Returns
+// >= 0 and n_sink >= 0 act only when causal (0 = no window). lse: nullptr
+// (the serve path's instance), or [B*H, round_up(Sq, 64)] f32 that receives
+// each row's logsumexp in the exp2 domain (see the kernel). Returns
 // cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
-                                           int B, int Sq, int Sk, int H, int KV, int hd,
-                                           int causal, int window, int n_sink, float scale,
-                                           void* stream) {
+                                           void* lse, int B, int Sq, int Sk, int H, int KV,
+                                           int hd, int causal, int window, int n_sink,
+                                           float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
       n_sink < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -531,30 +375,34 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const v
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * 1.4426950408889634f;
-  const bool windowed = causal && window > 0;
+  float* l = static_cast<float*>(lse);
   if (hd == 64)
-    return windowed ? launch<64, true>(q, k, v, o, B, Sq, Sk, H, KV, scale_log2, 1, window,
-                                       n_sink, s)
-                    : launch<64, false>(q, k, v, o, B, Sq, Sk, H, KV, scale_log2, causal, 0, 0,
-                                        s);
+    return dispatch<64>(q, k, v, o, l, B, Sq, Sk, H, KV, scale_log2, causal, window, n_sink, s,
+                        nullptr);
   if (hd == 128)
-    return windowed ? launch<128, true>(q, k, v, o, B, Sq, Sk, H, KV, scale_log2, 1, window,
-                                        n_sink, s)
-                    : launch<128, false>(q, k, v, o, B, Sq, Sk, H, KV, scale_log2, causal, 0,
-                                         0, s);
+    return dispatch<128>(q, k, v, o, l, B, Sq, Sk, H, KV, scale_log2, causal, window, n_sink, s,
+                         nullptr);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Registers per thread at launch (before setmaxnreg), local (spill) bytes per
 // thread and shared memory per block of the instance that a call with this
-// hd and window would launch.
-extern "C" int repro_flash_attention_wgmma_attrs(int hd, int windowed, int* regs,
+// hd, window and lse (0: the serve path's; 1: the one that stores L) would
+// launch.
+extern "C" int repro_flash_attention_wgmma_attrs(int hd, int windowed, int lse, int* regs,
                                                  int* local_bytes, int* smem_bytes) {
+  int attr[3] = {0, 0, 0};
+  float dummy = 0.f;
+  float* l = lse ? &dummy : nullptr;
+  int err = static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
-    return windowed ? attrs<64, true>(regs, local_bytes, smem_bytes)
-                    : attrs<64, false>(regs, local_bytes, smem_bytes);
+    err = dispatch<64>(nullptr, nullptr, nullptr, nullptr, l, 1, 1, 1, 1, 1, 1.f, 1,
+                       windowed ? 1 : 0, 0, nullptr, attr);
   if (hd == 128)
-    return windowed ? attrs<128, true>(regs, local_bytes, smem_bytes)
-                    : attrs<128, false>(regs, local_bytes, smem_bytes);
-  return static_cast<int>(cudaErrorInvalidValue);
+    err = dispatch<128>(nullptr, nullptr, nullptr, nullptr, l, 1, 1, 1, 1, 1, 1.f, 1,
+                        windowed ? 1 : 0, 0, nullptr, attr);
+  *regs = attr[0];
+  *local_bytes = attr[1];
+  *smem_bytes = attr[2];
+  return err;
 }

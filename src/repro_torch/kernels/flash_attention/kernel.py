@@ -10,10 +10,19 @@ so no transpose is materialised around them.
 * ``flash_attention_wgmma_cuda`` — ``csrc/flash_attention_wgmma.cu``: bf16
   on the tensor cores (wgmma) with K/V streamed by TMA, head dims
   ``WGMMA_HEAD_DIMS``, Sk > 0, 16-byte aligned tensors.
+
+Either forward, given ``lse``, launches its instance that also stores each
+row's logsumexp L for the backward ([B*H, lse_rows(Sq)] f32, in the exp2
+domain: L = m·scale·log2(e) + log2(l)); without it, the serve path's.
+
 * ``flash_attention_bwd_cuda`` — ``csrc/flash_attention_bwd.cu``: dQ, dK,
-  dV in three launches (the row logsumexp L and D = rowsum(dO·O); dK and
-  dV per key tile and kv head; dQ per query tile), scalar f32 FMAs, f32 or
-  bf16, head dims ``HEAD_DIMS``, Sk > 0.
+  dV from the forward's L in four launches: D = rowsum(dO·O); dK, dV as f32
+  partial sums over a balanced grid (each key tile's (head, query tile)
+  units cut into splits of at most ``BWD_SPLIT_UNITS``); dQ per query tile;
+  the partials added in split order. bf16 at ``WGMMA_HEAD_DIMS`` on the
+  tensor cores (wgmma + TMA, 16-byte aligned tensors), everything else as
+  register-tiled f32 products on the CUDA cores; head dims ``HEAD_DIMS``,
+  Sk > 0.
 """
 from __future__ import annotations
 
@@ -25,9 +34,10 @@ import torch
 from .. import _build
 
 __all__ = ["HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BLOCK_Q", "WGMMA_BLOCK_K",
-           "BWD_ROWS", "BWD_KEYS", "BWD_KEY_ROWS", "BWD_Q_TILE",
+           "BWD_TILE", "BWD_SPLIT_UNITS", "BWD_KERNELS", "lse_rows",
            "flash_attention_cuda", "flash_attention_wgmma_cuda",
-           "flash_attention_bwd_cuda", "wgmma_kernel_attrs"]
+           "flash_attention_bwd_cuda", "bwd_slots", "wgmma_kernel_attrs",
+           "bwd_kernel_attrs"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
@@ -35,27 +45,35 @@ WGMMA_HEAD_DIMS = (64, 128)
 # (kRows, kKeys in csrc/flash_attention_wgmma.cu)
 WGMMA_BLOCK_Q = 128
 WGMMA_BLOCK_K = 128
-# tiles of the backward (kRows, kKeys, kKeyRows, kQTile in
-# csrc/flash_attention_bwd.cu): query rows per block of the pre-pass and of
-# dQ, keys per shared tile there; keys per block of dK/dV, query rows per
-# shared tile there
-BWD_ROWS = 64
-BWD_KEYS = 32
-BWD_KEY_ROWS = 64
-BWD_Q_TILE = 32
+# the backward's tile (kTile in csrc/flash_attention_bwd.cu): keys per key
+# tile and rows per query tile in every kernel; L and D rows are padded to it
+BWD_TILE = 64
+# most (head, query tile) units one dK/dV block walks (kSplitUnits)
+BWD_SPLIT_UNITS = 32
+# the backward's kernels, by the `kind` of repro_flash_attention_bwd_attrs
+BWD_KERNELS = ("dq", "dkdv", "delta", "finalize")
+
+
+def lse_rows(Sq: int) -> int:
+    """Row stride of L and D: Sq rounded up to ``BWD_TILE``."""
+    return -(-Sq // BWD_TILE) * BWD_TILE
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, *, causal: bool, window: int = 0,
-                         n_sink: int = 0) -> None:
+                         n_sink: int = 0, lse: torch.Tensor | None = None) -> None:
     """Launch the scalar kernel into ``out`` [B,Sq,H,hd] with scale
-    1/sqrt(hd); the caller has checked device, dtype, shapes and
-    contiguity."""
+    1/sqrt(hd) (and L into ``lse``, if given); the caller has checked
+    device, dtype, shapes and contiguity."""
     lib = _build.load()
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     err = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
         B, Sq, Sk, H, KV, hd, int(causal), int(window), int(n_sink),
         1.0 / math.sqrt(hd),
         _build.DTYPE_CODES[q.dtype],
@@ -65,51 +83,78 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                out: torch.Tensor, *, causal: bool, window: int = 0,
-                               n_sink: int = 0) -> None:
+                               n_sink: int = 0, lse: torch.Tensor | None = None) -> None:
     """Launch the tensor-core kernel into ``out`` [B,Sq,H,hd] with scale
-    1/sqrt(hd); the caller has checked device, bf16, shapes, contiguity,
-    alignment, hd in ``WGMMA_HEAD_DIMS`` and Sk > 0."""
+    1/sqrt(hd) (and L into ``lse``, if given); the caller has checked
+    device, bf16, shapes, contiguity, alignment, hd in ``WGMMA_HEAD_DIMS``
+    and Sk > 0."""
     lib = _build.load()
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     err = lib.repro_flash_attention_wgmma(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
         B, Sq, Sk, H, KV, hd, int(causal), int(window), int(n_sink),
         1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("repro_flash_attention_wgmma", err)
 
 
+def bwd_slots(Sq: int, Sk: int, H: int, KV: int, *, causal: bool, window: int = 0,
+              n_sink: int = 0) -> int:
+    """dK/dV blocks (= partial rows) of one (b, kv head) of the backward
+    (``repro_flash_attention_bwd_slots``; twin ``ref.py::bwd_split_plan``)."""
+    n = _build.load().repro_flash_attention_bwd_slots(Sq, Sk, H, KV, int(causal),
+                                                      int(window), int(n_sink))
+    if n < 0:
+        raise ValueError(f"bwd_slots: bad shape Sq={Sq} Sk={Sk} H={H} KV={KV}")
+    return n
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             o: torch.Tensor, dout: torch.Tensor, dq: torch.Tensor,
-                             dk: torch.Tensor, dv: torch.Tensor, *, causal: bool,
-                             window: int = 0, n_sink: int = 0) -> None:
+                             o: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                             dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, *,
+                             causal: bool, window: int = 0, n_sink: int = 0) -> None:
     """Launch the backward into ``dq``, ``dk``, ``dv`` (q's and k's shapes)
-    from the forward's inputs, its output ``o`` and ``dout``; the L and D
-    scratch rows are allocated here. The caller has checked device, dtype,
-    shapes, contiguity and Sk > 0."""
+    from the forward's inputs, its output ``o``, its L (``lse``) and
+    ``dout``; the D rows and the dK/dV partial sums are allocated here. The
+    caller has checked device, dtype, shapes, contiguity, alignment and
+    Sk > 0."""
     lib = _build.load()
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    n_slots = bwd_slots(Sq, Sk, H, KV, causal=causal, window=window, n_sink=n_sink)
+    delta = torch.empty((B * H, lse_rows(Sq)), dtype=torch.float32, device=q.device)
+    part_k = torch.empty((B * KV, n_slots, BWD_TILE, hd), dtype=torch.float32,
+                         device=q.device)
+    part_v = torch.empty_like(part_k)
     err = lib.repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        B, Sq, Sk, H, KV, hd, int(causal), int(window), int(n_sink), 1.0 / math.sqrt(hd),
-        _build.DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        part_k.data_ptr(), part_v.data_ptr(), n_slots, B, Sq, Sk, H, KV, hd, int(causal),
+        int(window), int(n_sink), 1.0 / math.sqrt(hd), _build.DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("repro_flash_attention_bwd", err)
 
 
-def wgmma_kernel_attrs(hd: int, windowed: bool) -> dict:
-    """Registers per thread at launch (setmaxnreg then moves them to the
-    consumer warpgroups), spill bytes per thread and shared memory per block
-    of the tensor-core instance for ``hd`` (cudaFuncGetAttributes)."""
-    lib = _build.load()
+def _attrs(name: str, *args) -> dict:
     regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _build.check("repro_flash_attention_wgmma_attrs",
-                 lib.repro_flash_attention_wgmma_attrs(
-                     hd, int(windowed), ctypes.byref(regs), ctypes.byref(local),
-                     ctypes.byref(smem)))
+    _build.check(name, getattr(_build.load(), name)(
+        *args, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(smem)))
     return {"registers": regs.value, "spill_bytes": local.value,
             "smem_bytes": smem.value}
+
+
+def wgmma_kernel_attrs(hd: int, windowed: bool, lse: bool = False) -> dict:
+    """Registers per thread at launch (setmaxnreg then moves them to the
+    consumer warpgroups), spill bytes per thread and shared memory per block
+    of the tensor-core forward for ``hd`` (cudaFuncGetAttributes); ``lse``:
+    the instance that stores L (autograd), else the serve path's."""
+    return _attrs("repro_flash_attention_wgmma_attrs", hd, int(windowed), int(lse))
+
+
+def bwd_kernel_attrs(kernel: str, hd: int, dtype: torch.dtype) -> dict:
+    """The same for one kernel of the backward (``BWD_KERNELS``) that a call
+    in ``dtype`` at ``hd`` launches (bf16 at ``WGMMA_HEAD_DIMS``: the
+    tensor-core dQ and dK/dV)."""
+    return _attrs("repro_flash_attention_bwd_attrs", BWD_KERNELS.index(kernel), hd,
+                  _build.DTYPE_CODES[dtype])

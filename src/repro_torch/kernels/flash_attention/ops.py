@@ -19,11 +19,17 @@ nothing and returns the zero rows that the kernel's contract gives.
 else; ``flash_mha.wgmma_launches`` counts the tensor-core kernel's launches.
 
 Under autograd (grad enabled and q, k or v requiring grad) the forward
-launch runs inside ``_FlashFn``, a ``torch.autograd.Function`` that saves
-q, k, v and the output; its backward launches ``csrc/flash_attention_bwd.cu``
-(dQ, dK, dV in three kernels, FA2's order, no atomics), whatever kernel ran
-the forward. ``flash_mha.bwd_launches`` counts backward calls, each one such
-launch. On the CPU the plain version's autograd is the backward.
+launch runs inside ``_FlashFn``, a ``torch.autograd.Function``: the same
+kernel, in its instance that also stores each row's logsumexp L (the serve
+path, without grad, keeps the instance without it). It saves q, k, v, the
+output and L; its backward launches ``csrc/flash_attention_bwd.cu`` (D, dK
+and dV over a balanced grid as ordered partial sums, dQ, the partials'
+sum: no atomics). bf16 at hd 64/128 runs its tensor-core kernels (16-byte
+aligned q, k, v, else it raises), every other call its CUDA-core ones; out
+and dout must be 16-byte aligned in every call.
+``flash_mha.bwd_launches`` counts backward calls, each one such launch;
+``flash_mha.wgmma_bwd_launches`` those that ran the tensor-core kernels. On
+the CPU the plain version's autograd is the backward.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ import torch
 
 from .._build import DTYPE_CODES
 from .kernel import (HEAD_DIMS, WGMMA_HEAD_DIMS, flash_attention_bwd_cuda,
-                     flash_attention_cuda, flash_attention_wgmma_cuda)
+                     flash_attention_cuda, flash_attention_wgmma_cuda, lse_rows)
 from .ref import flash_mha_ref
 
 __all__ = ["flash_mha"]
@@ -67,25 +73,35 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, mask)
 
 
-def _forward(q, k, v, mask) -> torch.Tensor:
+def _tensor_cores(q) -> bool:
+    return q.dtype == torch.bfloat16 and q.shape[3] in WGMMA_HEAD_DIMS
+
+
+def _check_aligned(*tensors) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("flash_mha: the kernels need 16-byte aligned tensors (TMA "
+                             "on the tensor cores; 16-byte loads of out and dout in the "
+                             "backward)")
+
+
+def _forward(q, k, v, mask, lse=None) -> torch.Tensor:
+    """One forward launch; with ``lse``, the instance that also stores L."""
     causal, window, n_sink = mask
     B, S, H, hd = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if B * H * S == 0:
         return out
-    if q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+    if _tensor_cores(q):
         if k.shape[1] == 0:          # no key: every row comes out 0
             return out.zero_()
-        for t in (q, k, v, out):
-            if t.data_ptr() % 16:
-                raise ValueError("flash_mha: the tensor-core kernel needs 16-byte "
-                                 "aligned q, k, v and out (TMA)")
+        _check_aligned(q, k, v, out)
         flash_attention_wgmma_cuda(q, k, v, out, causal=causal, window=window,
-                                   n_sink=n_sink)
+                                   n_sink=n_sink, lse=lse)
         flash_mha.wgmma_launches += 1
     else:
         flash_attention_cuda(q, k, v, out, causal=causal, window=window,
-                             n_sink=n_sink)
+                             n_sink=n_sink, lse=lse)
     flash_mha.launches += 1
     return out
 
@@ -96,24 +112,31 @@ class _FlashFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask):
-        out = _forward(q, k, v, mask)
-        ctx.save_for_backward(q, k, v, out)
+        B, S, H, _ = q.shape
+        lse = torch.empty((B * H, lse_rows(S)), dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, mask, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = mask
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         if q.numel() == 0 or k.shape[1] == 0:    # no visible pair: every gradient is 0
             return dq.zero_(), dk.zero_(), dv.zero_(), None
+        dout = dout.contiguous()
+        tensor_cores = _tensor_cores(q)
+        _check_aligned(out, dout, *((q, k, v) if tensor_cores else ()))
         causal, window, n_sink = ctx.mask
-        flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), dq, dk, dv,
-                                 causal=causal, window=window, n_sink=n_sink)
+        flash_attention_bwd_cuda(q, k, v, out, dout, lse, dq, dk, dv, causal=causal,
+                                 window=window, n_sink=n_sink)
         flash_mha.bwd_launches += 1
+        flash_mha.wgmma_bwd_launches += tensor_cores
         return dq, dk, dv, None
 
 
 flash_mha.launches = 0
 flash_mha.wgmma_launches = 0
 flash_mha.bwd_launches = 0
+flash_mha.wgmma_bwd_launches = 0

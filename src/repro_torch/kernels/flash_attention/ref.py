@@ -23,12 +23,15 @@ held against the Pallas kernel, never against ``attention_ref``.
 
 The backward's plain version is autograd of ``flash_mha_ref``
 (``flash_mha_bwd_ref``), the counterpart of ``jax.grad`` of the reference.
-``flash_mha_bwd_tiled`` emulates the backward kernel
-(``csrc/flash_attention_bwd.cu``) for the tests: (a) L by an online max and
-sum over key tiles and D = rowsum(dO·O); (b) dK, dV per key tile and kv
-head over its query heads and the query tiles that can see it; (c) dQ per
-query tile over the key tiles ``bwd_key_tile_visited`` keeps; P recomputed
-as exp(s·scale − L) under the forward's mask.
+``flash_mha_bwd_tiled`` emulates the backward kernels
+(``csrc/flash_attention_bwd.cu``) for the tests: L read from the forward's
+twin (``flash_mha_tiled(..., return_lse=True)``, exp2 domain) and D =
+rowsum(dO·O); dK, dV as one f32 partial per item of ``bwd_split_plan`` (a
+split of a key tile's (head, query tile) units, walked in order), the
+partials of a key tile added in split order; dQ per query tile over the key
+tiles ``bwd_key_tile_visited`` keeps; P recomputed as exp2(s·scale·log2(e)
+− L) under the forward's mask; with ``tensor_cores``, P and dS rounded to
+bf16 before their products, as the wgmma kernels feed them.
 
 ``flash_mha_tiled`` emulates the tile loop of the tensor-core kernel
 (``csrc/flash_attention_wgmma.cu``) for the tests: the same key tiles, chosen
@@ -43,11 +46,15 @@ import math
 
 import torch
 
-from .kernel import (BWD_KEY_ROWS, BWD_KEYS, BWD_Q_TILE, BWD_ROWS, WGMMA_BLOCK_K,
-                     WGMMA_BLOCK_Q)
+from typing import NamedTuple
+
+import torch.nn.functional as F
+
+from .kernel import BWD_SPLIT_UNITS, BWD_TILE, WGMMA_BLOCK_K, WGMMA_BLOCK_Q, lse_rows
 
 __all__ = ["NEG", "flash_mha_ref", "flash_mha_bwd_ref", "tile_visited", "flash_mha_tiled",
-           "visible", "bwd_key_tile_visited", "flash_mha_bwd_tiled"]
+           "visible", "bwd_key_tile_visited", "bwd_tile_needs_mask", "bwd_key_tile_rows",
+           "BwdItem", "bwd_split_plan", "flash_mha_bwd_tiled"]
 
 NEG = -1e30
 
@@ -99,10 +106,13 @@ def tile_visited(k0: int, q0: int, block_q: int, block_k: int, Sk: int, *,
 
 def flash_mha_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, n_sink: int = 0,
-                    block_q: int = WGMMA_BLOCK_Q,
-                    block_k: int = WGMMA_BLOCK_K) -> torch.Tensor:
+                    block_q: int = WGMMA_BLOCK_Q, block_k: int = WGMMA_BLOCK_K,
+                    return_lse: bool = False):
     """The tensor-core kernel's tile loop in plain torch; same signature and
-    result as ``flash_mha_ref`` up to sum order and the rounding of P."""
+    result as ``flash_mha_ref`` up to sum order and the rounding of P. With
+    ``return_lse``, also each row's logsumexp as the forward stores it for
+    the backward: [B, H, Sq] f32, m·scale·log2(e) + log2(l), +inf where no
+    key is visible."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -111,6 +121,7 @@ def flash_mha_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.float().permute(0, 2, 1, 3).repeat_interleave(G, 1)   # [B,H,Sk,hd]
     vf = v.float().permute(0, 2, 1, 3).repeat_interleave(G, 1)
     out = torch.zeros(B, H, Sq, hd, device=q.device)
+    lse = torch.full((B, H, Sq), float("inf"), device=q.device)
     for q0 in range(0, Sq, block_q):
         q1 = min(q0 + block_q, Sq)
         rows = torch.arange(q0, q1, device=q.device)[:, None]
@@ -138,7 +149,10 @@ def flash_mha_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc = acc * alpha + p @ vf[:, :, k0:k1]
             m = m_new
         out[:, :, q0:q1] = acc / l.clamp_min(1e-30)
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+        lse[:, :, q0:q1] = torch.where(l[..., 0] > 0, m[..., 0] * scale_log2
+                                       + torch.log2(l[..., 0]), lse[:, :, q0:q1])
+    out = out.permute(0, 2, 1, 3).to(q.dtype)
+    return (out, lse) if return_lse else out
 
 
 def flash_mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -165,106 +179,158 @@ def visible(rows: torch.Tensor, cols: torch.Tensor, Sk: int, *, causal: bool,
     return ok
 
 
-def bwd_key_tile_visited(k0: int, q0: int, *, causal: bool, window: int = 0,
-                         n_sink: int = 0, block_q: int = BWD_ROWS,
-                         block_k: int = BWD_KEYS) -> bool:
-    """The backward kernel's ``key_tile_visited``: does key tile
-    [k0, k0+block_k) hold a visible pair for a row of [q0, q0+block_q)?"""
-    if not causal:
+def bwd_key_tile_visited(k0: int, q0: int, Sk: int, *, causal: bool, window: int = 0,
+                         n_sink: int = 0) -> bool:
+    """The dQ kernels' ``key_tile_visited``: does key tile [k0, k0+BWD_TILE)
+    hold a visible pair for a row of [q0, q0+BWD_TILE)?"""
+    return tile_visited(k0, q0, BWD_TILE, BWD_TILE, Sk, causal=causal, window=window,
+                        n_sink=n_sink)
+
+
+def bwd_tile_needs_mask(q0: int, k0: int, Sq: int, Sk: int, *, causal: bool,
+                        window: int = 0, n_sink: int = 0) -> bool:
+    """The kernels' ``tile_needs_mask``: False only when every pair of the
+    tile [q0, q0+BWD_TILE) x [k0, k0+BWD_TILE) is visible."""
+    t = BWD_TILE
+    if q0 + t > Sq or k0 + t > Sk:
         return True
-    if k0 >= q0 + block_q:
+    if not causal:
         return False
-    return window == 0 or k0 < n_sink or k0 + block_k > q0 - window + 1
+    if k0 + t - 1 > q0:
+        return True
+    return window > 0 and k0 <= q0 + t - 1 - window and k0 + t > n_sink
+
+
+def bwd_key_tile_rows(j: int, Sq: int, Sk: int, *, causal: bool, window: int = 0,
+                      n_sink: int = 0) -> tuple:
+    """(q_lo, n_qt): the BWD_TILE-row query tiles q_lo, q_lo + BWD_TILE, ...
+    that can see key tile j (``key_tile_rows`` in the kernel)."""
+    k0 = j * BWD_TILE
+    if k0 >= Sk:
+        return 0, 0
+    lo, hi = 0, Sq
+    if causal:
+        lo = k0
+        if window > 0 and k0 >= n_sink:
+            hi = min(Sq, min(Sk, k0 + BWD_TILE) - 1 + window)
+    return lo, (-(-(hi - lo) // BWD_TILE) if hi > lo else 0)
+
+
+class BwdItem(NamedTuple):
+    """One dK/dV block: key tile j, units [u0, u1) of its G·n_qt (unit u is
+    head u // n_qt, query tile q_lo + (u % n_qt)·BWD_TILE), partial slot."""
+    j: int
+    q_lo: int
+    n_qt: int
+    u0: int
+    u1: int
+    slot: int
+
+
+def bwd_split_plan(Sq: int, Sk: int, G: int, *, causal: bool, window: int = 0,
+                   n_sink: int = 0) -> list:
+    """The dK/dV blocks of one (b, kv head), in block order (``find_item``
+    in the kernel): each key tile's units in ceil(units / BWD_SPLIT_UNITS)
+    equal splits."""
+    if not causal:
+        window = n_sink = 0
+    items = []
+    for j in range(-(-Sk // BWD_TILE)):
+        q_lo, n_qt = bwd_key_tile_rows(j, Sq, Sk, causal=causal, window=window,
+                                       n_sink=n_sink)
+        units = G * n_qt
+        ns = -(-units // BWD_SPLIT_UNITS)
+        for s in range(ns):
+            chunk = -(-units // ns)
+            items.append(BwdItem(j, q_lo, n_qt, s * chunk, min(units, (s + 1) * chunk),
+                                 len(items)))
+    return items
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
 
 
 def flash_mha_bwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
-                        window: int = 0, n_sink: int = 0):
-    """The backward kernel's three launches in plain torch, f32 math:
-    (dq, dk, dv) in the dtypes of q and k, from the forward's inputs, its
-    output ``o`` and ``dout``."""
+                        window: int = 0, n_sink: int = 0, lse: torch.Tensor | None = None,
+                        tensor_cores: bool = False):
+    """The backward kernels in plain torch, f32 math: (dq, dk, dv) in the
+    dtypes of q and k, from the forward's inputs, its output ``o``, its L
+    (``lse`` [B, H, Sq], exp2 domain; by default from ``flash_mha_tiled``)
+    and ``dout``. ``tensor_cores``: P and dS rounded to bf16 before the
+    products they enter, as in the wgmma kernels."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     if not causal:
         window = n_sink = 0
-    scale = 1.0 / math.sqrt(hd)
-    dev = q.device
-    qf, of, df = (t.float().permute(0, 2, 1, 3) for t in (q, o, dout))   # [B,H,Sq,hd]
-    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))             # [B,KV,Sk,hd]
-    kh = kf.repeat_interleave(G, 1)                                       # [B,H,Sk,hd]
-    vh = vf.repeat_interleave(G, 1)
     mask = dict(causal=causal, window=window, n_sink=n_sink)
+    if lse is None:
+        _, lse = flash_mha_tiled(q, k, v, return_lse=True, **mask)
+    scale = 1.0 / math.sqrt(hd)
+    sl2 = scale * math.log2(math.e)
+    t = BWD_TILE
+    dev = q.device
+    rnd = _bf16 if tensor_cores else (lambda x: x)
+    sq_pad, sk_pad = lse_rows(Sq), -(-Sk // t) * t
 
-    # (a) L and D per query row
-    lse = torch.empty(B, H, Sq, device=dev)
-    delta = (df * of).sum(-1)
-    for q0 in range(0, Sq, BWD_ROWS):
-        q1 = min(q0 + BWD_ROWS, Sq)
-        rows = torch.arange(q0, q1, device=dev)[:, None]
-        m = torch.full((B, H, q1 - q0), NEG, device=dev)
-        l = torch.zeros_like(m)
-        k_end = min(Sk, q0 + BWD_ROWS) if causal else Sk
-        for k0 in range(0, k_end, BWD_KEYS):
-            if not bwd_key_tile_visited(k0, q0, **mask):
-                continue
-            k1 = min(k0 + BWD_KEYS, Sk)
-            cols = torch.arange(k0, k1, device=dev)[None, :]
-            s = (qf[:, :, q0:q1] @ kh[:, :, k0:k1].transpose(-1, -2)) * scale
-            s = s.masked_fill(~visible(rows, cols, Sk, **mask), NEG)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.where(s <= NEG / 2, torch.zeros((), device=dev),
-                            torch.exp(s - m_new[..., None]))
-            l = l * torch.exp(m - m_new) + p.sum(-1)
-            m = m_new
-        lse[:, :, q0:q1] = torch.where(l > 0, m + torch.log(l),
-                                       torch.full_like(l, float("inf")))
+    def rows_of(x, pad):            # [B,S,heads,hd] -> [B,heads,S_pad,hd] f32
+        x = x.float().permute(0, 2, 1, 3)
+        return F.pad(x, (0, 0, 0, pad - x.shape[2]))
 
-    def probs(s_raw, L, rows, cols):
-        seen = visible(rows, cols, Sk, **mask) & (rows < Sq)
-        return torch.where(seen, torch.exp(s_raw * scale - L), torch.zeros((), device=dev))
+    qf, of, df = (rows_of(x, sq_pad) for x in (q, o, dout))              # [B,H,Sq_pad,hd]
+    kf, vf = (rows_of(x, sk_pad) for x in (k, v))                        # [B,KV,Sk_pad,hd]
+    L = F.pad(lse.float(), (0, sq_pad - Sq))                             # [B,H,Sq_pad]
+    D = (df * of).sum(-1)                                                # 0 past Sq
 
-    # (b) dK, dV per key tile and kv head, over the G query heads in order
-    dk = torch.zeros(B, KV, Sk, hd, device=dev)
+    def probs(s, Lr, Dr, dp, rows, cols):
+        p = torch.where(visible(rows, cols, Sk, **mask) & (rows < Sq),
+                        torch.exp2(s * sl2 - Lr), torch.zeros((), device=dev))
+        return p, p * (dp - Dr)
+
+    # dK, dV: one partial per item, a key tile's partials added in split order
+    dk = torch.zeros(B, KV, sk_pad, hd, device=dev)
     dv = torch.zeros_like(dk)
-    qg, dg = qf.unflatten(1, (KV, G)), df.unflatten(1, (KV, G))
-    lg, ddg = lse.unflatten(1, (KV, G)), delta.unflatten(1, (KV, G))
-    for k0 in range(0, Sk, BWD_KEY_ROWS):
-        k1 = min(k0 + BWD_KEY_ROWS, Sk)
-        cols = torch.arange(k0, k1, device=dev)[:, None]               # [keys, 1]
-        q_lo, q_hi = 0, Sq
-        if causal:
-            q_lo = k0
-            if window > 0 and k0 >= n_sink:
-                q_hi = min(Sq, k1 - 1 + window)
-        for g in range(G):
-            for q0 in range(q_lo, q_hi, BWD_Q_TILE):
-                q1 = min(q0 + BWD_Q_TILE, Sq)
-                rows = torch.arange(q0, q1, device=dev)[None, :]       # [1, rows]
-                qt, dt = qg[:, :, g, q0:q1], dg[:, :, g, q0:q1]       # [B,KV,rows,hd]
-                s = kf[:, :, k0:k1] @ qt.transpose(-1, -2)             # [B,KV,keys,rows]
-                p = probs(s, lg[:, :, g, None, q0:q1], rows, cols)
-                dp = vf[:, :, k0:k1] @ dt.transpose(-1, -2)
-                ds = p * (dp - ddg[:, :, g, None, q0:q1])
-                dv[:, :, k0:k1] += p @ dt
-                dk[:, :, k0:k1] += ds @ qt
-    dk = dk * scale
+    qg, dg = qf.unflatten(1, (KV, G)), df.unflatten(1, (KV, G))          # [B,KV,G,S,hd]
+    Lg, Dg = L.unflatten(1, (KV, G)), D.unflatten(1, (KV, G))
+    for it in bwd_split_plan(Sq, Sk, G, **mask):
+        k0 = it.j * t
+        kt, vt = kf[:, :, k0:k0 + t], vf[:, :, k0:k0 + t]
+        cols = torch.arange(k0, k0 + t, device=dev)[:, None]             # keys down
+        pk = torch.zeros(B, KV, t, hd, device=dev)
+        pv = torch.zeros_like(pk)
+        for u in range(it.u0, it.u1):
+            g, q0 = u // it.n_qt, it.q_lo + (u % it.n_qt) * t
+            rows = torch.arange(q0, q0 + t, device=dev)[None, :]         # rows across
+            qt, dt = qg[:, :, g, q0:q0 + t], dg[:, :, g, q0:q0 + t]      # [B,KV,t,hd]
+            s = kt @ qt.transpose(-1, -2)                                # S^T [B,KV,keys,rows]
+            dp = vt @ dt.transpose(-1, -2)
+            p, ds = probs(s, Lg[:, :, g, None, q0:q0 + t], Dg[:, :, g, None, q0:q0 + t],
+                          dp, rows, cols)
+            pv += rnd(p) @ dt
+            pk += rnd(ds) @ qt
+        dk[:, :, k0:k0 + t] += pk
+        dv[:, :, k0:k0 + t] += pv
+    dk = dk[:, :, :Sk] * scale
+    dv = dv[:, :, :Sk]
 
-    # (c) dQ per query tile, over the visited key tiles
-    dq = torch.zeros(B, H, Sq, hd, device=dev)
-    for q0 in range(0, Sq, BWD_ROWS):
-        q1 = min(q0 + BWD_ROWS, Sq)
-        rows = torch.arange(q0, q1, device=dev)[:, None]
-        k_end = min(Sk, q0 + BWD_ROWS) if causal else Sk
-        for k0 in range(0, k_end, BWD_KEYS):
-            if not bwd_key_tile_visited(k0, q0, **mask):
+    # dQ per query tile over the visited key tiles
+    kh, vh = kf.repeat_interleave(G, 1), vf.repeat_interleave(G, 1)     # [B,H,Sk_pad,hd]
+    dq = torch.zeros(B, H, sq_pad, hd, device=dev)
+    for q0 in range(0, Sq, t):
+        rows = torch.arange(q0, q0 + t, device=dev)[:, None]
+        k_end = min(Sk, q0 + t) if causal else Sk
+        for k0 in range(0, k_end, t):
+            if not bwd_key_tile_visited(k0, q0, Sk, **mask):
                 continue
-            k1 = min(k0 + BWD_KEYS, Sk)
-            cols = torch.arange(k0, k1, device=dev)[None, :]
-            s = qf[:, :, q0:q1] @ kh[:, :, k0:k1].transpose(-1, -2)
-            p = probs(s, lse[:, :, q0:q1, None], rows, cols)
-            dp = df[:, :, q0:q1] @ vh[:, :, k0:k1].transpose(-1, -2)
-            dq[:, :, q0:q1] += (p * (dp - delta[:, :, q0:q1, None])) @ kh[:, :, k0:k1]
-    dq = dq * scale
+            cols = torch.arange(k0, k0 + t, device=dev)[None, :]
+            kt, vt = kh[:, :, k0:k0 + t], vh[:, :, k0:k0 + t]
+            s = qf[:, :, q0:q0 + t] @ kt.transpose(-1, -2)
+            dp = df[:, :, q0:q0 + t] @ vt.transpose(-1, -2)
+            _, ds = probs(s, L[:, :, q0:q0 + t, None], D[:, :, q0:q0 + t, None], dp, rows,
+                          cols)
+            dq[:, :, q0:q0 + t] += rnd(ds) @ kt
+    dq = dq[:, :, :Sq] * scale
     return (dq.permute(0, 2, 1, 3).to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
             dv.permute(0, 2, 1, 3).to(v.dtype))

@@ -8,9 +8,12 @@ many rows under 4 KiB (bf16 prefill, qk-norm heads), persistent blocks
 streaming wider rows through shared memory by bulk copy (f32 prefill), and
 element loads where 16-byte loads are ruled out.
 
-``rmsnorm_bwd_cuda`` binds the backward (``csrc/rmsnorm_bwd.cu``): dx with
-one warp a row, and dw summed without atomics, as ``[blocks, d]`` f32
-partial rows added in a fixed order by a second launch.
+``rmsnorm_bwd_cuda`` binds the backward (``csrc/rmsnorm_bwd.cu``): one pass
+over each row held in registers (16-byte loads, ``tpr`` lanes a row, w and
+the dw sums in registers; the scalar variant where 16-byte loads are ruled
+out), dw summed without atomics as ``[blocks, d]`` f32 partial rows added
+in a fixed order by a second launch. ``bwd_kernel_plan`` is the C plan
+(twin ``ref.py::rmsnorm_bwd_plan``).
 """
 from __future__ import annotations
 
@@ -19,14 +22,17 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import RmsnormPlan
+from .ref import RmsnormBwdPlan, RmsnormPlan
 
 __all__ = ["rmsnorm_cuda", "rmsnorm_variant_cuda", "rmsnorm_bwd_cuda", "bwd_blocks",
-           "kernel_plan", "kernel_attrs"]
+           "kernel_plan", "kernel_attrs", "bwd_kernel_plan", "bwd_kernel_attrs"]
 
-# blocks of the backward's rows launch per SM (each writes one partial row
-# of dw)
-BWD_BLOCKS_PER_SM = 2
+# blocks of the backward's rows launch per SM, at most (each writes one
+# partial row of dw; the plan takes fewer when fewer rows fill them). One:
+# the vector instances hold 176-255 registers a thread, so one 256-thread
+# block an SM is resident, and a second wave only adds partial rows
+# (chip_smoke.py phase 7 times both counts)
+BWD_BLOCKS_PER_SM = 1
 _n_sm = {}          # device index -> SM count
 
 _launch = None      # the C entry point, bound at the first launch
@@ -90,7 +96,7 @@ def kernel_attrs(plan: RmsnormPlan, dtype: torch.dtype) -> dict:
 
 
 def bwd_blocks(rows: int, device_index: int) -> int:
-    """Blocks of the backward's rows launch: min(rows, 2 x SMs); the dw
+    """Most blocks of the backward's rows launch: min(rows, SMs); the dw
     partial buffer has one row per block."""
     n_sm = _n_sm.get(device_index)
     if n_sm is None:
@@ -100,15 +106,38 @@ def bwd_blocks(rows: int, device_index: int) -> int:
 
 
 def rmsnorm_bwd_cuda(x2: torch.Tensor, w: torch.Tensor, g2: torch.Tensor, dx: torch.Tensor,
-                     dw: torch.Tensor, rows: int, d: int, eps: float, dtype_code: int) -> None:
+                     dw: torch.Tensor, rows: int, d: int, eps: float, dtype_code: int,
+                     blocks: int | None = None) -> None:
     """Launch the backward on ``x2``, ``g2`` (``rows * d`` contiguous
     elements) into ``dx`` and ``dw``; the caller has checked device, dtype,
-    shape and contiguity. The dw partial rows are allocated here."""
+    shape and contiguity. The dw partial rows are allocated here, ``blocks``
+    of them (default ``bwd_blocks``; a smaller cap is for timing only)."""
     dev = x2.get_device()
-    blocks = bwd_blocks(rows, dev)
+    if blocks is None:
+        blocks = bwd_blocks(rows, dev)
     part = torch.empty((blocks, d), dtype=torch.float32, device=x2.device)
     err = _build.load().repro_rmsnorm_bwd(
         x2.data_ptr(), w.data_ptr(), g2.data_ptr(), dx.data_ptr(), dw.data_ptr(),
         part.data_ptr(), rows, d, blocks, eps, dtype_code,
         torch._C._cuda_getCurrentRawStream(dev))
     _build.check("repro_rmsnorm_bwd", err)
+
+
+def bwd_kernel_plan(rows: int, d: int, dtype: torch.dtype, aligned: bool,
+                    blocks: int) -> RmsnormBwdPlan:
+    """The backward's plan on the C side (``repro_rmsnorm_bwd_plan``)."""
+    out = (ctypes.c_int * 6)()
+    _build.check("repro_rmsnorm_bwd_plan", _build.load().repro_rmsnorm_bwd_plan(
+        rows, d, _build.DTYPE_CODES[dtype], int(aligned), blocks, out))
+    return RmsnormBwdPlan(*out)
+
+
+def bwd_kernel_attrs(plan: RmsnormBwdPlan, dtype: torch.dtype) -> dict:
+    """Registers and spill bytes per thread of the rows kernel ``plan``
+    launches, and its shared memory per block (static plus the plan's)."""
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _build.check("repro_rmsnorm_bwd_attrs", _build.load().repro_rmsnorm_bwd_attrs(
+        plan.variant, plan.vpt, _build.DTYPE_CODES[dtype], ctypes.byref(regs),
+        ctypes.byref(local), ctypes.byref(smem)))
+    return {"registers": regs.value, "spill_bytes": local.value,
+            "smem_bytes": smem.value + plan.smem}

@@ -12,6 +12,13 @@ Beside it, the CPU twins of the CUDA kernel (``csrc/rmsnorm.cu``):
   to under a plan, walking the kernel's own loops (tests only).
 * ``rmsnorm_tiled`` — the kernel's partition of each row and its order of
   reduction, emulated in f32 (tests only).
+
+and of the backward kernel (``csrc/rmsnorm_bwd.cu``):
+
+* ``rmsnorm_bwd_plan`` — its plan (``repro_rmsnorm_bwd_plan`` on the C side);
+* ``rmsnorm_bwd_tiled`` — its lanes, rows and orders of summation (each
+  row's two sums, dw over the rows of a lane group, then the groups, warps
+  and blocks in order), emulated in f32 (tests only).
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import torch.nn.functional as F
 
 __all__ = ["rmsnorm_ref", "rmsnorm_bwd_ref", "RmsnormPlan", "rmsnorm_plan", "plan_coverage",
            "rmsnorm_tiled", "SCALAR", "LATENCY", "ROWS", "STREAM", "VARIANTS",
-           "SMEM_LIMIT", "MAX_THREADS"]
+           "SMEM_LIMIT", "MAX_THREADS", "RmsnormBwdPlan", "rmsnorm_bwd_plan",
+           "rmsnorm_bwd_tiled", "BWD_SCALAR", "BWD_VECTOR", "BWD_VARIANTS"]
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -196,3 +204,130 @@ def rmsnorm_tiled(x: torch.Tensor, w: torch.Tensor, eps: float,
         total = total + ss[:, k, 0]
     r = torch.rsqrt(total / d + eps)
     return (xf * r[:, None] * w.float()).to(x.dtype).reshape(x.shape)
+
+
+# -- the backward's plan (constants as in csrc/rmsnorm_bwd.cu) -----------------
+
+BWD_SCALAR, BWD_VECTOR = 0, 1
+BWD_VARIANTS = ("scalar", "vector")
+BWD_THREADS = 256                  # vector: eight warps a block
+BWD_MAX_VECS = {4: 12, 2: 6}       # vector: 16-byte vectors of x per lane and row (48 values)
+BWD_SCALAR_SMEM = 96 * 1024        # scalar: the warps' [d] f32 dw accumulators
+BWD_SCALAR_MAX_WARPS = 8
+BWD_DW_SLICES = 8                  # the dw launch: slices of the partial rows, each in order
+
+
+class RmsnormBwdPlan(NamedTuple):
+    variant: int     # BWD_SCALAR or BWD_VECTOR
+    tpr: int         # lanes that share one row
+    vec: int         # elements a load (16 bytes; 1 in the scalar variant)
+    vpt: int         # loads of a row per lane, at most
+    blocks: int      # blocks of the rows launch = partial rows of dw
+    smem: int        # dynamic shared memory per block, bytes
+
+
+def rmsnorm_bwd_plan(rows: int, d: int, dtype: torch.dtype, aligned: bool,
+                     blocks: int) -> RmsnormBwdPlan:
+    """The backward's variant and launch shape for x ``[rows, d]``, given at
+    most ``blocks`` blocks (the wrapper's min(rows, SMs)).
+
+    * vector — x, g, dx and w 16-byte aligned, d a multiple of the vector:
+      ``tpr`` lanes a row (the fewest powers of two that keep each lane at
+      most ``BWD_MAX_VECS`` vectors), ``BWD_THREADS // tpr`` rows a block at
+      a time, one pass;
+    * scalar — otherwise: one warp a row, as many warps as the [d] f32
+      accumulators fit in ``BWD_SCALAR_SMEM``.
+    """
+    esize = dtype.itemsize
+    vec = 16 // esize
+    if not aligned or d % vec:
+        warps = max(1, min(BWD_SCALAR_MAX_WARPS, BWD_SCALAR_SMEM // (d * 4)))
+        return RmsnormBwdPlan(BWD_SCALAR, 32, 1, _cdiv(d, 32), min(blocks, rows), warps * d * 4)
+    nvec = d // vec
+    tpr = 1
+    while _cdiv(nvec, tpr) > BWD_MAX_VECS[esize]:
+        tpr *= 2
+    need = _cdiv(rows, BWD_THREADS // tpr)
+    return RmsnormBwdPlan(BWD_VECTOR, tpr, vec, _cdiv(nvec, tpr), min(blocks, need), d * 4)
+
+
+def _butterfly(v: torch.Tensor, width: int) -> torch.Tensor:
+    """An xor butterfly over the last dim (``width`` lanes, offsets
+    width/2 .. 1): every lane ends with the same tree sum."""
+    off = width // 2
+    while off:
+        v = v + v[..., torch.arange(width) ^ off]
+        off //= 2
+    return v
+
+
+def rmsnorm_bwd_tiled(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, eps: float,
+                      plan: RmsnormBwdPlan):
+    """(dx, dw) as the backward kernel sums them, in f32: lane l of a row
+    sums its elements (vectors l, l + tpr, ... in order, elements in order),
+    an xor butterfly closes the sums over the row's lanes of a warp, and a
+    row spanning warps adds them in warp order. dw: each lane adds g·x·r of
+    its columns over its group's rows in order; the groups of a warp meet by
+    an xor butterfly, then the warps (the groups, when a row spans warps) in
+    order; the blocks' partial rows are added in ``BWD_DW_SLICES`` slices of
+    consecutive blocks, each in order, then the slices in order."""
+    d = x.shape[-1]
+    xf, gf = x.reshape(-1, d).float(), g.reshape(-1, d).float()
+    wf = w.float()
+    rows = xf.shape[0]
+    tpr, vec, vpt = plan.tpr, plan.vec, plan.vpt
+    n_groups = (BWD_THREADS // tpr if plan.variant == BWD_VECTOR
+                else plan.smem // (4 * d))
+    width = min(tpr, 32)
+    span = max(1, tpr // 32)
+    pad = vpt * tpr * vec - d
+
+    def lanes(t):                   # [n, d] -> [n, vpt, tpr, vec]: lane l, its i-th run
+        return F.pad(t, (0, pad)).view(t.shape[0], vpt, tpr, vec)
+
+    xl, gl, wl = lanes(xf), lanes(gf), lanes(wf[None])
+    ss = torch.zeros(rows, tpr)
+    sgwx = torch.zeros(rows, tpr)
+    for i in range(vpt):
+        for e in range(vec):
+            xv = xl[:, i, :, e]
+            ss = ss + xv * xv
+            sgwx = sgwx + gl[:, i, :, e] * wl[:, i, :, e] * xv
+
+    def close(v):
+        v = _butterfly(v.view(rows, span, width), width)[..., 0]
+        total = torch.zeros(rows)
+        for k in range(span):
+            total = total + v[:, k]
+        return total
+
+    inv_d = 1.0 / d
+    r = torch.rsqrt(close(ss) * inv_d + eps)
+    coef = r * r * r * (close(sgwx) * inv_d)
+    dx = r[:, None] * (gf * wf) - xf * coef[:, None]
+    contrib = gf * xf * r[:, None]
+
+    per = _cdiv(rows, plan.blocks)
+    parts = []
+    for b in range(plan.blocks):
+        r0, r1 = b * per, min(rows, (b + 1) * per)
+        acc = torch.zeros(n_groups, d)
+        for step in range(_cdiv(max(r1 - r0, 0), n_groups)):
+            idx = r0 + step * n_groups + torch.arange(n_groups)
+            ok = idx < r1
+            acc[ok] = acc[ok] + contrib[idx[ok]]
+        if tpr < 32:                # the groups of a warp: butterfly over the group bits
+            gpw = 32 // tpr
+            acc = _butterfly(acc.view(-1, gpw, d).transpose(1, 2), gpw)[..., 0]
+        part = torch.zeros(d)       # warps (whole rows) or groups (rows spanning warps)
+        for k in range(acc.shape[0]):
+            part = part + acc[k]
+        parts.append(part)
+    dw = torch.zeros(d)
+    per_slice = _cdiv(plan.blocks, BWD_DW_SLICES)
+    for k in range(BWD_DW_SLICES):
+        sl = torch.zeros(d)
+        for part in parts[k * per_slice:(k + 1) * per_slice]:
+            sl = sl + part
+        dw = dw + sl
+    return dx.to(x.dtype).reshape(x.shape), dw.to(w.dtype)

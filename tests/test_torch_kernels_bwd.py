@@ -8,18 +8,26 @@ gradient:
 * rmsnorm — the plain version's autograd (``rmsnorm_bwd_ref``, the
   wrapper's CPU path) against ``repro/kernels/rmsnorm/ref.py::rmsnorm_ref``,
   f32 1e-5;
+* rmsnorm — the emulation of the backward kernel's lanes and orders of
+  summation (``rmsnorm_bwd_tiled``), under each kind of plan, against the
+  same, f32 1e-5;
 * flash attention — the plain version's autograd (``flash_mha_bwd_ref``)
-  and the emulation of the backward kernel's three launches
-  (``flash_mha_bwd_tiled``) against ``repro/kernels/flash_attention/ref.py::
-  attention_ref`` (GQA, ragged S, hd 16 and 32) and, under a window with
-  sinks, ``repro/models/attention.py::attention``; f32 1e-4. Sq = Sk, where
-  the kernel's top-left causal mask and the oracle's bottom-right one agree
-  (ROADMAP §3).
+  and the emulation of the backward kernels (``flash_mha_bwd_tiled``: L
+  from the forward's tile loop, the balanced dK/dV splits and their ordered
+  sum, dQ) against ``repro/kernels/flash_attention/ref.py::attention_ref``
+  (GQA, ragged S, hd 16 and 32) and, under a window with sinks,
+  ``repro/models/attention.py::attention``; f32 1e-4. With
+  ``tensor_cores`` (P and dS rounded to bf16, as the wgmma kernels feed
+  them) within 2e-2 of each gradient's max, the rule the card holds the
+  bf16 kernel to. Sq = Sk, where the kernel's top-left causal mask and the
+  oracle's bottom-right one agree (ROADMAP §3). The tile predicates and the
+  split plan are checked against the mask itself.
 
 The kernels themselves against these plain versions run on the card
 (``test_torch_kernels_cuda.py``, ``chip_smoke.py``).
 """
 import itertools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -31,15 +39,20 @@ from _torch_common import randn
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rmsnorm_ref
 from repro.models.attention import attention as jax_attention
-from repro_torch.kernels.flash_attention.kernel import BWD_KEYS, BWD_ROWS
+from repro_torch.kernels.flash_attention.kernel import BWD_SPLIT_UNITS, BWD_TILE
 from repro_torch.kernels.flash_attention.ops import flash_mha
-from repro_torch.kernels.flash_attention.ref import (bwd_key_tile_visited, flash_mha_bwd_ref,
-                                                     flash_mha_bwd_tiled, flash_mha_ref,
-                                                     visible)
+from repro_torch.kernels.flash_attention.ref import (bwd_key_tile_rows, bwd_key_tile_visited,
+                                                     bwd_split_plan, bwd_tile_needs_mask,
+                                                     flash_mha_bwd_ref, flash_mha_bwd_tiled,
+                                                     flash_mha_ref, flash_mha_tiled, visible)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+from repro_torch.kernels.rmsnorm.ref import (BWD_SCALAR, BWD_VECTOR, rmsnorm_bwd_plan,
+                                             rmsnorm_bwd_ref, rmsnorm_bwd_tiled)
 
 RMS_TOL, FLASH_TOL = 1e-5, 1e-4
+# the bf16 rule of the card (chip_smoke.py BWD_FLASH_BF16): max |got - want|
+# within this share of max |want| for each gradient
+FLASH_BF16_SHARE = 2e-2
 
 
 def _close(got, want, tol):
@@ -91,11 +104,15 @@ def _jax_grads_oracle(q, k, v, do, causal):
 
 def _check(q, k, v, do, want, **mask):
     qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    o = flash_mha_ref(qt, kt, vt, **mask)
     for got in (flash_mha_bwd_ref(qt, kt, vt, dot, **mask),
-                flash_mha_bwd_tiled(qt, kt, vt, flash_mha_ref(qt, kt, vt, **mask), dot,
-                                    **mask)):
+                flash_mha_bwd_tiled(qt, kt, vt, o, dot, **mask)):
         for g, w in zip(got, want):
             _close(g, w, FLASH_TOL)
+    # the tensor-core twin: P and dS in bf16 before their products
+    for g, w in zip(flash_mha_bwd_tiled(qt, kt, vt, o, dot, tensor_cores=True, **mask), want):
+        w = np.asarray(w)
+        assert float(np.abs(g.numpy() - w).max()) <= FLASH_BF16_SHARE * float(np.abs(w).max())
 
 
 @pytest.mark.parametrize("B,S,H,KV,hd", [
@@ -122,6 +139,19 @@ def test_flash_backward_window_sinks_matches_jax_grad(S, window, n_sink, hd):
     _check(q, k, v, do, vjp(jnp.asarray(do)), causal=True, window=window, n_sink=n_sink)
 
 
+@pytest.mark.parametrize("Sq,Sk,causal", [(100, 230, True), (230, 100, True), (77, 150, False)])
+def test_flash_backward_tiled_sq_ne_sk_matches_autograd(Sq, Sk, causal):
+    """Sq != Sk both ways under the top-left mask, where the JAX oracle's
+    bottom-right mask disagrees (ROADMAP §3): the emulation against the
+    plain version's autograd, f32."""
+    q, k, v, do = (torch.from_numpy(randn(60 + i, shape)) for i, shape in enumerate(
+        ((2, Sq, 4, 16), (2, Sk, 2, 16), (2, Sk, 2, 16), (2, Sq, 4, 16))))
+    o = flash_mha_ref(q, k, v, causal=causal)
+    for got, want in zip(flash_mha_bwd_tiled(q, k, v, o, do, causal=causal),
+                         flash_mha_bwd_ref(q, k, v, do, causal=causal)):
+        torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+
+
 def test_flash_wrapper_cpu_path_differentiates_the_plain_version():
     q, k, v, do = (torch.from_numpy(a) for a in _flash_inputs(1, 40, 4, 2, 16, seed=30))
     want = flash_mha_bwd_ref(q, k, v, do)
@@ -135,16 +165,110 @@ def test_flash_wrapper_cpu_path_differentiates_the_plain_version():
         torch.testing.assert_close(t.grad, w, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("causal,window,n_sink", [(True, 0, 0), (True, 40, 7),
-                                                   (True, 100, 0), (False, 0, 0)])
+_MASKS = [(True, 0, 0), (True, 40, 7), (True, 100, 0), (False, 0, 0), (True, 5, 0),
+          (True, 64, 64)]
+
+
+def _vis(Sq, Sk, causal, window, n_sink):
+    return visible(torch.arange(Sq)[:, None], torch.arange(Sk)[None, :], Sk, causal=causal,
+                   window=window, n_sink=n_sink).expand(Sq, Sk)
+
+
+@pytest.mark.parametrize("causal,window,n_sink", _MASKS)
 def test_backward_tile_skip_drops_only_masked_tiles(causal, window, n_sink):
-    """Every key tile the backward kernel skips (pre-pass and dQ) holds no
-    visible pair for any row of its query tile, at every tile position."""
-    Sk = 300
-    for q0, k0 in itertools.product(range(0, 320, BWD_ROWS), range(0, Sk, BWD_KEYS)):
-        if bwd_key_tile_visited(k0, q0, causal=causal, window=window, n_sink=n_sink):
-            continue
-        rows = torch.arange(q0, q0 + BWD_ROWS)[:, None]
-        cols = torch.arange(k0, min(k0 + BWD_KEYS, Sk))[None, :]
-        assert not visible(rows, cols, Sk, causal=causal, window=window,
-                           n_sink=n_sink).any(), (q0, k0)
+    """At every tile position of the backward's BWD_TILE grid: every key
+    tile the dQ kernels skip holds no visible pair for its query tile, and
+    every tile ``bwd_tile_needs_mask`` lets through unmasked is all visible."""
+    Sq, Sk = 320, 300
+    kw = dict(causal=causal, window=window, n_sink=n_sink)
+    vis = _vis(Sq, Sk, causal, window if causal else 0, n_sink if causal else 0)
+    for q0, k0 in itertools.product(range(0, Sq, BWD_TILE), range(0, Sk, BWD_TILE)):
+        tile = vis[q0:q0 + BWD_TILE, k0:k0 + BWD_TILE]
+        if not bwd_key_tile_visited(k0, q0, Sk, **kw):
+            assert not tile.any(), (q0, k0)
+        if not bwd_tile_needs_mask(q0, k0, Sq, Sk, **kw):
+            assert tile.shape == (BWD_TILE, BWD_TILE) and tile.all(), (q0, k0)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(320, 300), (300, 320), (1024, 1024), (40, 40), (65, 1)])
+@pytest.mark.parametrize("causal,window,n_sink", _MASKS)
+@pytest.mark.parametrize("G", [1, 6])
+def test_backward_split_plan_covers_each_visible_pair_once(Sq, Sk, causal, window, n_sink, G):
+    """The dK/dV plan: each key tile's rows [q_lo, q_lo + n_qt·BWD_TILE)
+    hold every row that sees one of its keys; its items partition its G·n_qt
+    units in order, none above BWD_SPLIT_UNITS; slots run 0, 1, ..."""
+    kw = dict(causal=causal, window=window, n_sink=n_sink)
+    vis = _vis(Sq, Sk, causal, window if causal else 0, n_sink if causal else 0)
+    plan = bwd_split_plan(Sq, Sk, G, **kw)
+    assert [it.slot for it in plan] == list(range(len(plan)))
+    for j in range(-(-Sk // BWD_TILE)):
+        q_lo, n_qt = bwd_key_tile_rows(j, Sq, Sk, **kw)
+        seen = vis[:, j * BWD_TILE:(j + 1) * BWD_TILE].any(1)
+        inside = torch.zeros(Sq, dtype=torch.bool)
+        inside[q_lo:q_lo + n_qt * BWD_TILE] = True
+        assert not (seen & ~inside).any(), j
+        units = [u for it in plan if it.j == j for u in range(it.u0, it.u1)]
+        assert units == list(range(G * n_qt)), j
+        assert all(it.u1 - it.u0 <= BWD_SPLIT_UNITS and it.n_qt == n_qt and it.q_lo == q_lo
+                   for it in plan if it.j == j)
+
+
+@pytest.mark.parametrize("S,causal,window,n_sink", [(150, True, 0, 0), (130, False, 0, 0),
+                                                    (200, True, 64, 20), (9, True, 0, 0)])
+def test_forward_lse_is_the_row_logsumexp(S, causal, window, n_sink):
+    """L as the forward's tile loop returns it for the backward: the row's
+    logsumexp of the scaled scores in the exp2 domain (torch.logsumexp ·
+    log2(e)), +inf for a row that sees no key."""
+    q, k, v = (torch.from_numpy(randn(40 + i, (2, S, 4, 16))) for i in range(3))
+    _, lse = flash_mha_tiled(q, k, v, causal=causal, window=window, n_sink=n_sink,
+                             return_lse=True)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / 4.0
+    seen = _vis(S, S, causal, window, n_sink)
+    want = torch.logsumexp(s.masked_fill(~seen, float("-inf")), -1) * math.log2(math.e)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+_RMS_PLANS = [   # (rows, d, dtype, aligned): lanes a row below, at and above a warp; scalar
+    (300, 64, torch.float32, True), (96, 1536, torch.float32, True),
+    (96, 1536, torch.bfloat16, True), (40, 2000, torch.float32, True),
+    (20, 8192, torch.bfloat16, True), (37, 100, torch.bfloat16, True),
+    (50, 96, torch.float32, False),
+]
+
+
+@pytest.mark.parametrize("rows,d,dtype,aligned", _RMS_PLANS)
+def test_rmsnorm_backward_tiled_matches_jax_grad(rows, d, dtype, aligned):
+    """The kernel's sum order (``rmsnorm_bwd_tiled`` under the plan the
+    kernel takes, 7 blocks at most so rows split across blocks) against
+    jax.vjp of the reference on the same f32 inputs."""
+    x, w, g = randn(50, (rows, d)), 1 + 0.1 * randn(51, (d,)), randn(52, (rows, d))
+    plan = rmsnorm_bwd_plan(rows, d, dtype, aligned, 7)
+    assert plan.variant == (BWD_VECTOR if aligned and d % (16 // dtype.itemsize) == 0
+                            else BWD_SCALAR)
+    _, vjp = jax.vjp(lambda a, b: jax_rmsnorm_ref(a, b, eps=1e-6), jnp.asarray(x),
+                     jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(g))
+    dx, dw = rmsnorm_bwd_tiled(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(g),
+                               1e-6, plan)
+    _close(dx, jdx, RMS_TOL)
+    _close(dw, jdw, RMS_TOL)
+
+
+def test_library_hash_covers_every_csrc_file(tmp_path, monkeypatch):
+    """The built library's name hashes every file under kernels/csrc, the
+    headers the sources include among them: an edit to a header alone must
+    name another library (a stale build is never loaded)."""
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.csrc_files():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    assert any(p.suffix == ".cuh" for p in csrc.iterdir())
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    before = _build.library_path()
+    header = csrc / "flash_wgmma.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    assert _build.library_path() != before
+    header.write_bytes(header.read_bytes()[:-len(b"\n// edited\n")])
+    assert _build.library_path() == before

@@ -13,20 +13,30 @@ from _torch_common import (RMS_PLAN_GRID, TOL, close, hw_param_matrix, randn,
                            random_task_arrays, require_sm90)
 from repro_torch.core.vectorized import from_tasks, task_tensors
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
+from repro_torch.kernels.flash_attention.kernel import (WGMMA_HEAD_DIMS, bwd_slots,
+                                                        flash_attention_cuda,
+                                                        flash_attention_wgmma_cuda, lse_rows,
+                                                        wgmma_kernel_attrs)
+from repro_torch.kernels.flash_attention.kernel import bwd_kernel_attrs as flash_bwd_attrs
 from repro_torch.kernels.flash_attention.ops import flash_mha
-from repro_torch.kernels.flash_attention.ref import (flash_mha_bwd_ref, flash_mha_bwd_tiled,
-                                                     flash_mha_ref, flash_mha_tiled)
+from repro_torch.kernels.flash_attention.ref import (bwd_split_plan, flash_mha_bwd_ref,
+                                                     flash_mha_bwd_tiled, flash_mha_ref,
+                                                     flash_mha_tiled)
 from repro_torch.kernels.list_schedule import ops as sched_ops
 from repro_torch.kernels.list_schedule.kernel import kernel_plan as sched_kernel_plan
 from repro_torch.kernels.list_schedule.ops import list_schedule
 from repro_torch.kernels.list_schedule.ref import (SMEM_LIMIT, VARIANTS, list_schedule_plan,
                                                    list_schedule_ref)
 from repro_torch.kernels.rmsnorm import ops as rms_ops
-from repro_torch.kernels.rmsnorm.kernel import kernel_attrs, kernel_plan, rmsnorm_variant_cuda
+from repro_torch.kernels.rmsnorm.kernel import (bwd_blocks, bwd_kernel_attrs, bwd_kernel_plan,
+                                                kernel_attrs,
+                                                kernel_plan, rmsnorm_bwd_cuda,
+                                                rmsnorm_variant_cuda)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
-from repro_torch.kernels.rmsnorm.ref import (LATENCY, ROWS, SCALAR, STREAM, rmsnorm_bwd_ref,
-                                             rmsnorm_plan, rmsnorm_ref, rmsnorm_tiled)
+from repro_torch.kernels.rmsnorm.ref import (BWD_SCALAR, BWD_VECTOR, LATENCY, ROWS, SCALAR,
+                                             STREAM, rmsnorm_bwd_plan, rmsnorm_bwd_ref,
+                                             rmsnorm_bwd_tiled, rmsnorm_plan, rmsnorm_ref,
+                                             rmsnorm_tiled)
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -413,10 +423,54 @@ def test_rmsnorm_backward_cuda_vs_plain(shape, dt, monkeypatch):
     close(xr.grad, want[0], tol)
     close(wr.grad, want[1], tol)
     # dw is summed in a fixed order, without atomics: the same bits again
-    first = wr.grad.clone()
-    wr.grad = None
+    first = xr.grad.clone(), wr.grad.clone()
+    xr.grad = wr.grad = None
     rmsnorm(xr, wr, 1e-6).backward(g)
-    assert torch.equal(wr.grad, first)
+    assert torch.equal(xr.grad, first[0]) and torch.equal(wr.grad, first[1])
+
+
+# (rows, d, dtype, element offset of x, g and dx): every backward variant
+# and lane count, the qwen2 train rows, a row spanning two and eight warps
+_RMS_BWD_CASES = [
+    (4096, 1536, "f32", 0), (4096, 1536, "bf16", 0), (49152, 128, "f32", 0),
+    (49152, 128, "bf16", 0), (300, 2000, "f32", 0), (40, 8192, "bf16", 0),
+    (77, 24, "f32", 0), (600, 64, "f32", 1), (33, 100, "bf16", 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,dt,offset", _RMS_BWD_CASES)
+def test_rmsnorm_backward_vs_tiled_emulation(rows, d, dt, offset):
+    """The kernel against its emulation (``rmsnorm_bwd_tiled``: the same
+    lanes, rows and orders of summation) under the C plan, which must be
+    the Python plan."""
+    require_sm90()
+    dtype = _TDT[dt]
+
+    def shifted(a):             # a [rows, d] view starting `offset` elements in
+        flat = torch.from_numpy(a).to("cuda", dtype).flatten()
+        buf = torch.empty(flat.numel() + offset, dtype=dtype, device="cuda")
+        buf[offset:] = flat
+        return buf[offset:].view(rows, d)
+
+    x, g = shifted(randn(3, (rows, d))), shifted(randn(4, (rows, d)))
+    w = (1 + 0.1 * torch.from_numpy(randn(5, (d,)))).to("cuda", dtype)
+    dx = torch.empty(rows * d + offset, dtype=dtype, device="cuda")[offset:].view(rows, d)
+    dw = torch.empty_like(w)
+    blocks = bwd_blocks(rows, 0)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g, dx, w))
+    plan = bwd_kernel_plan(rows, d, dtype, aligned, blocks)
+    assert plan == rmsnorm_bwd_plan(rows, d, dtype, aligned, blocks)
+    assert plan.variant == (BWD_VECTOR if offset == 0 and d % (16 // x.element_size()) == 0
+                            else BWD_SCALAR)
+    rmsnorm_bwd_cuda(x, w, g, dx, dw, rows, d, 1e-6, 0 if dt == "f32" else 1)
+    torch.cuda.synchronize()
+    want = rmsnorm_bwd_tiled(x.cpu(), w.cpu(), g.cpu(), 1e-6, plan)
+    tol = _BWD_TOL[("rmsnorm", dt)]
+    close(dx, want[0], tol)
+    close(dw, want[1], tol)
+    attrs = bwd_kernel_attrs(plan, dtype)
+    assert attrs["registers"] > 0 and attrs["smem_bytes"] >= plan.smem
 
 
 _FLASH_BWD_CASES = [
@@ -429,7 +483,24 @@ _FLASH_BWD_CASES = [
     (2, 40, 4, 2, 16, True, 16, 8),           # hymba reduced
     (1, 700, 25, 5, 64, True, 256, 128),      # window and sinks, skipped tiles
     (2, 300, 4, 2, 64, True, 100, 7),         # ragged window and sinks
+    (1, 1152, 25, 5, 64, True, 1024, 128),    # hymba train heads
 ]
+
+
+def _flash_bwd_launched(q, k, v, do, kw):
+    """Forward and backward through the wrapper; the rise of the counts
+    (launches, wgmma_launches, bwd_launches, wgmma_bwd_launches) must be one
+    forward and one backward, on the tensor cores for bf16 at hd 64/128."""
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    names = ("launches", "wgmma_launches", "bwd_launches", "wgmma_bwd_launches")
+    before = [getattr(flash_mha, n) for n in names]
+    out = flash_mha(qr, kr, vr, **kw)
+    assert out.grad_fn is not None
+    out.backward(do)
+    torch.cuda.synchronize()
+    tc = int(q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS)
+    assert [getattr(flash_mha, n) - b for n, b in zip(names, before)] == [1, tc, 1, tc]
+    return out, (qr.grad, kr.grad, vr.grad)
 
 
 @pytest.mark.gpu
@@ -446,14 +517,8 @@ def test_flash_backward_cuda_vs_plain(B, S, H, KV, hd, causal, window, n_sink, d
     want = flash_mha_bwd_ref(q, k, v, do, **kw)
     want32 = flash_mha_bwd_ref(q.float(), k.float(), v.float(), do.float(), **kw)
     _no_plain(monkeypatch)
-    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
-    before = flash_mha.launches, flash_mha.bwd_launches
-    out = flash_mha(qr, kr, vr, **kw)
-    assert out.grad_fn is not None
-    out.backward(do)
-    torch.cuda.synchronize()
-    assert (flash_mha.launches, flash_mha.bwd_launches) == (before[0] + 1, before[1] + 1)
-    for got, w, w32 in zip((qr.grad, kr.grad, vr.grad), want, want32):
+    out, grads = _flash_bwd_launched(q, k, v, do, kw)
+    for got, w, w32 in zip(grads, want, want32):
         assert got.dtype == w.dtype
         if dt == "f32":
             close(got, w, _BWD_TOL[("flash", dt)])
@@ -461,11 +526,116 @@ def test_flash_backward_cuda_vs_plain(B, S, H, KV, hd, causal, window, n_sink, d
             assert bool(torch.isfinite(got).all())
             err = float((got.float() - w32).abs().max())
             assert err <= _FLASH_BWD_BF16 * float(w32.abs().max()), err
-    if dt == "f32":     # the emulation of the three launches, on the same inputs
-        tol = _BWD_TOL[("flash", dt)]
-        for got, w in zip((qr.grad, kr.grad, vr.grad),
-                          flash_mha_bwd_tiled(q, k, v, out.detach(), do, **kw)):
-            close(got, w, tol)
+    # the emulation of the kernels on the same inputs: f32 up to sum order;
+    # bf16 with P and dS rounded as the kernels round them (tensor_cores on
+    # the tensor-core path), within the bf16 limit of the f32 gradient
+    tc = dt == "bf16" and hd in WGMMA_HEAD_DIMS
+    twin = flash_mha_bwd_tiled(q, k, v, out.detach(), do, tensor_cores=tc, **kw)
+    for got, w in zip(grads, twin):
+        if dt == "f32":
+            close(got, w, _BWD_TOL[("flash", dt)])
+        else:
+            err = float((got.float() - w.float()).abs().max())
+            assert err <= _FLASH_BWD_BF16 * float(w.float().abs().max()), err
+    # no atomics: a second backward on the same inputs gives the same bits
+    _, again = _flash_bwd_launched(q, k, v, do, kw)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,hd,causal", [(200, 500, 128, True), (500, 200, 128, True),
+                                             (77, 300, 64, False), (333, 140, 64, True),
+                                             (130, 60, 32, True)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_backward_sq_ne_sk_cuda_vs_plain(Sq, Sk, hd, causal, dt, monkeypatch):
+    """Sq != Sk both ways (the top-left causal mask), tails of neither tile,
+    keys no row sees (Sk > Sq) and a key tile shorter than a TMA box."""
+    require_sm90()
+    q = torch.from_numpy(randn(20, (2, Sq, 6, hd))).to("cuda", _TDT[dt])
+    k = torch.from_numpy(randn(21, (2, Sk, 2, hd))).to("cuda", _TDT[dt])
+    v = torch.from_numpy(randn(22, (2, Sk, 2, hd))).to("cuda", _TDT[dt])
+    do = torch.from_numpy(randn(23, (2, Sq, 6, hd))).to("cuda", _TDT[dt])
+    kw = dict(causal=causal)
+    want = flash_mha_bwd_ref(q.float(), k.float(), v.float(), do.float(), **kw)
+    _no_plain(monkeypatch)
+    _, grads = _flash_bwd_launched(q, k, v, do, kw)
+    for got, w in zip(grads, want):
+        if dt == "f32":
+            close(got, w, _BWD_TOL[("flash", dt)])
+        else:
+            err = float((got.float() - w).abs().max())
+            assert err <= _FLASH_BWD_BF16 * float(w.abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,n_sink", _FLASH_BWD_CASES[:4]
+                         + _FLASH_BWD_CASES[6:])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_forward_lse_instance(B, S, H, KV, hd, causal, window, n_sink, dt):
+    """The forward instance that stores L writes the serve instance's output
+    bit for bit, and L equal to its tile loop's (exp2 domain) to 1e-4 (bf16:
+    the scores are the same bf16 products, summed in another order)."""
+    require_sm90()
+    q = torch.from_numpy(randn(6, (B, S, H, hd))).to("cuda", _TDT[dt])
+    k = torch.from_numpy(randn(7, (B, S, KV, hd))).to("cuda", _TDT[dt])
+    v = torch.from_numpy(randn(8, (B, S, KV, hd))).to("cuda", _TDT[dt])
+    kw = dict(causal=causal, window=window, n_sink=n_sink)
+    launch = (flash_attention_wgmma_cuda if dt == "bf16" and hd in WGMMA_HEAD_DIMS
+              else flash_attention_cuda)
+    plain, with_l = torch.empty_like(q), torch.empty_like(q)
+    lse = torch.full((B * H, lse_rows(S)), float("nan"), device="cuda")
+    launch(q, k, v, plain, **kw)
+    launch(q, k, v, with_l, lse=lse, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, with_l)
+    _, want = flash_mha_tiled(q, k, v, return_lse=True, **kw)
+    close(lse.view(B, H, -1)[:, :, :S], want, 1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_backward_split_plan_c_is_python():
+    require_sm90()
+    for Sq, Sk, H, KV in ((1024, 1024, 12, 2), (1152, 1152, 25, 5), (300, 517, 4, 1),
+                          (517, 300, 8, 8), (40, 40, 4, 2), (64, 1, 2, 1)):
+        for causal, window, n_sink in ((True, 0, 0), (False, 0, 0), (True, 100, 7),
+                                       (True, 1024, 128), (True, 5, 0)):
+            kw = dict(causal=causal, window=window, n_sink=n_sink)
+            assert bwd_slots(Sq, Sk, H, KV, **kw) == len(bwd_split_plan(Sq, Sk, H // KV,
+                                                                         **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_backward_kernel_attrs(hd, dt):
+    """Registers, spill and shared memory of every backward instance a call
+    launches, and of the forward instances that store L; the tensor-core
+    ones must not spill."""
+    require_sm90()
+    for kernel in ("dq", "dkdv", "delta", "finalize"):
+        a = flash_bwd_attrs(kernel, hd, _TDT[dt])
+        assert a["registers"] > 0
+        if dt == "bf16" and hd in WGMMA_HEAD_DIMS and kernel in ("dq", "dkdv"):
+            assert a["spill_bytes"] == 0 and a["smem_bytes"] > 48 * 1024, a
+    if dt == "bf16" and hd in WGMMA_HEAD_DIMS:
+        for windowed in (False, True):
+            assert (wgmma_kernel_attrs(hd, windowed, lse=True)["spill_bytes"]
+                    == wgmma_kernel_attrs(hd, windowed)["spill_bytes"] == 0)
+
+
+@pytest.mark.gpu
+def test_flash_backward_raises_on_misaligned_bf16():
+    """The tensor-core backward takes 16-byte aligned tensors only; a
+    misaligned dout raises, nothing falls back."""
+    require_sm90()
+    q = torch.randn(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    k = torch.randn(1, 64, 1, 64, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn(1, 64, 1, 64, device="cuda", dtype=torch.bfloat16)
+    out = flash_mha(q, k, v)
+    buf = torch.randn(out.numel() + 1, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        out.backward(buf[1:].view(out.shape))
 
 
 @pytest.mark.gpu
