@@ -42,9 +42,11 @@ each of which fails the run (non-zero exit, no result line):
      row-width limit; and the host us per call of the wrapper and of
      F.rms_norm at [4, 1536] bf16 (1000 calls back to back, wall clock,
      one synchronize). Flash: bf16 at hd 64/128 must run the
-     tensor-core kernel, everything else the scalar one; at the main
-     shapes the instance, its registers and shared memory, the share of
-     its bound and its ratio to SDPA are printed;
+     tensor-core kernel, everything else the CUDA-core (SIMT) one; at the
+     main shapes the instance, its registers, spill and shared memory, the
+     share of its bound and its ratio to SDPA are printed; in f32 each
+     CUDA-core instance (one and two blocks an SM), forced, is timed in
+     turns, beside the previous (scalar) design's time;
   4. model  — each model in f32: prefill + 2 decode steps match forward
      logits (hymba's 1100-token prompt wraps its window ring);
   5. serve  — each model in bf16 through ServeEngine: 8 requests, one
@@ -140,8 +142,10 @@ ROUTES = {"rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu"),
           "rmsnorm_bwd": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu"),
           "flash_attention_bwd": ("cuda",
                                   "src/repro_torch/kernels/csrc/flash_attention_bwd.cu")}
-# f32 flash attention (the train path's dtype) runs the scalar kernel
-SCALAR_FLASH = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# f32 flash attention (the train path's dtype) runs the CUDA-core kernel:
+# register-tiled f32 products (SIMT)
+SIMT_FLASH = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SIMT_DESIGN = "simt register tiles (64 x 64 tiles, 16 x 16 threads, 4 x 4 a thread)"
 # per model: phase-4 batch, prompt and cache; phase-5 prompt range and cache
 PATHS = {
     DENSE: dict(model_B=2, model_S=256, model_smax=512, lo=512, hi=1024, smax=2048,
@@ -639,7 +643,10 @@ def backends_on_the_card(run_campaign, golden):
 def phase_kernels(torch):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import (WGMMA_HEAD_DIMS,
+    from repro_torch.kernels.flash_attention.kernel import (SIMT_BLOCKS_PER_SM,
+                                                            WGMMA_HEAD_DIMS,
+                                                            flash_attention_cuda,
+                                                            flash_kernel_attrs,
                                                             wgmma_kernel_attrs)
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.flash_attention.ref import flash_mha_ref
@@ -774,15 +781,29 @@ def phase_kernels(torch):
                 f"{byts / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP at {peak / 1e12:g} "
                 f"TFLOP/s) | plain {plain:.3f} ms | SDPA{' (bool mask)' if win else ''} "
                 f"{lib:.3f} ms")
-            inst = {}
             if tc:
                 inst = wgmma_kernel_attrs(hd, causal and win > 0)
-            log(f"    instance {'wgmma' if tc else 'scalar'}"
-                + (f" ({inst['registers']} registers/thread at launch, {inst['spill_bytes']} B "
-                   f"spilled, {inst['smem_bytes'] / 1024:.1f} KiB shared/block)"
-                   if tc else "")
-                + f" | kernel/SDPA {ms / lib:.2f}x | {100 * bound / ms:.1f}% of its "
-                f"bound ({ops / ms / 1e9:.1f} TFLOP/s)")
+                log(f"    instance wgmma ({_attrs_str(inst)}) | kernel/SDPA {ms / lib:.2f}x | "
+                    f"{100 * bound / ms:.1f}% of its bound ({ops / ms / 1e9:.1f} TFLOP/s)")
+            else:
+                inst = dict(flash_kernel_attrs(hd, dt), design=SIMT_DESIGN)
+                log(f"    instance {SIMT_DESIGN}, {inst['blocks_per_sm']} blocks an SM "
+                    f"({_attrs_str(inst)}) | kernel/SDPA {ms / lib:.2f}x | "
+                    f"{100 * bound / ms:.1f}% of its bound ({ops / ms / 1e9:.1f} TFLOP/s)")
+                # each instance forced, timed in turns (one SM's worth of blocks
+                # against two), and the previous design's reading
+                out = torch.empty_like(q)
+                for blocks in SIMT_BLOCKS_PER_SM + SIMT_BLOCKS_PER_SM[::-1]:
+                    t = timer(lambda: flash_attention_cuda(q, k, v, out, blocks=blocks, **kw))
+                    log(f"    forced {blocks} block(s) an SM: {t:.3f} ms "
+                        f"({_attrs_str(flash_kernel_attrs(hd, dt, blocks=blocks))})")
+                    inst.setdefault(f"ms_{blocks}_blocks_per_sm", []).append(t)
+                prev = BEFORE_MS.get(("flash_attention_fwd_serve", case, dn))
+                if prev is not None:
+                    log(f"    before (scalar design, serve instance): {prev:.3f} ms, "
+                        f"{100 * bound / prev:.1f}% of its bound; now {prev / ms:.2f}x faster")
+                    inst["before_ms"] = prev
+                del out
             rows[("flash", case, dn)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by=by, library_ms=lib, **inst)
@@ -1081,9 +1102,10 @@ def _flash_bf16_check(torch, name, inputs, kw, grads) -> float:
 
 
 # the previous design's readings of the backward kernels (scalar, one warp a
-# row) and of the forward under autograd (then the serve instance), as
-# PERF.md §6 records them (NVIDIA H100 80GB HBM3, 700.00 W), printed beside
-# this run's
+# row), of the forward under autograd (then the serve instance) and of the
+# f32 forward's serve instance (the scalar kernel, four threads a row, before
+# the CUDA-core kernel's register tiles), as PERF.md §6 records them (NVIDIA
+# H100 80GB HBM3, 700.00 W), printed beside this run's
 BEFORE_MS = {("rmsnorm_bwd", (4096, 1536), "float32"): 0.07658,
            ("rmsnorm_bwd", (4096, 1536), "bfloat16"): 0.05462,
            ("rmsnorm_bwd", (49152, 128), "float32"): 0.05875,
@@ -1095,7 +1117,13 @@ BEFORE_MS = {("rmsnorm_bwd", (4096, 1536), "float32"): 0.07658,
            ("flash_attention_fwd", (4, 1024, 12, 2, 128, 0, 0), "float32"): 1.577,
            ("flash_attention_fwd", (4, 1024, 12, 2, 128, 0, 0), "bfloat16"): 0.056,
            ("flash_attention_fwd", (4, 1152, 25, 5, 64, 1024, 128), "float32"): 1.576,
-           ("flash_attention_fwd", (4, 1152, 25, 5, 64, 1024, 128), "bfloat16"): 0.098}
+           ("flash_attention_fwd", (4, 1152, 25, 5, 64, 1024, 128), "bfloat16"): 0.098,
+           ("flash_attention_fwd_serve", (4, 1024, 1024, 12, 2, 128, True, 0, 0),
+            "float32"): 1.577,
+           ("flash_attention_fwd_serve", (4, 1152, 1152, 25, 5, 64, True, 1024, 128),
+            "float32"): 1.576,
+           ("flash_attention_fwd_serve", (4, 2176, 2176, 25, 5, 64, True, 1024, 128),
+            "float32"): 4.295}
 
 
 def _attrs_str(a: dict) -> str:
@@ -1115,7 +1143,7 @@ def train_kernels(torch):
 
     from repro_torch.kernels.flash_attention.kernel import (
         WGMMA_HEAD_DIMS, bwd_kernel_attrs, flash_attention_bwd_cuda, flash_attention_cuda,
-        flash_attention_wgmma_cuda, lse_rows, wgmma_kernel_attrs)
+        flash_attention_wgmma_cuda, flash_kernel_attrs, lse_rows, wgmma_kernel_attrs)
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.flash_attention.ref import flash_mha_bwd_ref, flash_mha_ref
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
@@ -1263,8 +1291,9 @@ def train_kernels(torch):
             attrs = {kn: bwd_kernel_attrs(kn, hd, dt) for kn in ("dkdv", "dq")}
             log(f"    {'tensor-core (wgmma)' if tc else 'CUDA-core (SIMT)'} kernels: dK/dV "
                 f"{_attrs_str(attrs['dkdv'])}; dQ {_attrs_str(attrs['dq'])}"
-                + (f"; forward that stores L {_attrs_str(wgmma_kernel_attrs(hd, win > 0, True))}"
-                   if tc else ""))
+                + "; forward that stores L "
+                + _attrs_str(wgmma_kernel_attrs(hd, win > 0, True) if tc
+                             else flash_kernel_attrs(hd, dt, True)))
             log(f"    backward {ms:.3f} ms (before: {prev:.3f} ms, {prev / ms:.1f}x) | bound "
                 f"{bound * 1e3:.2f} us ({by}: the function's 5 products, {byts / 1e6:.2f} MB, "
                 f"{ops / 1e9:.2f} GFLOP at {peak / 1e12:g} TFLOP/s; the kernels compute 7, "
@@ -1272,9 +1301,13 @@ def train_kernels(torch):
                 f"{plain:.3f} ms | SDPA{' (bool mask)' if win else ''} backward {lib:.3f} ms | "
                 f"{100 * bound / ms:.1f}% of its bound, kernel/SDPA {ms / lib:.2f}x")
             log(f"    backward by kernel (profiler, L2 warm): {split}")
+            prev_serve = BEFORE_MS.get(("flash_attention_fwd_serve",
+                                        (B, S, S, H, KV, hd, True, win, ns), dn))
             log(f"    forward under autograd (stores L) {fwd_ms:.3f} ms, serve instance "
-                f"{serve_ms:.3f} ms (before, the forward under autograd: {prev_fwd:.3f} ms) | "
-                f"forward + backward {fwd_ms + ms:.3f} ms (before: {prev_fwd + prev:.3f} ms)")
+                f"{serve_ms:.3f} ms (before, the forward under autograd: {prev_fwd:.3f} ms"
+                + (f"; the serve instance: {prev_serve:.3f} ms" if prev_serve else "")
+                + f") | forward + backward {fwd_ms + ms:.3f} ms (before: "
+                f"{prev_fwd + prev:.3f} ms)")
             rows[("flash_attention_bwd", case, dn)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=lib, forward_autograd_ms=fwd_ms, forward_serve_ms=serve_ms,
@@ -1624,12 +1657,12 @@ def main() -> int:
                         variants_launched=sched_variants_launched, path=CAMPAIGN,
                         **sched_row))
     # the train path, f32 (the launcher's default) and bf16: its forward
-    # kernels (f32 flash runs the scalar kernel, bf16 the tensor-core one, both
+    # kernels (f32 flash runs the CUDA-core kernel, bf16 the tensor-core one, both
     # in the instance that stores L, timed under autograd in phase 7) and the
     # backward kernels (bf16 flash on the tensor cores), timed at its main
     # shapes; launches from the 4-step f32 and the 3-step bf16 full-width runs
     qwen_fa = (4, 1024, 12, 2, 128, 0, 0)
-    for dt, counts, fwd_source in (("float32", train_launches, SCALAR_FLASH),
+    for dt, counts, fwd_source in (("float32", train_launches, SIMT_FLASH),
                                    ("bfloat16", bf16_launches, ROUTES["flash_attention"][1])):
         train_path = f"train/{TRAIN['arch']}/{dt}"
         bwd = rows[("flash_attention_bwd", qwen_fa, dt)]

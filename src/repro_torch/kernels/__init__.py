@@ -4,7 +4,8 @@ XLA program.
 
 flash_attention — online-softmax attention (prefill / forward), model layout,
   causal with an optional sliding window and sinks: bf16 at hd 64/128 on the
-  tensor cores (wgmma + TMA), everything else on a scalar kernel.
+  tensor cores (wgmma + TMA), everything else as register-tiled f32
+  products on the CUDA cores (SIMT).
 rmsnorm — fused RMSNorm (every norm of the dense block, qk-norm per head).
 ssm_scan — diagonal linear scan h_t = a_t·h_{t-1} + b_t (Mamba heads).
 list_schedule — the list schedule of one task graph under K hardware-

@@ -1,9 +1,11 @@
-// Flash attention forward for Hopper (sm_90a): online softmax, causal or not,
-// with an optional sliding window and always-attended sink prefix, GQA, read
-// and written in the model layout.
+// Flash attention forward on the CUDA cores for Hopper (sm_90a): online
+// softmax, causal or not, with an optional sliding window and always-attended
+// sink prefix, GQA, read and written in the model layout. It takes every call
+// the tensor-core kernel (flash_attention_wgmma.cu, bf16 at hd 64/128) does
+// not: f32 at every head dim, kept true f32 (no TF32), and bf16 at hd 16/32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
-// (`flash_attention_kernel`, launched by `flash_attention`): running
+// (`flash_attention_kernel`, launched by `flash_attention` at :99): running
 // (m, l, acc) in f32, causal mask `col <= row` aligned top-left, masked
 // scores set to NEG = -1e30, p = 0 where s <= NEG/2, and the output divided
 // by max(l, 1e-30), so a row with no visible key comes out as 0. A causal
@@ -11,235 +13,281 @@
 // with meta tokens, repro/models/attention.py::attention and
 // ::sink_banded_attention): key `col` is visible from query `row` when
 //   col <= row && (window == 0 || col > row - window || col < n_sink).
-// window = n_sink = 0 is the plain causal mask, bit for bit.
+// The mask and the tile predicates are the backward's (flash_simt.cuh).
 //
 // Bound on the H100: operations. At the prefill shape of qwen2-1.5b
 // (B=4, S=1024, H=12, KV=2, hd=128, causal) the function needs ~12.9 GFLOP
-// against ~29 MB of q/k/v/o traffic; the [S, S] scores never leave the SM.
+// of f32 FMAs (192 us at 67 TFLOP/s) against ~29 MB of q/k/v/o traffic; the
+// [S, S] scores never leave the SM.
 //
-// Design (simple first; tensor cores, TMA and warp specialisation are later
-// work): one 256-thread block per (batch*head, tile of 64 query rows), four
-// threads per query row. A thread keeps a quarter of its row's q and of its
-// output accumulator in registers, as float4 chunks interleaved so the four
-// threads of a row read neighbouring 16-byte words of shared memory. K and V
-// stream through shared memory in tiles of 32 keys, converted to f32 once
-// per tile; a dot product is a per-thread partial sum of scalar FMAs closed
-// by two warp shuffles. Causal tiles that lie wholly above the diagonal are
-// skipped, and so, under a window, are the key tiles that lie wholly between
-// the sinks and the band of every row of the query tile; a skipped tile would
-// only have added p = 0 with m unchanged. The window is a template flag
-// (kWindow), so a call without one runs the plain causal instance, whose
-// inner loop carries no window test. The heaviest query tiles are
-// scheduled first. Ragged tails of
-// Sq and Sk are masked, never padded. GQA: q head h of batch b reads kv head
-// h / (H / KV) of batch b, i.e. flattened index i = b*H + h reads
-// (i / H) * KV + (i % H) / G. The kernel allocates nothing and launches on
-// the caller's stream.
+// Design: register-tiled products from shared memory (a SIMT GEMM), the
+// geometry of the backward's SIMT kernels. One 256-thread block per
+// (batch*head, tile of 64 query rows), the heaviest query tiles first; the
+// threads form a 16 x 16 grid (tx = threadIdx % 16, ty = threadIdx / 16).
+// Q is staged once into a padded f32 [64][hd+4] shared tile; K and V stream
+// through tiles of 64 keys, staged the same way with 16-byte loads and
+// converted to f32 once. Per key tile:
+//  * S = Q K^T: thread (tx, ty) forms the 4 x 4 block of rows 4ty + i, keys
+//    tx + 16j (`dot_4x4`: 8 float4 loads for 64 FMAs).
+//  * Online softmax on raw scores, the scale folded into exp2: the row max
+//    and sum over the 16 tx lanes of a row (xor shuffles 1, 2, 4, 8 inside a
+//    half-warp); p = exp2(s*scale*log2e - m*scale*log2e), 0 where s <= NEG/2;
+//    alpha = exp2((m_old - m_new)*scale*log2e); l in f32.
+//  * P goes to shared memory transposed ([key][row]), then O += P V: each
+//    thread owns rows 4ty + i x hd/16 columns (`Cols`), one float4 of P and
+//    hd/64 float4s of V a key for 4 x hd/16 FMAs.
+// Key tiles that hold no visible pair are skipped (`key_tile_visited`, the
+// twin of ref.py::tile_visited at 64 x 64): a skipped tile would only add
+// p = 0 with m unchanged. Only tiles that hold a hidden pair (the diagonal,
+// band and sink edges, ragged Sq and Sk tails: `tile_needs_mask`) test each
+// pair; tails are masked, never padded. No atomics: every sum has one order.
+//
+// Occupancy (kBlocks): at hd 128 the Q, K, V and P tiles take 116 KiB, one
+// block an SM. The two-block instance writes P into K's tile once every
+// thread has formed its S (one more barrier a tile), so Q, K/P and V take
+// 99 KiB and two blocks (16 warps) share an SM, each hiding the other's
+// staging; its registers are capped at 128 a thread. kDefaultBlocks picks
+// the instance a call runs; the other stays for measurement
+// (repro_flash_attention_variant).
+//
+// GQA: q head h of batch b reads kv head h / (H / KV). The kernel allocates
+// nothing and launches on the caller's stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_simt.cuh"
 
 namespace {
 
-constexpr int kRows = 64;           // query rows per block
-constexpr int kKeys = 32;           // keys per shared-memory tile
-constexpr int kThreadsPerRow = 4;
-constexpr int kThreads = kRows * kThreadsPerRow;
 constexpr float kNeg = -1e30f;
-constexpr int kLseAlign = 64;       // lse rows padded to this (the backward's tile)
+constexpr int kMaxDevices = 64;
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+template <int HD, int kBlocks>
+struct FwdCfg {
+  using M = SimtSmem<HD>;
+  // P in K's tile when two blocks share an SM and the tile holds it (hd >= 64)
+  static constexpr bool kShareP = kBlocks == 2 && M::kRowTile >= M::kPTile;
+  static constexpr int kSmem = 4 * (3 * M::kRowTile + (kShareP ? 0 : M::kPTile));
+};
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+// 16-byte loads in flight a thread while staging: under the two-block cap of
+// 128 registers, 16 floats' worth (4 loads of f32, 2 of bf16) beside the
+// accumulators; else all of them
+template <typename T, int kBlocks>
+constexpr int kLoadGroup = kBlocks == 2 ? static_cast<int>(sizeof(T)) : 0;
 
-// q, o: [B, Sq, H, HD]; k, v: [B, Sk, KV, HD]; all contiguous. kWindow:
-// causal with window > 0. kLse: also store each row's logsumexp for the
-// backward, in the exp2 domain the backward reads (that of the tensor-core
-// forward): lse[bh * lse_stride + row] = m * log2(e) + log2(l), +inf for a
-// row that sees no key. The serve path launches the instance without it.
-template <typename T, int HD, bool kWindow, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                       int H, int KV, float scale, int causal, int window,
-                       int n_sink, float* __restrict__ lse, int lse_stride) {
-  constexpr int kChunks = HD / 4;                          // float4 chunks in a row
-  constexpr int kMine = kChunks / kThreadsPerRow;          // chunks per thread
-  static_assert(kMine >= 1 && kChunks % kThreadsPerRow == 0, "unsupported head dim");
+// The instance a call runs (kBlocks): two blocks an SM beat one at every
+// shape chip_smoke.py times (PERF.md)
+constexpr int kDefaultBlocks = 2;
 
-  __shared__ __align__(16) float ks[kKeys][HD];
-  __shared__ __align__(16) float vs[kKeys][HD];
+// q, o: [B, Sq, H, HD]; k, v: [B, Sk, KV, HD]; all contiguous. kLse: also
+// store each row's logsumexp for the backward, in the exp2 domain:
+// lse[bh * lse_stride + row] = m * scale * log2(e) + log2(l), +inf for a row
+// that sees no key. The serve path launches the instance without it; the
+// two compute the output with the same code.
+template <typename T, int HD, bool kLse, int kBlocks>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ o, float* __restrict__ lse, Shape sh) {
+  using C = FwdCfg<HD, kBlocks>;
+  using M = SimtSmem<HD>;
+  using CC = Cols<HD>;
+  constexpr int ld = HD + kLd;
+  constexpr int pld = kTile + kLd;
+  extern __shared__ float4 smem_fwd[];
+  float* qs = reinterpret_cast<float*>(smem_fwd);
+  float* ks = qs + M::kRowTile;
+  float* vs = ks + M::kRowTile;
+  float* ps = C::kShareP ? ks : vs + M::kRowTile;   // [key][row], P transposed
 
   const int bh = blockIdx.x;
-  const int n_q = (Sq + kRows - 1) / kRows;
-  const int qt = n_q - 1 - static_cast<int>(blockIdx.y);  // heaviest tiles first
-  const int b = bh / H;
-  const int h = bh % H;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int part = tid % kThreadsPerRow;
-  const int row = qt * kRows + tid / kThreadsPerRow;
-  const bool row_ok = row < Sq;
+  const int n_q = cdiv(sh.Sq, kTile);
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.y)) * kTile;  // heaviest tiles first
+  const int b = bh / sh.H, h = bh % sh.H, kvh = h / (sh.H / sh.KV);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float sl2 = sh.scale_log2;
 
-  const long long q_stride = static_cast<long long>(H) * HD;
-  const long long kv_stride = static_cast<long long>(KV) * HD;
-  const T* qb = q + static_cast<long long>(b) * Sq * q_stride + static_cast<long long>(h) * HD;
-  const T* kb = k + static_cast<long long>(b) * Sk * kv_stride + static_cast<long long>(kvh) * HD;
-  const T* vb = v + static_cast<long long>(b) * Sk * kv_stride + static_cast<long long>(kvh) * HD;
-  T* ob = o + static_cast<long long>(b) * Sq * q_stride + static_cast<long long>(h) * HD;
-
-  float qr[kMine][4];
-  float acc[kMine][4];
+  stage_rows<T, HD, kLoadGroup<T, kBlocks>>(qs, q, b, sh.Sq, sh.H, h, q0);
+  float m[4], l[4], acc[4][CC::kCount];
 #pragma unroll
-  for (int c = 0; c < kMine; ++c) {
-    const int d0 = 4 * (part + kThreadsPerRow * c);
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      qr[c][e] = row_ok ? to_f32(qb[row * q_stride + d0 + e]) : 0.f;
-      acc[c][e] = 0.f;
-    }
+    for (int c = 0; c < CC::kCount; ++c) acc[i][c] = 0.f;
   }
-  float m = kNeg;
-  float l = 0.f;
 
-  // causal: columns past the tile's last row are masked for every row
-  const int k_end = causal ? min(Sk, (qt + 1) * kRows) : Sk;
-  // windowed: key tiles in [n_sink, first row of the tile - window] are
-  // masked for every row of the tile
-  const int band_lo = kWindow ? qt * kRows - window + 1 : 0;
-  for (int k0 = 0; k0 < k_end; k0 += kKeys) {
-    if (kWindow && k0 >= n_sink && k0 + kKeys <= band_lo) continue;  // uniform per block
-    __syncthreads();  // the previous tile is consumed
-    for (int e = tid; e < kKeys * HD; e += kThreads) {
-      const int j = e / HD;
-      const int dd = e % HD;
-      const int col = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (col < Sk) {
-        kx = to_f32(kb[col * kv_stride + dd]);
-        vx = to_f32(vb[col * kv_stride + dd]);
+  const int k_end = sh.causal ? imin(sh.Sk, q0 + kTile) : sh.Sk;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    if (!key_tile_visited(k0, q0, sh)) continue;   // uniform per block
+    __syncthreads();                               // the previous tile is consumed
+    stage_rows<T, HD, kLoadGroup<T, kBlocks>>(ks, k, b, sh.Sk, sh.KV, kvh, k0);
+    stage_rows<T, HD, kLoadGroup<T, kBlocks>>(vs, v, b, sh.Sk, sh.KV, kvh, k0);
+    __syncthreads();
+    float s[4][4] = {};
+    dot_4x4<HD>(s, qs, 4 * ty, 1, ks, tx, 16);
+    if (tile_needs_mask(q0, k0, sh)) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (!visible(q0 + 4 * ty + i, k0 + tx + 16 * c, sh)) s[i][c] = kNeg;
       }
-      ks[j][dd] = kx;
-      vs[j][dd] = vx;
+    }
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+      for (int w = 1; w < 16; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_new = fmaxf(m[i], mx);
+      const float ms = m_new * sl2;
+      alpha[i] = exp2f((m[i] - m_new) * sl2);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = s[i][c] <= 0.5f * kNeg ? 0.f : exp2f(fmaf(s[i][c], sl2, -ms));
+        sum += s[i][c];
+      }
+#pragma unroll
+      for (int w = 1; w < 16; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+      l[i] = fmaf(l[i], alpha[i], sum);
+      m[i] = m_new;
+    }
+    if constexpr (C::kShareP) __syncthreads();    // every thread has read K
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(&ps[(tx + 16 * c) * pld + 4 * ty]) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < CC::kCount; ++c) acc[i][c] *= alpha[i];
     }
     __syncthreads();
-
-    float s[kKeys];
-    float m_new = m;
+#pragma unroll 4
+    for (int key = 0; key < kTile; ++key) {
+      const float4 w = *reinterpret_cast<const float4*>(&ps[key * pld + 4 * ty]);
+      const float wi[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      float dot = 0.f;
+      for (int mm = 0; mm < CC::kChunks; ++mm) {
+        float vv[CC::kVec];
+        lds<CC::kVec>(vv, &vs[key * ld + CC::col(tx, mm)]);
 #pragma unroll
-      for (int c = 0; c < kMine; ++c) {
-        const float4 kk =
-            *reinterpret_cast<const float4*>(&ks[j][4 * (part + kThreadsPerRow * c)]);
-        dot += qr[c][0] * kk.x + qr[c][1] * kk.y + qr[c][2] * kk.z + qr[c][3] * kk.w;
-      }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const int col = k0 + j;
-      float sj = dot * scale;
-      if (col >= Sk ||
-          (causal && (col > row || (kWindow && col <= row - window && col >= n_sink))))
-        sj = kNeg;
-      s[j] = sj;
-      m_new = fmaxf(m_new, sj);
-    }
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      s[j] = (s[j] <= 0.5f * kNeg) ? 0.f : expf(s[j] - m_new);
-      psum += s[j];
-    }
-    l = l * alpha + psum;
-#pragma unroll
-    for (int c = 0; c < kMine; ++c) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][e] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-#pragma unroll
-      for (int c = 0; c < kMine; ++c) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(&vs[j][4 * (part + kThreadsPerRow * c)]);
-        acc[c][0] += s[j] * vv.x;
-        acc[c][1] += s[j] * vv.y;
-        acc[c][2] += s[j] * vv.z;
-        acc[c][3] += s[j] * vv.w;
+          for (int e = 0; e < CC::kVec; ++e)
+            acc[i][mm * CC::kVec + e] = fmaf(wi[i], vv[e], acc[i][mm * CC::kVec + e]);
+        }
       }
     }
-    m = m_new;
   }
 
-  if (!row_ok) return;
-  if constexpr (kLse) {
-    if (part == 0)
-      lse[static_cast<long long>(bh) * lse_stride + row] =
-          l > 0.f ? fmaf(m, 1.4426950408889634f, log2f(l)) : __int_as_float(0x7f800000);
-  }
-  const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int c = 0; c < kMine; ++c) {
-    const int d0 = 4 * (part + kThreadsPerRow * c);
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= sh.Sq) continue;
+    if constexpr (kLse) {
+      if (tx == 0)
+        lse[static_cast<long long>(bh) * sh.lse_stride + row] =
+            l[i] > 0.f ? fmaf(m[i], sl2, log2f(l[i])) : __int_as_float(0x7f800000);
+    }
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* out = o + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) ob[row * q_stride + d0 + e] = from_f32<T>(acc[c][e] / denom);
+    for (int mm = 0; mm < CC::kChunks; ++mm) {
+#pragma unroll
+      for (int e = 0; e < CC::kVec; ++e)
+        out[CC::col(tx, mm) + e] = from_f32<T>(acc[i][mm * CC::kVec + e] / denom);
+    }
   }
+}
+
+// dynamic shared memory above 48 KiB: an attribute of each device and
+// kernel instance, set once per device
+template <typename T, int HD, bool kLse, int kBlocks>
+cudaError_t allow_smem() {
+  constexpr int bytes = FwdCfg<HD, kBlocks>::kSmem;
+  static bool set[kMaxDevices] = {};
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < kMaxDevices && set[dev])) return e;
+  e = cudaFuncSetAttribute(flash_attention_simt<T, HD, kLse, kBlocks>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < kMaxDevices) set[dev] = true;
+  return e;
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int B;
+  Shape sh;
+};
+
+template <typename T, int HD, bool kLse, int kBlocks>
+int launch(const Args& a, cudaStream_t s) {
+  cudaError_t e = allow_smem<T, HD, kLse, kBlocks>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_attention_simt<T, HD, kLse, kBlocks>
+      <<<dim3(a.B * a.sh.H, cdiv(a.sh.Sq, kTile)), kThreads, FwdCfg<HD, kBlocks>::kSmem, s>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          static_cast<T*>(a.o), a.lse, a.sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+int attrs_of(K kernel, int dyn_smem, int* attr) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attr[0] = fa.numRegs;
+  attr[1] = static_cast<int>(fa.localSizeBytes);
+  attr[2] = static_cast<int>(fa.sharedSizeBytes) + dyn_smem;
+  return 0;
+}
+
+// launch the instance (attr == nullptr), or report its attributes
+template <typename T, int HD, int kBlocks>
+int run(const Args& a, cudaStream_t s, int* attr) {
+  constexpr int smem = FwdCfg<HD, kBlocks>::kSmem;
+  if (attr != nullptr)
+    return a.lse ? attrs_of(flash_attention_simt<T, HD, true, kBlocks>, smem, attr)
+                 : attrs_of(flash_attention_simt<T, HD, false, kBlocks>, smem, attr);
+  return a.lse ? launch<T, HD, true, kBlocks>(a, s) : launch<T, HD, false, kBlocks>(a, s);
 }
 
 template <typename T, int HD>
-void launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
-               int Sk, int H, int KV, float scale, int causal, int window, int n_sink,
-               cudaStream_t stream) {
-  const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(o);
-  const int ls = (Sq + kLseAlign - 1) / kLseAlign * kLseAlign;
-  const bool windowed = causal && window > 0;
-  if (windowed && lse) {
-    flash_attention_kernel<T, HD, true, true><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, window, n_sink, lse, ls);
-  } else if (windowed) {
-    flash_attention_kernel<T, HD, true, false><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, window, n_sink, nullptr, 0);
-  } else if (lse) {
-    flash_attention_kernel<T, HD, false, true><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, 0, 0, lse, ls);
-  } else {
-    flash_attention_kernel<T, HD, false, false><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, ot, Sq, Sk, H, KV, scale, causal, 0, 0, nullptr, 0);
-  }
+int run_hd(const Args& a, int blocks, cudaStream_t s, int* attr) {
+  if (blocks == 0) blocks = kDefaultBlocks;
+  if (blocks == 1) return run<T, HD, 1>(a, s, attr);
+  if (blocks == 2) return run<T, HD, 2>(a, s, attr);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
-bool launch_dtype(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                  int Sq, int Sk, int H, int KV, int hd, float scale, int causal, int window,
-                  int n_sink, cudaStream_t stream) {
-#define REPRO_FA_CASE(HD)                                                                    \
-  case HD:                                                                                   \
-    launch_hd<T, HD>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal, window, n_sink,     \
-                     stream);                                                                \
-    return true;
+int dispatch(const Args& a, int hd, int blocks, cudaStream_t s, int* attr) {
   switch (hd) {
-    REPRO_FA_CASE(16)
-    REPRO_FA_CASE(32)
-    REPRO_FA_CASE(64)
-    REPRO_FA_CASE(128)
-    default: return false;
+    case 16: return run_hd<T, 16>(a, blocks, s, attr);
+    case 32: return run_hd<T, 32>(a, blocks, s, attr);
+    case 64: return run_hd<T, 64>(a, blocks, s, attr);
+    case 128: return run_hd<T, 128>(a, blocks, s, attr);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef REPRO_FA_CASE
+}
+
+int forward(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Sq,
+            int Sk, int H, int KV, int hd, int causal, int window, int n_sink, float scale,
+            int dtype, int blocks, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk < 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
+      n_sink < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, o, static_cast<float*>(lse), B,
+               make_shape(Sq, Sk, H, KV, scale, causal, window, n_sink)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float>(a, hd, blocks, s, nullptr);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(a, hd, blocks, s, nullptr);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -248,24 +296,42 @@ bool launch_dtype(const void* q, const void* k, const void* v, void* o, float* l
 // window >= 0 and n_sink >= 0 act only when causal (0 = no window). lse:
 // nullptr (the serve path's instance), or [B*H, round_up(Sq, 64)] f32 that
 // receives each row's logsumexp in the exp2 domain (see the kernel).
-// Returns cudaGetLastError() after the launch.
+// Returns cudaGetLastError() after the launch (or the first error).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      void* lse, int B, int Sq, int Sk, int H, int KV, int hd,
                                      int causal, int window, int n_sink, float scale,
                                      int dtype, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk < 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
-      n_sink < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  bool ok = false;
-  if (dtype == 0) {
-    ok = launch_dtype<float>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, scale, causal, window,
-                             n_sink, s);
-  } else if (dtype == 1) {
-    ok = launch_dtype<__nv_bfloat16>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, scale, causal,
-                                     window, n_sink, s);
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return forward(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, causal, window, n_sink, scale, dtype,
+                 0, stream);
+}
+
+// The same with the instance built for `blocks` blocks an SM (1 or 2; 0: the
+// one repro_flash_attention runs), for measuring one against the other.
+extern "C" int repro_flash_attention_variant(const void* q, const void* k, const void* v,
+                                             void* o, void* lse, int B, int Sq, int Sk, int H,
+                                             int KV, int hd, int causal, int window,
+                                             int n_sink, float scale, int dtype, int blocks,
+                                             void* stream) {
+  return forward(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, causal, window, n_sink, scale, dtype,
+                 blocks, stream);
+}
+
+// Registers per thread, local (spill) bytes per thread and shared memory per
+// block of the instance a call at (hd, dtype) launches: with lse != 0 the
+// one that stores L; blocks as for repro_flash_attention_variant. *blocks_out
+// receives the blocks an SM of that instance.
+extern "C" int repro_flash_attention_attrs(int hd, int dtype, int lse, int blocks,
+                                           int* blocks_out, int* regs, int* local_bytes,
+                                           int* smem_bytes) {
+  int attr[3] = {0, 0, 0};
+  float dummy = 0.f;
+  const Args a{nullptr, nullptr, nullptr, nullptr, lse ? &dummy : nullptr, 0, Shape{}};
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) err = dispatch<float>(a, hd, blocks, nullptr, attr);
+  if (dtype == 1) err = dispatch<__nv_bfloat16>(a, hd, blocks, nullptr, attr);
+  *blocks_out = blocks == 0 ? kDefaultBlocks : blocks;
+  *regs = attr[0];
+  *local_bytes = attr[1];
+  *smem_bytes = attr[2];
+  return err;
 }

@@ -6,10 +6,11 @@
 // src/repro/kernels/flash_attention/kernel.py (`flash_attention_kernel`,
 // launched by `flash_attention` at :99) computes; the JAX package has no
 // backward kernel and differentiates its plain jnp attention. With
-// s = q.k over the visible pairs (the forward's mask: `visible` below),
-// P = exp2(s * scale * log2(e) - L), L the row's logsumexp in the exp2 domain
-// as the forward stored it (flash_mha under autograd launches the forward
-// instance that stores L), and D = rowsum(dO * O):
+// s = q.k over the visible pairs (the mask: `visible` in flash_simt.cuh,
+// shared with the forward), P = exp2(s * scale * log2(e) - L), L the row's
+// logsumexp in the exp2 domain as the forward stored it (flash_mha under
+// autograd launches the forward instance that stores L), and
+// D = rowsum(dO * O):
 //
 //   dV = P^T dO      dP = dO V^T      dS = P * (dP - D)
 //   dQ = scale * dS K                 dK = scale * dS^T Q
@@ -66,68 +67,20 @@
 // at hd 16/32) runs (b) and (c) on the CUDA cores as register-tiled products
 // from shared memory (a SIMT GEMM): 256 threads as 16 x 16, each owning a
 // 4 x 4 block of S^T/dP^T (S/dP in dQ), then 4 rows x hd/16 columns of dK and
-// dV (dQ); tiles staged as f32 rows padded by 4 floats, read as float4.
+// dV (dQ); tiles staged as f32 rows padded by 4 floats, read as float4
+// (flash_simt.cuh, shared with the forward).
 // All math is f32; only masked tiles (the diagonal, band and sink edges,
 // ragged Sq and Sk tails) take the mask test; tails are masked, never padded.
 
 #include <type_traits>
 
+#include "flash_simt.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
 
-constexpr int kTile = 64;         // keys per key tile and rows per query tile, every kernel
 constexpr int kSplitUnits = 32;   // most units (head x query tile) one dK/dV block walks
-constexpr int kThreads = 256;
-constexpr int kLd = 4;            // padding of a staged f32 row (floats)
 constexpr int kFinalParts = 4;    // blocks a key tile in the partials' sum
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-struct Shape {
-  int Sq, Sk, H, KV, causal, window, n_sink;
-  float scale_log2;   // scale * log2(e)
-  int lse_stride;     // row stride of L and D: Sq rounded up to kTile
-};
-
-// The forward's mask: key `col` is visible from query `row` (top-left
-// causal, window and sinks, ragged tails). The one predicate of every kernel.
-__device__ __forceinline__ bool visible(int row, int col, const Shape& sh) {
-  if (row >= sh.Sq || col >= sh.Sk) return false;
-  if (!sh.causal) return true;
-  return col <= row && (sh.window == 0 || col > row - sh.window || col < sh.n_sink);
-}
-
-// Does the tile [q0, q0 + kTile) x [k0, k0 + kTile) need the mask test, i.e.
-// does it hold a hidden pair? (Otherwise every pair is visible.)
-__device__ __forceinline__ bool tile_needs_mask(int q0, int k0, const Shape& sh) {
-  if (q0 + kTile > sh.Sq || k0 + kTile > sh.Sk) return true;
-  if (!sh.causal) return false;
-  if (k0 + kTile - 1 > q0) return true;   // crosses the diagonal
-  return sh.window > 0 && k0 <= q0 + kTile - 1 - sh.window && k0 + kTile > sh.n_sink;
-}
-
-// Does key tile [k0, k0 + kTile) hold a visible pair for some row of the
-// query tile [q0, q0 + kTile)? The twin of ref.py::bwd_key_tile_visited.
-__device__ __forceinline__ bool key_tile_visited(int k0, int q0, const Shape& sh) {
-  if (k0 >= sh.Sk) return false;
-  if (!sh.causal) return true;
-  if (k0 >= q0 + kTile) return false;
-  return sh.window == 0 || k0 < sh.n_sink || k0 + kTile > q0 - sh.window + 1;
-}
 
 // The 64-row query tiles that can see key tile j, from *q_lo (a multiple of
 // kTile when causal, else 0); the twin of ref.py::bwd_key_tile_rows.
@@ -282,72 +235,6 @@ fa_bwd_finalize(const float* __restrict__ part_k, const float* __restrict__ part
 }
 
 // -- CUDA-core (SIMT) dQ and dK/dV ----------------------------------------------
-
-// The columns of an hd-wide accumulator row a thread of column tx owns:
-// kVec-wide runs at kVec * tx + 16 * kVec * m (m < kChunks), hd / 16 in all.
-template <int HD>
-struct Cols {
-  static constexpr int kCount = HD / 16;
-  static constexpr int kVec = kCount >= 4 ? 4 : kCount;
-  static constexpr int kChunks = kCount / kVec;
-  static __device__ __forceinline__ int col(int tx, int m) { return kVec * tx + 16 * kVec * m; }
-};
-
-template <int N>
-__device__ __forceinline__ void lds(float (&dst)[N], const float* p) {
-  if constexpr (N == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
-  } else if constexpr (N == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    dst[0] = v.x, dst[1] = v.y;
-  } else {
-    dst[0] = *p;
-  }
-}
-
-// rows [r0, r0 + kTile) of one head of a [B, S, heads, HD] tensor into a
-// [kTile][HD + kLd] f32 tile; rows past S read as 0
-template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int b, int S,
-                                           int heads, int head, int r0) {
-  for (int e = threadIdx.x; e < kTile * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int row = r0 + r;
-    float x = 0.f;
-    if (row < S)
-      x = to_f32(src[((static_cast<long long>(b) * S + row) * heads + head) * HD + d]);
-    dst[r * (HD + kLd) + d] = x;
-  }
-}
-
-// acc[a][b] += sum_d A[ra(a)][d] * B[rb(b)][d] over the HD columns of two
-// staged tiles, A rows ra0 + a * sa, B rows rb0 + b * sb (a, b < 4)
-template <int HD>
-__device__ __forceinline__ void dot_4x4(float (&acc)[4][4], const float* A, int ra0, int sa,
-                                        const float* B, int rb0, int sb) {
-  constexpr int ld = HD + kLd;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = *reinterpret_cast<const float4*>(&A[(ra0 + a * sa) * ld + d]);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) y[c] = *reinterpret_cast<const float4*>(&B[(rb0 + c * sb) * ld + d]);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        acc[a][c] += x[a].x * y[c].x + x[a].y * y[c].y + x[a].z * y[c].z + x[a].w * y[c].w;
-    }
-  }
-}
-
-template <int HD>
-struct SimtSmem {
-  static constexpr int kRowTile = kTile * (HD + kLd);   // floats of one staged tile
-  static constexpr int kPTile = kTile * (kTile + kLd);  // floats of one P / dS tile
-};
 
 // dQ of 64 query rows of one head. Thread (tx, ty): rows 4ty + i, keys
 // tx + 16j of a key tile; then rows 4ty + i x its Cols of dQ.
@@ -1006,12 +893,6 @@ int dispatch(const Args& a, int hd, cudaStream_t s, int kind, int* attr) {
     case 128: return attr ? attrs<T, 128>(kind, attr) : run<T, 128>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-Shape make_shape(int Sq, int Sk, int H, int KV, float scale, int causal, int window,
-                 int n_sink) {
-  return Shape{Sq, Sk, H, KV, causal ? 1 : 0, causal ? window : 0, causal ? n_sink : 0,
-               scale * 1.4426950408889634f, cdiv(Sq, kTile) * kTile};
 }
 
 }  // namespace

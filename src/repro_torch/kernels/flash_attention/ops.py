@@ -11,10 +11,11 @@ tensor launches a kernel or raises.
 Dispatch on the card, by dtype and shape only: bf16 at hd 64 or 128 goes
 to the tensor-core kernel (``csrc/flash_attention_wgmma.cu``); every other
 call (f32, whose products would run as TF32 on the tensor cores, and bf16
-at the reduced configs' hd 16/32) to the scalar kernel
-(``csrc/flash_attention.cu``). The tensor-core path raises on what it does
-not take (a pointer that is not 16-byte aligned); with Sk = 0 it launches
-nothing and returns the zero rows that the kernel's contract gives.
+at the reduced configs' hd 16/32) to the CUDA-core kernel
+(``csrc/flash_attention.cu``: register-tiled f32 products, SIMT). The
+tensor-core path raises on what it does not take (a pointer that is not
+16-byte aligned); with Sk = 0 it launches nothing and returns the zero
+rows that the kernel's contract gives.
 ``flash_mha.launches`` counts every forward kernel launch and nothing
 else; ``flash_mha.wgmma_launches`` counts the tensor-core kernel's launches.
 

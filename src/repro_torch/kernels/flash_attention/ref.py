@@ -33,12 +33,14 @@ tiles ``bwd_key_tile_visited`` keeps; P recomputed as exp2(s·scale·log2(e)
 − L) under the forward's mask; with ``tensor_cores``, P and dS rounded to
 bf16 before their products, as the wgmma kernels feed them.
 
-``flash_mha_tiled`` emulates the tile loop of the tensor-core kernel
-(``csrc/flash_attention_wgmma.cu``) for the tests: the same key tiles, chosen
-by ``tile_visited`` (the twin of the kernel's predicate), the same online
-softmax per tile on raw scores with ``exp2``, ``l`` summed over the f32 p,
-and P rounded to the input dtype before ``P·V``. Nothing on the model path
-calls it.
+``flash_mha_tiled`` emulates the tile loop of both forward kernels for the
+tests: the same key tiles, chosen by ``tile_visited`` (the twin of the
+kernels' predicate), the same online softmax per tile on raw scores with
+``exp2``, ``l`` summed over the f32 p. At ``WGMMA_BLOCK_Q`` x
+``WGMMA_BLOCK_K`` with P rounded to the input dtype before ``P·V``, the
+tensor-core kernel (``csrc/flash_attention_wgmma.cu``); at ``SIMT_BLOCK_Q``
+x ``SIMT_BLOCK_K`` with ``tensor_cores=False`` (P stays f32), the CUDA-core
+kernel (``csrc/flash_attention.cu``). Nothing on the model path calls it.
 """
 from __future__ import annotations
 
@@ -92,8 +94,9 @@ def tile_visited(k0: int, q0: int, block_q: int, block_k: int, Sk: int, *,
                  causal: bool, window: int = 0, n_sink: int = 0) -> bool:
     """Does key tile [k0, k0+block_k) hold a visible pair for some row of
     query tile [q0, q0+block_q)? The twin of ``tile_visited`` in
-    ``csrc/flash_attention_wgmma.cu``: a tile it skips would only add p = 0
-    with m unchanged."""
+    ``csrc/flash_attention_wgmma.cu`` (and, at 64 x 64, of
+    ``key_tile_visited`` in ``csrc/flash_simt.cuh``): a tile it skips would
+    only add p = 0 with m unchanged."""
     if k0 >= Sk:
         return False
     if not causal:
@@ -107,9 +110,11 @@ def tile_visited(k0: int, q0: int, block_q: int, block_k: int, Sk: int, *,
 def flash_mha_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, n_sink: int = 0,
                     block_q: int = WGMMA_BLOCK_Q, block_k: int = WGMMA_BLOCK_K,
-                    return_lse: bool = False):
-    """The tensor-core kernel's tile loop in plain torch; same signature and
-    result as ``flash_mha_ref`` up to sum order and the rounding of P. With
+                    return_lse: bool = False, tensor_cores: bool = True):
+    """A forward kernel's tile loop in plain torch; same signature and
+    result as ``flash_mha_ref`` up to sum order and the rounding of P
+    (``tensor_cores``: P rounded to q.dtype before P·V, as the tensor-core
+    kernel feeds it; else P stays f32, as on the CUDA cores). With
     ``return_lse``, also each row's logsumexp as the forward stores it for
     the backward: [B, H, Sq] f32, m·scale·log2(e) + log2(l), +inf where no
     key is visible."""
@@ -145,7 +150,8 @@ def flash_mha_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = torch.where(s <= NEG / 2, torch.zeros((), device=s.device),
                             torch.exp2(s * scale_log2 - m_new * scale_log2))
             l = l * alpha + p.sum(dim=-1, keepdim=True)
-            p = p.to(q.dtype).float()                # P enters P·V in q.dtype
+            if tensor_cores:
+                p = p.to(q.dtype).float()            # P enters P·V in q.dtype
             acc = acc * alpha + p @ vf[:, :, k0:k1]
             m = m_new
         out[:, :, q0:q1] = acc / l.clamp_min(1e-30)

@@ -1,11 +1,15 @@
-"""The tile loop of the tensor-core flash kernel (``csrc/flash_attention_wgmma.cu``)
-on the CPU, through its plain-torch emulation ``flash_mha_tiled``: against
-the Pallas kernel in interpret mode, against the plain version under a
-window and sinks, and the tile-skip predicate against the mask itself. The
-kernel against the emulation on the card is in
-``test_torch_kernels_cuda.py``.
+"""The tile loops of the flash forward kernels on the CPU, through their
+plain-torch emulation ``flash_mha_tiled``: the tensor-core kernel's
+(``csrc/flash_attention_wgmma.cu``, 128 x 128, P rounded to the input dtype)
+and the CUDA-core kernel's (``csrc/flash_attention.cu``, ``SIMT_BLOCK_Q`` x
+``SIMT_BLOCK_K``, P in f32), against the Pallas kernel in interpret mode,
+against JAX's ``attention_ref`` and ``models.attention.attention`` (window
+and sinks), against the plain version, L against ``torch.logsumexp``, and
+the tile-skip predicate against the mask itself. The kernels against the
+emulation on the card are in ``test_torch_kernels_cuda.py``.
 """
 import itertools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,15 +18,20 @@ import torch
 
 from _torch_common import TOL, close, randn
 from repro.kernels.flash_attention.ops import flash_mha as jax_flash_mha
-from repro_torch.kernels.flash_attention.kernel import WGMMA_BLOCK_K, WGMMA_BLOCK_Q
-from repro_torch.kernels.flash_attention.ref import (flash_mha_ref, flash_mha_tiled,
-                                                     tile_visited)
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.models.attention import attention as jax_attention
+from repro_torch.kernels.flash_attention.kernel import (SIMT_BLOCK_K, SIMT_BLOCK_Q,
+                                                        WGMMA_BLOCK_K, WGMMA_BLOCK_Q)
+from repro_torch.kernels.flash_attention.ref import (NEG, flash_mha_ref, flash_mha_tiled,
+                                                     tile_visited, visible)
 
 _JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 _TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 # (block_q, block_k): the kernel's tiles, and a smaller pair that puts
 # several tiles in the small shapes
-_TILES = [(WGMMA_BLOCK_Q, WGMMA_BLOCK_K), (64, 32)]
+_TILES = [(WGMMA_BLOCK_Q, WGMMA_BLOCK_K), (64, 32), (SIMT_BLOCK_Q, SIMT_BLOCK_K)]
+# the CUDA-core kernel's twin: its tiles, P kept in f32
+_SIMT = dict(block_q=SIMT_BLOCK_Q, block_k=SIMT_BLOCK_K, tensor_cores=False)
 
 
 def _inputs(B, Sq, Sk, H, KV, hd, dt, seed):
@@ -85,7 +94,8 @@ def _visible(Sq, Sk, causal, window, n_sink):
     return vis
 
 
-@pytest.mark.parametrize("block_q,block_k", [(128, 128), (64, 32), (16, 48), (8, 8)])
+@pytest.mark.parametrize("block_q,block_k", [(128, 128), (64, 32), (16, 48), (8, 8),
+                                             (SIMT_BLOCK_Q, SIMT_BLOCK_K)])
 def test_skip_predicate_is_exact_for_the_mask(block_q, block_k):
     """Exhaustive over small shapes: every skipped tile holds no visible
     pair, and every visible pair lies in a visited tile."""
@@ -108,3 +118,80 @@ def test_skip_predicate_is_exact_for_the_mask(block_q, block_k):
         assert not (vis & ~covered).any(), (Sq, Sk, causal, window, n_sink)
         checked += 1
     assert checked == 5 * 5 * 2 * (1 + 4 * 4)
+
+
+def _attention_ref(qj, kj, vj, causal):
+    """JAX's oracle in the model layout (its causal mask is bottom-right:
+    held only where Sq == Sk)."""
+    B, S, H, hd = qj.shape
+    KV = kj.shape[2]
+    flat = [t.transpose(0, 2, 1, 3).reshape(-1, t.shape[1], hd) for t in (qj, kj, vj)]
+    o = attention_ref(*flat, n_q_heads_per_kv=H // KV, causal=causal)
+    return o.reshape(B, H, S, hd).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", [
+    (1, 128, 128, 2, 2, 16, True),      # MHA
+    (2, 192, 192, 6, 2, 32, True),      # GQA 3:1, three query tiles
+    (1, 256, 256, 5, 1, 64, False),     # MQA, non-causal
+    (1, 128, 128, 6, 2, 128, True),     # qwen2's head dim
+    (1, 64, 192, 4, 2, 64, True),       # Sq < Sk, top-left mask
+    (1, 192, 64, 4, 2, 32, True),       # Sq > Sk: rows past Sk see every key
+    (1, 128, 64, 3, 1, 16, False),
+])
+def test_simt_tiled_vs_pallas_and_ref(B, Sq, Sk, H, KV, hd, causal):
+    """The CUDA-core kernel's tile loop (64 x 64, P in f32) against the
+    Pallas kernel in interpret mode at blocks of 64 (Sq and Sk multiples of
+    them: its ragged key tail leaks) and, where Sq == Sk, against
+    ``attention_ref``. f32: only sum order differs (2e-5)."""
+    (qj, kj, vj), (qt, kt, vt) = _inputs(B, Sq, Sk, H, KV, hd, "f32", 50)
+    got = flash_mha_tiled(qt, kt, vt, causal=causal, **_SIMT)
+    close(got, jax_flash_mha(qj, kj, vj, causal=causal, block_q=64, block_k=64),
+          TOL["flash_f32"])
+    if Sq == Sk:
+        close(got, _attention_ref(qj, kj, vj, causal), TOL["flash_f32"])
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window,n_sink", [
+    (2, 200, 4, 2, 32, 64, 8),          # band edges inside the tiles
+    (1, 300, 5, 5, 64, 100, 7),         # ragged window and sinks, MHA
+    (1, 256, 4, 1, 128, 5, 0),          # window shorter than a tile, MQA
+    (1, 330, 4, 2, 16, 64, 70),         # sinks past the first tile, skipped tiles
+])
+def test_simt_tiled_window_sink_vs_jax(B, S, H, KV, hd, window, n_sink):
+    """Window and sinks: the tile loop at the CUDA-core kernel's tiles
+    against the JAX model's attention (``repro.models.attention.attention``,
+    the mask Hymba runs), f32."""
+    (qj, kj, vj), (qt, kt, vt) = _inputs(B, S, S, H, KV, hd, "f32", 60)
+    kw = dict(causal=True, window=window, n_sink=n_sink)
+    close(flash_mha_tiled(qt, kt, vt, **kw, **_SIMT), jax_attention(qj, kj, vj, **kw),
+          TOL["flash_f32"])
+
+
+# (Sq, Sk, causal, window, n_sink): rows that see no key (Sk = 0; rows past
+# Sk + window - 1 under a window without sinks), ragged tails, both masks
+_LSE_CASES = [(200, 64, True, 16, 0), (5, 0, True, 0, 0), (333, 517, True, 0, 0),
+              (517, 333, True, 100, 7), (77, 300, False, 0, 0), (130, 130, True, 5, 3)]
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,n_sink", _LSE_CASES)
+def test_simt_tiled_lse_vs_logsumexp(Sq, Sk, causal, window, n_sink):
+    """The twin's L (exp2 domain) against ``torch.logsumexp`` of the scaled
+    visible scores over ln 2, 1e-5; a row that sees no key has L = +inf and
+    an output of exactly 0, as the plain version gives."""
+    B, H, KV, hd = 2, 4, 2, 32
+    _, (q, k, v) = _inputs(B, Sq, Sk, H, KV, hd, "f32", 70)
+    kw = dict(causal=causal, window=window, n_sink=n_sink)
+    out, lse = flash_mha_tiled(q, k, v, return_lse=True, **kw, **_SIMT)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(H // KV, 2)) / hd ** 0.5
+    rows, cols = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+    seen = visible(rows, cols, Sk, causal=causal, window=window if causal else 0,
+                   n_sink=n_sink if causal else 0).expand(Sq, Sk)
+    want = torch.logsumexp(s.masked_fill(~seen, float("-inf")), -1) / math.log(2)
+    empty = ~seen.any(1) if Sk else torch.ones(Sq, dtype=torch.bool)
+    want[..., empty] = float("inf")
+    close(lse, want, 1e-5)
+    assert torch.all(out[:, empty] == 0)
+    close(out, flash_mha_ref(q, k, v, **kw), TOL["flash_f32"])
+    if causal and window and not n_sink and Sq > Sk:
+        assert empty.any()          # the case holds rows that see no key

@@ -13,15 +13,17 @@ from _torch_common import (RMS_PLAN_GRID, TOL, close, hw_param_matrix, randn,
                            random_task_arrays, require_sm90)
 from repro_torch.core.vectorized import from_tasks, task_tensors
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.kernel import (WGMMA_HEAD_DIMS, bwd_slots,
-                                                        flash_attention_cuda,
-                                                        flash_attention_wgmma_cuda, lse_rows,
+from repro_torch.kernels.flash_attention.kernel import (SIMT_BLOCK_K, SIMT_BLOCK_Q,
+                                                        SIMT_BLOCKS_PER_SM, WGMMA_HEAD_DIMS,
+                                                        bwd_slots, flash_attention_cuda,
+                                                        flash_attention_wgmma_cuda,
+                                                        flash_kernel_attrs, lse_rows,
                                                         wgmma_kernel_attrs)
 from repro_torch.kernels.flash_attention.kernel import bwd_kernel_attrs as flash_bwd_attrs
 from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.flash_attention.ref import (bwd_split_plan, flash_mha_bwd_ref,
                                                      flash_mha_bwd_tiled, flash_mha_ref,
-                                                     flash_mha_tiled)
+                                                     flash_mha_tiled, visible)
 from repro_torch.kernels.list_schedule import ops as sched_ops
 from repro_torch.kernels.list_schedule.kernel import kernel_plan as sched_kernel_plan
 from repro_torch.kernels.list_schedule.ops import list_schedule
@@ -147,7 +149,7 @@ def test_rmsnorm_c_plan_is_the_python_plan():
 def _flash_launched(q, k, v, **kw):
     """flash_mha(q, k, v, **kw) and the rise of (launches, wgmma_launches):
     bf16 at hd 64/128 with a key is one tensor-core launch, Sk = 0 there
-    none, anything else one scalar launch."""
+    none, anything else one CUDA-core (SIMT) launch."""
     before = flash_mha.launches, flash_mha.wgmma_launches
     got = flash_mha(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -254,6 +256,120 @@ def test_flash_without_window_is_bitwise_the_plain_causal_kernel(causal, monkeyp
     old = flash_mha(q, k, v, causal=causal)
     assert torch.equal(flash_mha(q, k, v, causal=causal, window=0, n_sink=0), old)
     assert torch.equal(flash_mha(q, k, v, causal=causal, window=300, n_sink=0), old)
+
+
+# the CUDA-core forward's twin: its tiles, P kept in f32
+_SIMT_TWIN = dict(block_q=SIMT_BLOCK_Q, block_k=SIMT_BLOCK_K, tensor_cores=False)
+
+
+def _rows_without_keys(Sq, Sk, causal, window, n_sink):
+    rows = torch.arange(Sq)[:, None]
+    cols = torch.arange(max(Sk, 1))[None, :]
+    vis = visible(rows, cols, Sk, causal=causal, window=window if causal else 0,
+                  n_sink=n_sink if causal else 0).expand(Sq, -1)
+    return ~vis.any(1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window,n_sink,dt", [
+    (4, 1024, 1024, 12, 2, 128, True, 0, 0, "f32"),      # qwen2 train
+    (1, 1152, 1152, 25, 5, 64, True, 1024, 128, "f32"),  # hymba, S = window + sinks
+    (1, 700, 700, 25, 5, 64, True, 256, 128, "f32"),     # skipped key tiles
+    (2, 333, 517, 6, 2, 128, True, 0, 0, "f32"),         # tails of neither tile, Sq < Sk
+    (2, 517, 333, 6, 2, 32, True, 0, 0, "f32"),          # Sq > Sk
+    (2, 300, 300, 4, 1, 16, False, 0, 0, "f32"),         # MQA, non-causal
+    (1, 77, 300, 3, 3, 64, False, 0, 0, "f32"),          # MHA, one short query tile
+    (1, 200, 64, 4, 2, 64, True, 16, 0, "f32"),          # rows 79.. see no key
+    (1, 5, 0, 2, 1, 128, True, 0, 0, "f32"),             # no key at all
+    (2, 130, 130, 8, 2, 16, True, 0, 0, "bf16"),         # reduced configs' hd
+    (2, 300, 300, 4, 2, 32, True, 100, 7, "bf16"),
+    (1, 77, 300, 5, 1, 32, False, 0, 0, "bf16"),
+])
+def test_flash_simt_vs_tiled_emulation(B, Sq, Sk, H, KV, hd, causal, window, n_sink, dt,
+                                       monkeypatch):
+    """The CUDA-core kernel against its tile loop in plain torch
+    (``flash_mha_tiled`` at ``SIMT_BLOCK_Q`` x ``SIMT_BLOCK_K``, P in f32):
+    the same tiles, skips and online softmax; what is left is sum order and
+    the hardware exp2. f32 to 1e-4; bf16 to 1e-2, one bf16 rounding of the
+    output (2^-8). A row that sees no key comes out exactly 0, and a second
+    call gives the same bits."""
+    require_sm90()
+    q = torch.from_numpy(randn(21, (B, Sq, H, hd))).to("cuda", _TDT[dt])
+    k = torch.from_numpy(randn(22, (B, Sk, KV, hd))).to("cuda", _TDT[dt])
+    v = torch.from_numpy(randn(23, (B, Sk, KV, hd))).to("cuda", _TDT[dt])
+    kw = dict(causal=causal, window=window, n_sink=n_sink)
+    want = flash_mha_tiled(q, k, v, **kw, **_SIMT_TWIN)
+    _no_plain(monkeypatch)
+    got = _flash_launched(q, k, v, **kw)
+    close(got, want, 1e-4 if dt == "f32" else 1e-2)
+    empty = _rows_without_keys(Sq, Sk, causal, window, n_sink).cuda()
+    assert torch.all(got[:, empty] == 0)
+    assert torch.equal(flash_mha(q, k, v, **kw), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_simt_instances_agree_bitwise(hd, dt):
+    """The instances built for one and for two blocks an SM (P in a tile of
+    its own, or in K's) do the same arithmetic in the same order: outputs
+    and L equal bit for bit, with and without a window."""
+    require_sm90()
+    B, S, H, KV = 2, 300, 6, 2
+    q = torch.from_numpy(randn(24, (B, S, H, hd))).to("cuda", _TDT[dt])
+    k = torch.from_numpy(randn(25, (B, S, KV, hd))).to("cuda", _TDT[dt])
+    v = torch.from_numpy(randn(26, (B, S, KV, hd))).to("cuda", _TDT[dt])
+    for kw in (dict(causal=True), dict(causal=True, window=100, n_sink=7),
+               dict(causal=False)):
+        outs = []
+        for blocks in (0, *SIMT_BLOCKS_PER_SM):
+            out = torch.empty_like(q)
+            lse = torch.empty((B * H, lse_rows(S)), device="cuda")
+            flash_attention_cuda(q, k, v, out, lse=lse, blocks=blocks, **kw)
+            outs.append((out, lse[:, :S]))
+        torch.cuda.synchronize()
+        for out, lse in outs[1:]:
+            assert torch.equal(out, outs[0][0]) and torch.equal(lse, outs[0][1]), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_forward_simt_attrs(hd, dt):
+    """Registers, spill and shared memory of every CUDA-core forward
+    instance (serve and L, one and two blocks an SM): none spills, f32 at hd
+    128 included; the two-block instance fits two blocks in an SM's
+    registers (65,536) and shared memory (228 KiB, 1 KiB of it reserved per
+    block); the call's default is one of the two."""
+    require_sm90()
+    for lse in (False, True):
+        for blocks in SIMT_BLOCKS_PER_SM:
+            a = flash_kernel_attrs(hd, _TDT[dt], lse, blocks)
+            assert a["blocks_per_sm"] == blocks and a["registers"] > 0, a
+            assert a["spill_bytes"] == 0, a
+            assert blocks * 256 * a["registers"] <= 65536, a
+            assert blocks * (a["smem_bytes"] + 1024) <= 228 * 1024, a
+        assert flash_kernel_attrs(hd, _TDT[dt], lse)["blocks_per_sm"] in SIMT_BLOCKS_PER_SM
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,hd", [("f32", 128), ("f32", 16), ("bf16", 32)])
+def test_flash_simt_reads_misaligned_inputs(dt, hd, monkeypatch):
+    """Contiguous q, k, v that do not start on 16 bytes: the CUDA-core
+    kernel stages them element by element (its 16-byte loads need aligned
+    rows) and writes what the aligned call writes, bit for bit."""
+    require_sm90()
+    shapes = ((2, 200, 4, hd), (2, 200, 2, hd), (2, 200, 2, hd))
+    mis = []
+    for i, shape in enumerate(shapes):
+        n = shape[0] * shape[1] * shape[2] * shape[3]
+        buf = torch.from_numpy(randn(27 + i, (n + 1,))).to("cuda", _TDT[dt])
+        mis.append(buf[1:].view(shape))
+        assert mis[-1].data_ptr() % 16
+    aligned = [t.clone() for t in mis]
+    _no_plain(monkeypatch)
+    for kw in (dict(causal=True), dict(causal=True, window=50, n_sink=3)):
+        assert torch.equal(_flash_launched(*mis, **kw), _flash_launched(*aligned, **kw))
 
 
 @pytest.mark.gpu
@@ -574,22 +690,24 @@ def test_flash_backward_sq_ne_sk_cuda_vs_plain(Sq, Sk, hd, causal, dt, monkeypat
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_forward_lse_instance(B, S, H, KV, hd, causal, window, n_sink, dt):
     """The forward instance that stores L writes the serve instance's output
-    bit for bit, and L equal to its tile loop's (exp2 domain) to 1e-4 (bf16:
-    the scores are the same bf16 products, summed in another order)."""
+    bit for bit, and L equal to its own kernel's tile loop's (exp2 domain;
+    the CUDA-core kernel's twin at 64 x 64 with P in f32, the tensor-core
+    kernel's at 128 x 128) to 1e-4 (bf16: the scores are the same bf16
+    products, summed in another order)."""
     require_sm90()
     q = torch.from_numpy(randn(6, (B, S, H, hd))).to("cuda", _TDT[dt])
     k = torch.from_numpy(randn(7, (B, S, KV, hd))).to("cuda", _TDT[dt])
     v = torch.from_numpy(randn(8, (B, S, KV, hd))).to("cuda", _TDT[dt])
     kw = dict(causal=causal, window=window, n_sink=n_sink)
-    launch = (flash_attention_wgmma_cuda if dt == "bf16" and hd in WGMMA_HEAD_DIMS
-              else flash_attention_cuda)
+    tc = dt == "bf16" and hd in WGMMA_HEAD_DIMS
+    launch = flash_attention_wgmma_cuda if tc else flash_attention_cuda
     plain, with_l = torch.empty_like(q), torch.empty_like(q)
     lse = torch.full((B * H, lse_rows(S)), float("nan"), device="cuda")
     launch(q, k, v, plain, **kw)
     launch(q, k, v, with_l, lse=lse, **kw)
     torch.cuda.synchronize()
     assert torch.equal(plain, with_l)
-    _, want = flash_mha_tiled(q, k, v, return_lse=True, **kw)
+    _, want = flash_mha_tiled(q, k, v, return_lse=True, **kw, **({} if tc else _SIMT_TWIN))
     close(lse.view(B, H, -1)[:, :, :S], want, 1e-4)
 
 
