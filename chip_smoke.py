@@ -44,9 +44,9 @@ each of which fails the run (non-zero exit, no result line):
      one synchronize). Flash: bf16 at hd 64/128 must run the
      tensor-core kernel, everything else the CUDA-core (SIMT) one; at the
      main shapes the instance, its registers, spill and shared memory, the
-     share of its bound and its ratio to SDPA are printed; in f32 each
-     CUDA-core instance (one and two blocks an SM), forced, is timed in
-     turns, beside the previous (scalar) design's time;
+     share of its bound and its ratio to SDPA are printed (the CUDA-core
+     instance's blocks an SM from the card's occupancy calculator); in f32
+     beside the previous (scalar) design's time;
   4. model  — each model in f32: prefill + 2 decode steps match forward
      logits (hymba's 1100-token prompt wraps its window ring);
   5. serve  — each model in bf16 through ServeEngine: 8 requests, one
@@ -643,9 +643,7 @@ def backends_on_the_card(run_campaign, golden):
 def phase_kernels(torch):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import (SIMT_BLOCKS_PER_SM,
-                                                            WGMMA_HEAD_DIMS,
-                                                            flash_attention_cuda,
+    from repro_torch.kernels.flash_attention.kernel import (WGMMA_HEAD_DIMS,
                                                             flash_kernel_attrs,
                                                             wgmma_kernel_attrs)
     from repro_torch.kernels.flash_attention.ops import flash_mha
@@ -788,22 +786,13 @@ def phase_kernels(torch):
             else:
                 inst = dict(flash_kernel_attrs(hd, dt), design=SIMT_DESIGN)
                 log(f"    instance {SIMT_DESIGN}, {inst['blocks_per_sm']} blocks an SM "
-                    f"({_attrs_str(inst)}) | kernel/SDPA {ms / lib:.2f}x | "
-                    f"{100 * bound / ms:.1f}% of its bound ({ops / ms / 1e9:.1f} TFLOP/s)")
-                # each instance forced, timed in turns (one SM's worth of blocks
-                # against two), and the previous design's reading
-                out = torch.empty_like(q)
-                for blocks in SIMT_BLOCKS_PER_SM + SIMT_BLOCKS_PER_SM[::-1]:
-                    t = timer(lambda: flash_attention_cuda(q, k, v, out, blocks=blocks, **kw))
-                    log(f"    forced {blocks} block(s) an SM: {t:.3f} ms "
-                        f"({_attrs_str(flash_kernel_attrs(hd, dt, blocks=blocks))})")
-                    inst.setdefault(f"ms_{blocks}_blocks_per_sm", []).append(t)
+                    f"(occupancy calculator; {_attrs_str(inst)}) | kernel/SDPA "
+                    f"{ms / lib:.2f}x | {100 * bound / ms:.1f}% of its bound "
+                    f"({ops / ms / 1e9:.1f} TFLOP/s)")
                 prev = BEFORE_MS.get(("flash_attention_fwd_serve", case, dn))
                 if prev is not None:
                     log(f"    before (scalar design, serve instance): {prev:.3f} ms, "
                         f"{100 * bound / prev:.1f}% of its bound; now {prev / ms:.2f}x faster")
-                    inst["before_ms"] = prev
-                del out
             rows[("flash", case, dn)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by=by, library_ms=lib, **inst)

@@ -53,9 +53,7 @@ _SIGNATURES = {
     "repro_rmsnorm_bwd_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP),
     "repro_flash_attention": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                               _INT, _INT, _INT, _INT, _INT, _F32, _INT, _VP),
-    "repro_flash_attention_variant": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                                      _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT, _VP),
-    "repro_flash_attention_attrs": (_INT, _INT, _INT, _INT, _INTP, _INTP, _INTP, _INTP),
+    "repro_flash_attention_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP, _INTP),
     "repro_flash_attention_wgmma": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                                     _INT, _INT, _INT, _INT, _F32, _VP),
     "repro_flash_attention_wgmma_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP),

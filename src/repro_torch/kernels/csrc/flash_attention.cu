@@ -42,13 +42,13 @@
 // band and sink edges, ragged Sq and Sk tails: `tile_needs_mask`) test each
 // pair; tails are masked, never padded. No atomics: every sum has one order.
 //
-// Occupancy (kBlocks): at hd 128 the Q, K, V and P tiles take 116 KiB, one
-// block an SM. The two-block instance writes P into K's tile once every
-// thread has formed its S (one more barrier a tile), so Q, K/P and V take
-// 99 KiB and two blocks (16 warps) share an SM, each hiding the other's
-// staging; its registers are capped at 128 a thread. kDefaultBlocks picks
-// the instance a call runs; the other stays for measurement
-// (repro_flash_attention_variant).
+// Occupancy: two blocks an SM (16 warps), each hiding the other's staging.
+// At hd 128 the Q, K, V and P tiles would take 116 KiB, one block an SM; so
+// where K's tile holds P (hd >= 64), P is written into it once every thread
+// has formed its S (one more barrier a tile), and Q, K/P and V take 99 KiB.
+// Registers are capped at 128 a thread (__launch_bounds__). A build for one
+// block an SM (P in a tile of its own, no cap) was 10-23% slower at every
+// shape chip_smoke.py times (PERF.md).
 //
 // GQA: q head h of batch b reads kv head h / (H / KV). The kernel allocates
 // nothing and launches on the caller's stream.
@@ -60,34 +60,32 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr int kMaxDevices = 64;
 
-template <int HD, int kBlocks>
+constexpr int kBlocksPerSm = 2;
+
+template <int HD>
 struct FwdCfg {
   using M = SimtSmem<HD>;
-  // P in K's tile when two blocks share an SM and the tile holds it (hd >= 64)
-  static constexpr bool kShareP = kBlocks == 2 && M::kRowTile >= M::kPTile;
+  // P in K's tile where the tile holds it (hd >= 64)
+  static constexpr bool kShareP = M::kRowTile >= M::kPTile;
   static constexpr int kSmem = 4 * (3 * M::kRowTile + (kShareP ? 0 : M::kPTile));
 };
 
-// 16-byte loads in flight a thread while staging: under the two-block cap of
-// 128 registers, 16 floats' worth (4 loads of f32, 2 of bf16) beside the
-// accumulators; else all of them
-template <typename T, int kBlocks>
-constexpr int kLoadGroup = kBlocks == 2 ? static_cast<int>(sizeof(T)) : 0;
-
-// The instance a call runs (kBlocks): two blocks an SM beat one at every
-// shape chip_smoke.py times (PERF.md)
-constexpr int kDefaultBlocks = 2;
+// 16-byte loads in flight a thread while staging: under the cap of 128
+// registers, 16 floats' worth (4 loads of f32, 2 of bf16) beside the
+// accumulators
+template <typename T>
+constexpr int kLoadGroup = static_cast<int>(sizeof(T));
 
 // q, o: [B, Sq, H, HD]; k, v: [B, Sk, KV, HD]; all contiguous. kLse: also
 // store each row's logsumexp for the backward, in the exp2 domain:
 // lse[bh * lse_stride + row] = m * scale * log2(e) + log2(l), +inf for a row
 // that sees no key. The serve path launches the instance without it; the
 // two compute the output with the same code.
-template <typename T, int HD, bool kLse, int kBlocks>
-__global__ void __launch_bounds__(kThreads, kBlocks)
+template <typename T, int HD, bool kLse>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                T* __restrict__ o, float* __restrict__ lse, Shape sh) {
-  using C = FwdCfg<HD, kBlocks>;
+  using C = FwdCfg<HD>;
   using M = SimtSmem<HD>;
   using CC = Cols<HD>;
   constexpr int ld = HD + kLd;
@@ -105,7 +103,7 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const float sl2 = sh.scale_log2;
 
-  stage_rows<T, HD, kLoadGroup<T, kBlocks>>(qs, q, b, sh.Sq, sh.H, h, q0);
+  stage_rows<T, HD, kLoadGroup<T>>(qs, q, b, sh.Sq, sh.H, h, q0);
   float m[4], l[4], acc[4][CC::kCount];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -119,8 +117,8 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     if (!key_tile_visited(k0, q0, sh)) continue;   // uniform per block
     __syncthreads();                               // the previous tile is consumed
-    stage_rows<T, HD, kLoadGroup<T, kBlocks>>(ks, k, b, sh.Sk, sh.KV, kvh, k0);
-    stage_rows<T, HD, kLoadGroup<T, kBlocks>>(vs, v, b, sh.Sk, sh.KV, kvh, k0);
+    stage_rows<T, HD, kLoadGroup<T>>(ks, k, b, sh.Sk, sh.KV, kvh, k0);
+    stage_rows<T, HD, kLoadGroup<T>>(vs, v, b, sh.Sk, sh.KV, kvh, k0);
     __syncthreads();
     float s[4][4] = {};
     dot_4x4<HD>(s, qs, 4 * ty, 1, ks, tx, 16);
@@ -203,15 +201,15 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
 // dynamic shared memory above 48 KiB: an attribute of each device and
 // kernel instance, set once per device
-template <typename T, int HD, bool kLse, int kBlocks>
+template <typename T, int HD, bool kLse>
 cudaError_t allow_smem() {
-  constexpr int bytes = FwdCfg<HD, kBlocks>::kSmem;
+  constexpr int bytes = FwdCfg<HD>::kSmem;
   static bool set[kMaxDevices] = {};
   if (bytes <= 48 * 1024) return cudaSuccess;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < kMaxDevices && set[dev])) return e;
-  e = cudaFuncSetAttribute(flash_attention_simt<T, HD, kLse, kBlocks>,
+  e = cudaFuncSetAttribute(flash_attention_simt<T, HD, kLse>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess && dev < kMaxDevices) set[dev] = true;
   return e;
@@ -225,69 +223,51 @@ struct Args {
   Shape sh;
 };
 
-template <typename T, int HD, bool kLse, int kBlocks>
+template <typename T, int HD, bool kLse>
 int launch(const Args& a, cudaStream_t s) {
-  cudaError_t e = allow_smem<T, HD, kLse, kBlocks>();
+  cudaError_t e = allow_smem<T, HD, kLse>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_attention_simt<T, HD, kLse, kBlocks>
-      <<<dim3(a.B * a.sh.H, cdiv(a.sh.Sq, kTile)), kThreads, FwdCfg<HD, kBlocks>::kSmem, s>>>(
+  flash_attention_simt<T, HD, kLse>
+      <<<dim3(a.B * a.sh.H, cdiv(a.sh.Sq, kTile)), kThreads, FwdCfg<HD>::kSmem, s>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
           static_cast<T*>(a.o), a.lse, a.sh);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename K>
-int attrs_of(K kernel, int dyn_smem, int* attr) {
+// registers, local bytes and shared memory of the instance, and the blocks
+// of it an SM of the current device holds (the occupancy calculator)
+template <typename T, int HD, bool kLse>
+int attrs_of(int* attr) {
+  constexpr int smem = FwdCfg<HD>::kSmem;
+  cudaError_t e = allow_smem<T, HD, kLse>();
+  if (e != cudaSuccess) return static_cast<int>(e);
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  e = cudaFuncGetAttributes(&fa, flash_attention_simt<T, HD, kLse>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&attr[3], flash_attention_simt<T, HD, kLse>,
+                                                    kThreads, smem);
   attr[0] = fa.numRegs;
   attr[1] = static_cast<int>(fa.localSizeBytes);
-  attr[2] = static_cast<int>(fa.sharedSizeBytes) + dyn_smem;
-  return 0;
+  attr[2] = static_cast<int>(fa.sharedSizeBytes) + smem;
+  return static_cast<int>(e);
 }
 
 // launch the instance (attr == nullptr), or report its attributes
-template <typename T, int HD, int kBlocks>
-int run(const Args& a, cudaStream_t s, int* attr) {
-  constexpr int smem = FwdCfg<HD, kBlocks>::kSmem;
-  if (attr != nullptr)
-    return a.lse ? attrs_of(flash_attention_simt<T, HD, true, kBlocks>, smem, attr)
-                 : attrs_of(flash_attention_simt<T, HD, false, kBlocks>, smem, attr);
-  return a.lse ? launch<T, HD, true, kBlocks>(a, s) : launch<T, HD, false, kBlocks>(a, s);
-}
-
 template <typename T, int HD>
-int run_hd(const Args& a, int blocks, cudaStream_t s, int* attr) {
-  if (blocks == 0) blocks = kDefaultBlocks;
-  if (blocks == 1) return run<T, HD, 1>(a, s, attr);
-  if (blocks == 2) return run<T, HD, 2>(a, s, attr);
-  return static_cast<int>(cudaErrorInvalidValue);
+int run(const Args& a, cudaStream_t s, int* attr) {
+  if (attr != nullptr) return a.lse ? attrs_of<T, HD, true>(attr) : attrs_of<T, HD, false>(attr);
+  return a.lse ? launch<T, HD, true>(a, s) : launch<T, HD, false>(a, s);
 }
 
 template <typename T>
-int dispatch(const Args& a, int hd, int blocks, cudaStream_t s, int* attr) {
+int dispatch(const Args& a, int hd, cudaStream_t s, int* attr) {
   switch (hd) {
-    case 16: return run_hd<T, 16>(a, blocks, s, attr);
-    case 32: return run_hd<T, 32>(a, blocks, s, attr);
-    case 64: return run_hd<T, 64>(a, blocks, s, attr);
-    case 128: return run_hd<T, 128>(a, blocks, s, attr);
+    case 16: return run<T, 16>(a, s, attr);
+    case 32: return run<T, 32>(a, s, attr);
+    case 64: return run<T, 64>(a, s, attr);
+    case 128: return run<T, 128>(a, s, attr);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-int forward(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Sq,
-            int Sk, int H, int KV, int hd, int causal, int window, int n_sink, float scale,
-            int dtype, int blocks, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk < 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
-      n_sink < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, static_cast<float*>(lse), B,
-               make_shape(Sq, Sk, H, KV, scale, causal, window, n_sink)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, hd, blocks, s, nullptr);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, hd, blocks, s, nullptr);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -301,37 +281,31 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      void* lse, int B, int Sq, int Sk, int H, int KV, int hd,
                                      int causal, int window, int n_sink, float scale,
                                      int dtype, void* stream) {
-  return forward(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, causal, window, n_sink, scale, dtype,
-                 0, stream);
-}
-
-// The same with the instance built for `blocks` blocks an SM (1 or 2; 0: the
-// one repro_flash_attention runs), for measuring one against the other.
-extern "C" int repro_flash_attention_variant(const void* q, const void* k, const void* v,
-                                             void* o, void* lse, int B, int Sq, int Sk, int H,
-                                             int KV, int hd, int causal, int window,
-                                             int n_sink, float scale, int dtype, int blocks,
-                                             void* stream) {
-  return forward(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, causal, window, n_sink, scale, dtype,
-                 blocks, stream);
+  if (B <= 0 || Sq <= 0 || Sk < 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
+      n_sink < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, o, static_cast<float*>(lse), B,
+               make_shape(Sq, Sk, H, KV, scale, causal, window, n_sink)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float>(a, hd, s, nullptr);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(a, hd, s, nullptr);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Registers per thread, local (spill) bytes per thread and shared memory per
-// block of the instance a call at (hd, dtype) launches: with lse != 0 the
-// one that stores L; blocks as for repro_flash_attention_variant. *blocks_out
-// receives the blocks an SM of that instance.
-extern "C" int repro_flash_attention_attrs(int hd, int dtype, int lse, int blocks,
-                                           int* blocks_out, int* regs, int* local_bytes,
-                                           int* smem_bytes) {
-  int attr[3] = {0, 0, 0};
+// block of the instance a call at (hd, dtype) launches (with lse != 0 the
+// one that stores L), and the blocks of it an SM of the current device holds.
+extern "C" int repro_flash_attention_attrs(int hd, int dtype, int lse, int* blocks_per_sm,
+                                           int* regs, int* local_bytes, int* smem_bytes) {
+  int attr[4] = {0, 0, 0, 0};
   float dummy = 0.f;
   const Args a{nullptr, nullptr, nullptr, nullptr, lse ? &dummy : nullptr, 0, Shape{}};
   int err = static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) err = dispatch<float>(a, hd, blocks, nullptr, attr);
-  if (dtype == 1) err = dispatch<__nv_bfloat16>(a, hd, blocks, nullptr, attr);
-  *blocks_out = blocks == 0 ? kDefaultBlocks : blocks;
+  if (dtype == 0) err = dispatch<float>(a, hd, nullptr, attr);
+  if (dtype == 1) err = dispatch<__nv_bfloat16>(a, hd, nullptr, attr);
   *regs = attr[0];
   *local_bytes = attr[1];
   *smem_bytes = attr[2];
+  *blocks_per_sm = attr[3];
   return err;
 }

@@ -6,10 +6,9 @@ CUDA kernels read the model layout [B, S, H, hd] / [B, S, KV, hd] directly,
 so no transpose is materialised around them.
 
 * ``flash_attention_cuda`` — ``csrc/flash_attention.cu``: register-tiled
-  f32 products on the CUDA cores (SIMT; ``SIMT_BLOCK_Q`` query rows a
-  block, key tiles of ``SIMT_BLOCK_K``), f32 or bf16, head dims
-  ``HEAD_DIMS``; instances built for one and for two blocks an SM
-  (``SIMT_BLOCKS_PER_SM``), every call runs the two-block one.
+  f32 products on the CUDA cores (SIMT; ``SIMT_TILE`` query rows a block,
+  key tiles of ``SIMT_TILE``, two blocks an SM), f32 or bf16, head dims
+  ``HEAD_DIMS``.
 * ``flash_attention_wgmma_cuda`` — ``csrc/flash_attention_wgmma.cu``: bf16
   on the tensor cores (wgmma) with K/V streamed by TMA, head dims
   ``WGMMA_HEAD_DIMS``, Sk > 0, 16-byte aligned tensors.
@@ -37,8 +36,7 @@ import torch
 from .. import _build
 
 __all__ = ["HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BLOCK_Q", "WGMMA_BLOCK_K",
-           "SIMT_BLOCK_Q", "SIMT_BLOCK_K", "SIMT_BLOCKS_PER_SM", "flash_kernel_attrs",
-           "BWD_TILE", "BWD_SPLIT_UNITS", "BWD_KERNELS", "lse_rows",
+           "SIMT_TILE", "flash_kernel_attrs", "BWD_SPLIT_UNITS", "BWD_KERNELS", "lse_rows",
            "flash_attention_cuda", "flash_attention_wgmma_cuda",
            "flash_attention_bwd_cuda", "bwd_slots", "wgmma_kernel_attrs",
            "bwd_kernel_attrs"]
@@ -52,11 +50,7 @@ WGMMA_BLOCK_K = 128
 # the tile of the CUDA-core kernels (kTile in csrc/flash_simt.cuh): keys per
 # key tile and rows per query tile in every backward kernel and in the
 # CUDA-core forward; L and D rows are padded to it
-BWD_TILE = 64
-SIMT_BLOCK_Q = SIMT_BLOCK_K = BWD_TILE
-# the blocks an SM the CUDA-core forward's instances are built for (kBlocks
-# in csrc/flash_attention.cu)
-SIMT_BLOCKS_PER_SM = (1, 2)
+SIMT_TILE = 64
 # most (head, query tile) units one dK/dV block walks (kSplitUnits)
 BWD_SPLIT_UNITS = 32
 # the backward's kernels, by the `kind` of repro_flash_attention_bwd_attrs
@@ -64,8 +58,8 @@ BWD_KERNELS = ("dq", "dkdv", "delta", "finalize")
 
 
 def lse_rows(Sq: int) -> int:
-    """Row stride of L and D: Sq rounded up to ``BWD_TILE``."""
-    return -(-Sq // BWD_TILE) * BWD_TILE
+    """Row stride of L and D: Sq rounded up to ``SIMT_TILE``."""
+    return -(-Sq // SIMT_TILE) * SIMT_TILE
 
 
 def _ptr(t) -> int | None:
@@ -74,25 +68,19 @@ def _ptr(t) -> int | None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, *, causal: bool, window: int = 0,
-                         n_sink: int = 0, lse: torch.Tensor | None = None,
-                         blocks: int = 0) -> None:
+                         n_sink: int = 0, lse: torch.Tensor | None = None) -> None:
     """Launch the CUDA-core (SIMT) kernel into ``out`` [B,Sq,H,hd] with
     scale 1/sqrt(hd) (and L into ``lse``, if given); the caller has checked
-    device, dtype, shapes and contiguity. ``blocks``: 0 runs the instance
-    every call runs (two blocks an SM); 1 or 2 forces the one built for
-    that many blocks an SM (for measurement)."""
+    device, dtype, shapes and contiguity."""
     lib = _build.load()
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-            B, Sq, Sk, H, KV, hd, int(causal), int(window), int(n_sink),
-            1.0 / math.sqrt(hd), _build.DTYPE_CODES[q.dtype])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if blocks:
-        _build.check("repro_flash_attention_variant",
-                     lib.repro_flash_attention_variant(*args, blocks, stream))
-    else:
-        _build.check("repro_flash_attention", lib.repro_flash_attention(*args, stream))
+    err = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+        B, Sq, Sk, H, KV, hd, int(causal), int(window), int(n_sink),
+        1.0 / math.sqrt(hd), _build.DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("repro_flash_attention", err)
 
 
 def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -138,7 +126,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, KV = k.shape[1], k.shape[2]
     n_slots = bwd_slots(Sq, Sk, H, KV, causal=causal, window=window, n_sink=n_sink)
     delta = torch.empty((B * H, lse_rows(Sq)), dtype=torch.float32, device=q.device)
-    part_k = torch.empty((B * KV, n_slots, BWD_TILE, hd), dtype=torch.float32,
+    part_k = torch.empty((B * KV, n_slots, SIMT_TILE, hd), dtype=torch.float32,
                          device=q.device)
     part_v = torch.empty_like(part_k)
     err = lib.repro_flash_attention_bwd(
@@ -158,16 +146,15 @@ def _attrs(name: str, *args) -> dict:
             "smem_bytes": smem.value}
 
 
-def flash_kernel_attrs(hd: int, dtype: torch.dtype, lse: bool = False,
-                       blocks: int = 0) -> dict:
+def flash_kernel_attrs(hd: int, dtype: torch.dtype, lse: bool = False) -> dict:
     """Registers per thread, spill bytes per thread and shared memory per
     block of the CUDA-core forward at ``hd`` in ``dtype``
-    (cudaFuncGetAttributes), and the blocks an SM its instance is built
-    for; ``lse``: the instance that stores L (autograd), else the serve
-    path's; ``blocks`` as for ``flash_attention_cuda``."""
+    (cudaFuncGetAttributes), and the blocks of it an SM of the current card
+    holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor); ``lse``: the
+    instance that stores L (autograd), else the serve path's."""
     n = ctypes.c_int()
     a = _attrs("repro_flash_attention_attrs", hd, _build.DTYPE_CODES[dtype], int(lse),
-               int(blocks), ctypes.byref(n))
+               ctypes.byref(n))
     return {"blocks_per_sm": n.value, **a}
 
 

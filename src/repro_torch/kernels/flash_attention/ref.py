@@ -38,8 +38,8 @@ tests: the same key tiles, chosen by ``tile_visited`` (the twin of the
 kernels' predicate), the same online softmax per tile on raw scores with
 ``exp2``, ``l`` summed over the f32 p. At ``WGMMA_BLOCK_Q`` x
 ``WGMMA_BLOCK_K`` with P rounded to the input dtype before ``P·V``, the
-tensor-core kernel (``csrc/flash_attention_wgmma.cu``); at ``SIMT_BLOCK_Q``
-x ``SIMT_BLOCK_K`` with ``tensor_cores=False`` (P stays f32), the CUDA-core
+tensor-core kernel (``csrc/flash_attention_wgmma.cu``); at ``SIMT_TILE``
+x ``SIMT_TILE`` with ``tensor_cores=False`` (P stays f32), the CUDA-core
 kernel (``csrc/flash_attention.cu``). Nothing on the model path calls it.
 """
 from __future__ import annotations
@@ -52,7 +52,7 @@ from typing import NamedTuple
 
 import torch.nn.functional as F
 
-from .kernel import BWD_SPLIT_UNITS, BWD_TILE, WGMMA_BLOCK_K, WGMMA_BLOCK_Q, lse_rows
+from .kernel import BWD_SPLIT_UNITS, SIMT_TILE, WGMMA_BLOCK_K, WGMMA_BLOCK_Q, lse_rows
 
 __all__ = ["NEG", "flash_mha_ref", "flash_mha_bwd_ref", "tile_visited", "flash_mha_tiled",
            "visible", "bwd_key_tile_visited", "bwd_tile_needs_mask", "bwd_key_tile_rows",
@@ -187,17 +187,17 @@ def visible(rows: torch.Tensor, cols: torch.Tensor, Sk: int, *, causal: bool,
 
 def bwd_key_tile_visited(k0: int, q0: int, Sk: int, *, causal: bool, window: int = 0,
                          n_sink: int = 0) -> bool:
-    """The dQ kernels' ``key_tile_visited``: does key tile [k0, k0+BWD_TILE)
-    hold a visible pair for a row of [q0, q0+BWD_TILE)?"""
-    return tile_visited(k0, q0, BWD_TILE, BWD_TILE, Sk, causal=causal, window=window,
+    """The dQ kernels' ``key_tile_visited``: does key tile [k0, k0+SIMT_TILE)
+    hold a visible pair for a row of [q0, q0+SIMT_TILE)?"""
+    return tile_visited(k0, q0, SIMT_TILE, SIMT_TILE, Sk, causal=causal, window=window,
                         n_sink=n_sink)
 
 
 def bwd_tile_needs_mask(q0: int, k0: int, Sq: int, Sk: int, *, causal: bool,
                         window: int = 0, n_sink: int = 0) -> bool:
     """The kernels' ``tile_needs_mask``: False only when every pair of the
-    tile [q0, q0+BWD_TILE) x [k0, k0+BWD_TILE) is visible."""
-    t = BWD_TILE
+    tile [q0, q0+SIMT_TILE) x [k0, k0+SIMT_TILE) is visible."""
+    t = SIMT_TILE
     if q0 + t > Sq or k0 + t > Sk:
         return True
     if not causal:
@@ -209,22 +209,22 @@ def bwd_tile_needs_mask(q0: int, k0: int, Sq: int, Sk: int, *, causal: bool,
 
 def bwd_key_tile_rows(j: int, Sq: int, Sk: int, *, causal: bool, window: int = 0,
                       n_sink: int = 0) -> tuple:
-    """(q_lo, n_qt): the BWD_TILE-row query tiles q_lo, q_lo + BWD_TILE, ...
+    """(q_lo, n_qt): the SIMT_TILE-row query tiles q_lo, q_lo + SIMT_TILE, ...
     that can see key tile j (``key_tile_rows`` in the kernel)."""
-    k0 = j * BWD_TILE
+    k0 = j * SIMT_TILE
     if k0 >= Sk:
         return 0, 0
     lo, hi = 0, Sq
     if causal:
         lo = k0
         if window > 0 and k0 >= n_sink:
-            hi = min(Sq, min(Sk, k0 + BWD_TILE) - 1 + window)
-    return lo, (-(-(hi - lo) // BWD_TILE) if hi > lo else 0)
+            hi = min(Sq, min(Sk, k0 + SIMT_TILE) - 1 + window)
+    return lo, (-(-(hi - lo) // SIMT_TILE) if hi > lo else 0)
 
 
 class BwdItem(NamedTuple):
     """One dK/dV block: key tile j, units [u0, u1) of its G·n_qt (unit u is
-    head u // n_qt, query tile q_lo + (u % n_qt)·BWD_TILE), partial slot."""
+    head u // n_qt, query tile q_lo + (u % n_qt)·SIMT_TILE), partial slot."""
     j: int
     q_lo: int
     n_qt: int
@@ -241,7 +241,7 @@ def bwd_split_plan(Sq: int, Sk: int, G: int, *, causal: bool, window: int = 0,
     if not causal:
         window = n_sink = 0
     items = []
-    for j in range(-(-Sk // BWD_TILE)):
+    for j in range(-(-Sk // SIMT_TILE)):
         q_lo, n_qt = bwd_key_tile_rows(j, Sq, Sk, causal=causal, window=window,
                                        n_sink=n_sink)
         units = G * n_qt
@@ -276,7 +276,7 @@ def flash_mha_bwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _, lse = flash_mha_tiled(q, k, v, return_lse=True, **mask)
     scale = 1.0 / math.sqrt(hd)
     sl2 = scale * math.log2(math.e)
-    t = BWD_TILE
+    t = SIMT_TILE
     dev = q.device
     rnd = _bf16 if tensor_cores else (lambda x: x)
     sq_pad, sk_pad = lse_rows(Sq), -(-Sk // t) * t

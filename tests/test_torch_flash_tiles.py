@@ -1,8 +1,8 @@
 """The tile loops of the flash forward kernels on the CPU, through their
 plain-torch emulation ``flash_mha_tiled``: the tensor-core kernel's
 (``csrc/flash_attention_wgmma.cu``, 128 x 128, P rounded to the input dtype)
-and the CUDA-core kernel's (``csrc/flash_attention.cu``, ``SIMT_BLOCK_Q`` x
-``SIMT_BLOCK_K``, P in f32), against the Pallas kernel in interpret mode,
+and the CUDA-core kernel's (``csrc/flash_attention.cu``, ``SIMT_TILE`` x
+``SIMT_TILE``, P in f32), against the Pallas kernel in interpret mode,
 against JAX's ``attention_ref`` and ``models.attention.attention`` (window
 and sinks), against the plain version, L against ``torch.logsumexp``, and
 the tile-skip predicate against the mask itself. The kernels against the
@@ -20,8 +20,7 @@ from _torch_common import TOL, close, randn
 from repro.kernels.flash_attention.ops import flash_mha as jax_flash_mha
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.models.attention import attention as jax_attention
-from repro_torch.kernels.flash_attention.kernel import (SIMT_BLOCK_K, SIMT_BLOCK_Q,
-                                                        WGMMA_BLOCK_K, WGMMA_BLOCK_Q)
+from repro_torch.kernels.flash_attention.kernel import SIMT_TILE, WGMMA_BLOCK_K, WGMMA_BLOCK_Q
 from repro_torch.kernels.flash_attention.ref import (NEG, flash_mha_ref, flash_mha_tiled,
                                                      tile_visited, visible)
 
@@ -29,9 +28,9 @@ _JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 _TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 # (block_q, block_k): the kernel's tiles, and a smaller pair that puts
 # several tiles in the small shapes
-_TILES = [(WGMMA_BLOCK_Q, WGMMA_BLOCK_K), (64, 32), (SIMT_BLOCK_Q, SIMT_BLOCK_K)]
+_TILES = [(WGMMA_BLOCK_Q, WGMMA_BLOCK_K), (64, 32), (SIMT_TILE, SIMT_TILE)]
 # the CUDA-core kernel's twin: its tiles, P kept in f32
-_SIMT = dict(block_q=SIMT_BLOCK_Q, block_k=SIMT_BLOCK_K, tensor_cores=False)
+_SIMT = dict(block_q=SIMT_TILE, block_k=SIMT_TILE, tensor_cores=False)
 
 
 def _inputs(B, Sq, Sk, H, KV, hd, dt, seed):
@@ -95,7 +94,7 @@ def _visible(Sq, Sk, causal, window, n_sink):
 
 
 @pytest.mark.parametrize("block_q,block_k", [(128, 128), (64, 32), (16, 48), (8, 8),
-                                             (SIMT_BLOCK_Q, SIMT_BLOCK_K)])
+                                             (SIMT_TILE, SIMT_TILE)])
 def test_skip_predicate_is_exact_for_the_mask(block_q, block_k):
     """Exhaustive over small shapes: every skipped tile holds no visible
     pair, and every visible pair lies in a visited tile."""

@@ -39,7 +39,7 @@ from _torch_common import randn
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rmsnorm_ref
 from repro.models.attention import attention as jax_attention
-from repro_torch.kernels.flash_attention.kernel import BWD_SPLIT_UNITS, BWD_TILE
+from repro_torch.kernels.flash_attention.kernel import BWD_SPLIT_UNITS, SIMT_TILE
 from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.flash_attention.ref import (bwd_key_tile_rows, bwd_key_tile_visited,
                                                      bwd_split_plan, bwd_tile_needs_mask,
@@ -176,36 +176,36 @@ def _vis(Sq, Sk, causal, window, n_sink):
 
 @pytest.mark.parametrize("causal,window,n_sink", _MASKS)
 def test_backward_tile_skip_drops_only_masked_tiles(causal, window, n_sink):
-    """At every tile position of the backward's BWD_TILE grid: every key
+    """At every tile position of the backward's SIMT_TILE grid: every key
     tile the dQ kernels skip holds no visible pair for its query tile, and
     every tile ``bwd_tile_needs_mask`` lets through unmasked is all visible."""
     Sq, Sk = 320, 300
     kw = dict(causal=causal, window=window, n_sink=n_sink)
     vis = _vis(Sq, Sk, causal, window if causal else 0, n_sink if causal else 0)
-    for q0, k0 in itertools.product(range(0, Sq, BWD_TILE), range(0, Sk, BWD_TILE)):
-        tile = vis[q0:q0 + BWD_TILE, k0:k0 + BWD_TILE]
+    for q0, k0 in itertools.product(range(0, Sq, SIMT_TILE), range(0, Sk, SIMT_TILE)):
+        tile = vis[q0:q0 + SIMT_TILE, k0:k0 + SIMT_TILE]
         if not bwd_key_tile_visited(k0, q0, Sk, **kw):
             assert not tile.any(), (q0, k0)
         if not bwd_tile_needs_mask(q0, k0, Sq, Sk, **kw):
-            assert tile.shape == (BWD_TILE, BWD_TILE) and tile.all(), (q0, k0)
+            assert tile.shape == (SIMT_TILE, SIMT_TILE) and tile.all(), (q0, k0)
 
 
 @pytest.mark.parametrize("Sq,Sk", [(320, 300), (300, 320), (1024, 1024), (40, 40), (65, 1)])
 @pytest.mark.parametrize("causal,window,n_sink", _MASKS)
 @pytest.mark.parametrize("G", [1, 6])
 def test_backward_split_plan_covers_each_visible_pair_once(Sq, Sk, causal, window, n_sink, G):
-    """The dK/dV plan: each key tile's rows [q_lo, q_lo + n_qt·BWD_TILE)
+    """The dK/dV plan: each key tile's rows [q_lo, q_lo + n_qt·SIMT_TILE)
     hold every row that sees one of its keys; its items partition its G·n_qt
     units in order, none above BWD_SPLIT_UNITS; slots run 0, 1, ..."""
     kw = dict(causal=causal, window=window, n_sink=n_sink)
     vis = _vis(Sq, Sk, causal, window if causal else 0, n_sink if causal else 0)
     plan = bwd_split_plan(Sq, Sk, G, **kw)
     assert [it.slot for it in plan] == list(range(len(plan)))
-    for j in range(-(-Sk // BWD_TILE)):
+    for j in range(-(-Sk // SIMT_TILE)):
         q_lo, n_qt = bwd_key_tile_rows(j, Sq, Sk, **kw)
-        seen = vis[:, j * BWD_TILE:(j + 1) * BWD_TILE].any(1)
+        seen = vis[:, j * SIMT_TILE:(j + 1) * SIMT_TILE].any(1)
         inside = torch.zeros(Sq, dtype=torch.bool)
-        inside[q_lo:q_lo + n_qt * BWD_TILE] = True
+        inside[q_lo:q_lo + n_qt * SIMT_TILE] = True
         assert not (seen & ~inside).any(), j
         units = [u for it in plan if it.j == j for u in range(it.u0, it.u1)]
         assert units == list(range(G * n_qt)), j
