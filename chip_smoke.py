@@ -3,12 +3,13 @@
 
   python3 chip_smoke.py
 
-Four main paths are driven: the campaign prescreen of the builtin
+Five main paths are driven: the campaign prescreen of the builtin
 lm_full_pod campaign (qwen3-32b, 72 cells x 192 parameter vectors);
-serving, each at full width and full depth, the dense decoder qwen2-1.5b
-and the hybrid hymba-1.5b (attention and Mamba heads, sliding window with
-meta-token sinks); and training qwen2-1.5b at full width and depth. Phases,
-each of which fails the run (non-zero exit, no result line):
+serving, each at full width and full depth, the dense decoder qwen2-1.5b,
+the hybrid hymba-1.5b (attention and Mamba heads, sliding window with
+meta-token sinks) and the MoE qwen3-moe-30b-a3b (128 experts, top 8, in
+bf16); training qwen2-1.5b; and training hymba-1.5b, both at full width and
+depth. Phases, each of which fails the run (non-zero exit, no result line):
 
   1. card   — name and power limit from nvidia-smi;
   2. build  — one nvcc per CUDA source, all started together, and one link
@@ -48,11 +49,13 @@ each of which fails the run (non-zero exit, no result line):
      instance's blocks an SM from the card's occupancy calculator); in f32
      beside the previous (scalar) design's time;
   4. model  — each model in f32: prefill + 2 decode steps match forward
-     logits (hymba's 1100-token prompt wraps its window ring);
+     logits (hymba's 1100-token prompt wraps its window ring; qwen3-moe at
+     full width and 4 of its 48 layers);
   5. serve  — each model in bf16 through ServeEngine: 8 requests, one
      straggler evicted and re-queued; every kernel's launch count, zeroed
      just before the run and read just after, must equal what the path
-     implies, and every flash launch must be the tensor-core kernel's;
+     implies, and every flash launch must be the tensor-core kernel's; the
+     peak memory must stay under 80 GB (qwen3-moe's weights are 61 GB);
   6. profile — wall vs device busy time of one prefill and of decode
      steps of each model, with the top kernels (torch.profiler);
   7. train  — the backward kernels (rmsnorm: dx, dw; flash attention: dQ,
@@ -76,12 +79,23 @@ each of which fails the run (non-zero exit, no result line):
      with the plain versions patched in, from the same state: loss, grad
      norm, each leaf's gradient (its first AdamW moment) and new parameters
      must agree, and a step with a wrong dK must fail the gradient check;
+     the ssm_scan backward kernel at hymba's train shape [4, 1152, 51200]
+     and ragged ones, f32 and bf16, against the plain reverse scan and a
+     second call's bits, timed beside its bound, the plain reverse scan and
+     autograd through the plain forward;
+  7b. hybrid train — launch/train.py::train for hymba-1.5b, f32, B 4, S
+     1024 (+128 meta tokens), remat "full", 4 steps, exact counts of every
+     kernel (the scan forward, with remat's recompute, and backward among
+     them), ms per step, peak memory, one profiled step; then the step at
+     full width and 4 layers, kernels vs plain, whose check a plain
+     backward with da x 1.1 in the scan must fail;
   8. cli    — python -m repro_torch.sweep run on a golden slice's spec on the
      card (a subprocess): its frozen records must equal the fixture.
 
 The line before the last is a JSON object {"kernels": [...]} (list_schedule,
-which replaces the prescreen's XLA program and no Pallas kernel, and the
-train path's rows in f32 and bf16, its backward kernels among them); the
+which replaces the prescreen's XLA program and no Pallas kernel, the
+dense train path's rows in f32 and bf16 and the hybrid train path's in f32,
+the backward kernels among them); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
 >= 9.0 and nvcc; exits 1 without them.
 """
@@ -120,8 +134,14 @@ BWD_FLASH_BF16 = 2e-2
 # the 4-layer train step, kernels vs plain: each leaf's first AdamW moment
 # (0.1 x its clipped gradient) within this share of the leaf's max
 STEP_GRAD_TOL = 1e-4
-DENSE, HYBRID, CAMPAIGN = "qwen2-1.5b", "hymba-1.5b", "lm_full_pod"
+DENSE, HYBRID, MOE, CAMPAIGN = "qwen2-1.5b", "hymba-1.5b", "qwen3-moe-30b-a3b", "lm_full_pod"
 TRAIN = dict(arch=DENSE, steps=4, batch=4, seq=1024, bf16_steps=3, check_layers=4)
+# hybrid training: full width and depth, f32; the kernels-vs-plain step keeps
+# 4 layers, a global-attention layer at each end and two windowed ones
+HYBRID_TRAIN = dict(arch=HYBRID, steps=4, batch=4, seq=1024,
+                    check=dict(n_layers=4, global_attn_layers=(0, 3)))
+# the ssm_scan backward's main shape: hymba's train step, [B, S + meta, di * n]
+SCAN_MAIN = (4, 1152, 51200)
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
             "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:53",
@@ -131,6 +151,7 @@ REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
 # function the Pallas kernel's forward computes)
 REPLACES["rmsnorm_bwd"] = "src/repro/kernels/rmsnorm/kernel.py:36"
 REPLACES["flash_attention_bwd"] = "src/repro/kernels/flash_attention/kernel.py:99"
+REPLACES["ssm_scan_bwd"] = "src/repro/kernels/ssm_scan/kernel.py:53"
 # the route and source of each kernel on the main paths (bf16 flash at hd 64
 # and 128 runs the tensor-core kernel). The kernels line allows only the
 # routes "cuda" and "triton"; the source names which flash kernel it was.
@@ -141,18 +162,24 @@ ROUTES = {"rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu"),
           "list_schedule": ("cuda", "src/repro_torch/kernels/csrc/list_schedule.cu"),
           "rmsnorm_bwd": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu"),
           "flash_attention_bwd": ("cuda",
-                                  "src/repro_torch/kernels/csrc/flash_attention_bwd.cu")}
+                                  "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
+          "ssm_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu")}
 # f32 flash attention (the train path's dtype) runs the CUDA-core kernel:
 # register-tiled f32 products (SIMT)
 SIMT_FLASH = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SIMT_DESIGN = "simt register tiles (64 x 64 tiles, 16 x 16 threads, 4 x 4 a thread)"
-# per model: phase-4 batch, prompt and cache; phase-5 prompt range and cache
+# per model: phase-4 batch, prompt, cache (and depth, where cut); phase-5
+# prompt range, new tokens and cache
 PATHS = {
-    DENSE: dict(model_B=2, model_S=256, model_smax=512, lo=512, hi=1024, smax=2048,
-                profile_S=1024),
-    HYBRID: dict(model_B=2, model_S=1100, model_smax=1200, lo=512, hi=2048,
-                 smax=4096, profile_S=1024),
+    DENSE: dict(model_B=2, model_S=256, model_smax=512, lo=512, hi=1024, max_new=32,
+                deadline=8, smax=2048, profile_S=1024),
+    HYBRID: dict(model_B=2, model_S=1100, model_smax=1200, lo=512, hi=2048, max_new=32,
+                 deadline=8, smax=4096, profile_S=1024),
+    # the f32 model check at full width keeps 4 of 48 layers (12.5 GB)
+    MOE: dict(model_B=2, model_S=256, model_smax=512, model_layers=4, lo=256, hi=1024,
+              max_new=16, deadline=4, smax=2048, profile_S=1024),
 }
+CARD_BYTES = 80e9                          # the serve runs must fit one 80 GB card
 
 
 def log(msg: str) -> None:
@@ -286,6 +313,13 @@ def flash_bwd_bound(B, S, H, KV, hd, causal, esize, peak, window=0, n_sink=0):
 def scan_bound(B, S, C, esize):
     byts = 3 * B * S * C * esize               # a, b read, h written
     ops = 2 * B * S * C                        # one FMA per element (f32)
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
+
+
+def scan_bwd_bound(B, S, C, esize):
+    byts = 5 * B * S * C * esize               # a, h, dh read, da, db written
+    ops = 3 * B * S * C                        # one FMA and one multiply (f32)
     t_b, t_o = byts / HBM_BYTES_PER_S, ops / F32_FLOPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
 
@@ -663,9 +697,13 @@ def phase_kernels(torch):
 
     log("[kernels] rmsnorm vs plain")
     # qwen2: prefill B=4 S=1024, decode B=4, qk-norm-sized rows;
-    # hymba: prefill B=4 S=1024+128 meta, decode B=4
+    # hymba: prefill B=4 S=1024+128 meta, decode B=4; qwen3-moe (qk-norm,
+    # 32 q and 4 kv heads of 128): prefill B=4 S=1024 (ln1/ln2, q_norm,
+    # k_norm), decode B=4 (the same four)
     main_rms = [(4 * 1024, 1536), (4, 1536), (4 * 1024 * 12, 128),
-                (4 * 1152, 1600), (4, 1600)]
+                (4 * 1152, 1600), (4, 1600),
+                (4 * 1024, 2048), (4 * 1024 * 32, 128), (4 * 1024 * 4, 128),
+                (4, 2048), (4 * 32, 128), (4 * 4, 128)]
     # every variant of the plan: narrow rows several to a warp, the widest
     # across warps, d that rules out 16-byte loads, x at an odd element
     # offset (the last element of a case says so)
@@ -719,7 +757,8 @@ def phase_kernels(torch):
     # (B, Sq, Sk, H, KV, hd, causal, window, n_sink)
     main_fa = [(4, 1024, 1024, 12, 2, 128, True, 0, 0),       # qwen2 prefill
                (4, 1152, 1152, 25, 5, 64, True, 1024, 128),   # hymba, S = w + sinks
-               (4, 2176, 2176, 25, 5, 64, True, 1024, 128)]   # hymba, 2048 + 128
+               (4, 2176, 2176, 25, 5, 64, True, 1024, 128),   # hymba, 2048 + 128
+               (4, 1024, 1024, 32, 4, 128, True, 0, 0)]       # qwen3-moe prefill
     edge_fa = [(2, 300, 300, 12, 2, 128, True, 0, 0),     # ragged S
                (2, 300, 300, 12, 2, 128, False, 0, 0),    # non-causal
                (2, 200, 500, 12, 2, 128, True, 0, 0),     # Sq < Sk, top-left mask
@@ -826,12 +865,16 @@ def phase_kernels(torch):
 
 
 def phase_model(torch, arch):
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
     import numpy as np
 
     cfg = get_config(arch)
+    if "model_layers" in PATHS[arch]:
+        cfg = dataclasses.replace(cfg, n_layers=PATHS[arch]["model_layers"])
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(gen, torch.float32, "cuda")
@@ -882,9 +925,10 @@ def phase_serve(torch, arch):
     rng = np.random.default_rng(0)
     lengths = rng.integers(path["lo"], path["hi"] + 1, 8)
     straggler = None
+    max_new, deadline = path["max_new"], path["deadline"]
     for i, n in enumerate(lengths):
-        rid = eng.submit(rng.integers(0, cfg.vocab_size, n), max_new=32,
-                         deadline_steps=8 if i == 2 else None)
+        rid = eng.submit(rng.integers(0, cfg.vocab_size, n), max_new=max_new,
+                         deadline_steps=deadline if i == 2 else None)
         straggler = rid if i == 2 else straggler
 
     calls = {"prefill": [], "decode": []}
@@ -924,12 +968,20 @@ def phase_serve(torch, arch):
     log(f"[serve] prefill {n_pf} calls, median {statistics.median(calls['prefill']):.1f} ms"
         f" per batch ({', '.join('%.1f' % t for t in calls['prefill'])}); decode "
         f"{n_dc} steps, median {statistics.median(calls['decode']):.2f} ms per step")
-    log(f"[serve] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] max_memory_allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"serve peak memory {peak / 1e9:.2f} GB >= {CARD_BYTES / 1e9:g} GB")
     hybrid = cfg.family == "hybrid"
-    # ln1 + ln2 per layer (+ norm_attn, norm_ssm in a hybrid layer), final norm
-    per_step = (4 if hybrid else 2) * cfg.n_layers + 1
+    # ln1 + ln2 per layer (+ norm_attn, norm_ssm in a hybrid layer, + q_norm,
+    # k_norm under qk-norm), final norm
+    per_step = (2 + 2 * hybrid + 2 * cfg.qk_norm) * cfg.n_layers + 1
     want = {"rmsnorm": per_step * (n_pf + n_dc), "flash_attention": cfg.n_layers * n_pf,
             "ssm_scan": cfg.n_layers * n_pf if hybrid else 0}
+    if cfg.is_moe:
+        log(f"[serve] MoE FFN: the dense oracle (every expert on every token, an "
+            f"exact 0 weight where a token was not routed), {cfg.n_experts} experts, "
+            f"top {cfg.experts_per_token}")
     log(f"[serve] launches: rmsnorm {launches['rmsnorm']} (want {per_step} x "
         f"{n_pf + n_dc}), flash_attention {launches['flash_attention']} (want "
         f"{cfg.n_layers} x {n_pf}; tensor-core kernel {wgmma}), ssm_scan "
@@ -942,7 +994,8 @@ def phase_serve(torch, arch):
                              "tensor-core kernel")
     if completed != 7 or eng.evicted != [straggler]:
         raise AssertionError("expected 7 completed and the straggler evicted")
-    if len(out[straggler]) != 16 or tokens != 7 * 32 + 16:
+    # the straggler runs out of its deadline twice (one retry)
+    if len(out[straggler]) != 2 * deadline or tokens != 7 * max_new + 2 * deadline:
         raise AssertionError(f"unexpected token counts: {tokens}")
     if not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
         raise AssertionError("token outside the vocabulary")
@@ -1153,8 +1206,8 @@ def train_kernels(torch):
 
     log("[train] rmsnorm backward vs plain (dx, dw)")
     # qwen2 at B 4, S 1024: ln1/ln2/final rows, and the [B*S*H, hd] rows of
-    # a qk-norm model
-    for shape in ((4 * 1024, 1536), (4 * 1024 * 12, 128)):
+    # a qk-norm model; hymba at B 4, S 1024 + 128 meta tokens
+    for shape in ((4 * 1024, 1536), (4 * 1024 * 12, 128), (4 * 1152, 1600)):
         for dt in (torch.float32, torch.bfloat16):
             dn = str(dt).split(".")[1]
             x, w, g = randn(shape, dt), randn(shape[-1:], dt, 0.1, 1.0), randn(shape, dt)
@@ -1190,10 +1243,11 @@ def train_kernels(torch):
             lib = _bwd_time(torch, timer, yl, (xp, wp), g)
             bound, by, byts, ops = rms_bwd_bound(rows_, d, x.element_size())
             extra = 2 * plan.blocks * d * 4      # the partial rows, written and read
-            prev = BEFORE_MS[("rmsnorm_bwd", shape, dn)]
+            prev = BEFORE_MS.get(("rmsnorm_bwd", shape, dn))
             log(f"    plan {BWD_VARIANTS[plan.variant]}: {plan.tpr} lanes a row, {plan.vpt} "
                 f"loads of {plan.vec} a lane, {plan.blocks} blocks ({_attrs_str(attrs)})")
-            log(f"    time {ms * 1e3:.2f} us (before: {prev * 1e3:.2f} us) | bound "
+            log(f"    time {ms * 1e3:.2f} us"
+                + (f" (before: {prev * 1e3:.2f} us)" if prev else "") + " | bound "
                 f"{bound * 1e3:.2f} us ({by}: {byts / 1e6:.2f} MB, {ops / 1e6:.1f} MFLOP) | "
                 f"design overhead: {plan.blocks} dw partial rows, {extra / 1e6:.2f} MB, "
                 f"{extra / HBM_BYTES_PER_S * 1e6:.2f} us | with {two.blocks} blocks "
@@ -1304,25 +1358,95 @@ def train_kernels(torch):
             del q, k, v, do, qr, kr, vr, out, o, o2, lse, dq, dk, dv, qp, kp, vp, qt, kt, vt
             del yl, grads, first
     torch.cuda.empty_cache()
+    rows.update(scan_backward(torch, timer, randn))
+    return rows
+
+
+def scan_backward(torch, timer, randn):
+    """The ssm_scan backward kernel through the wrapper's autograd against
+    the plain reverse scan on the card, in f32 and bf16 at hymba's train
+    shape and at ragged ones; a second backward must give the same bits. At
+    the main shape (f32) the kernel alone is timed (median of 25, L2
+    flushed) beside its bound, the plain reverse scan and autograd through
+    the plain forward (each one run after a warm-up: a loop over S on the
+    host, thousands of times slower than the kernel); no single PyTorch
+    call computes it. Returns kernels-line rows."""
+    from repro_torch.kernels.ssm_scan.kernel import scan_kernel_attrs, ssm_scan_bwd_cuda
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+
+    slow = Timer(torch, reps=1)
+    rows = {}
+    log("[train] ssm_scan backward vs plain (da, db)")
+    for shape in (SCAN_MAIN, (37, 100), (1, 4097), (3, 45, 130), (2, 1, 333), (1, 1, 1)):
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[1]
+            a = torch.sigmoid(randn(shape, torch.float32)).to(dt)
+            b, g = randn(shape, dt), randn(shape, dt)
+            ar, br = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            before = ssm_scan_batched.launches, ssm_scan_batched.bwd_launches
+            ssm_scan_batched(ar, br).backward(g)
+            if (ssm_scan_batched.launches - before[0],
+                    ssm_scan_batched.bwd_launches - before[1]) != (1, 1):
+                raise AssertionError(f"ssm_scan_bwd {list(shape)} {dn}: launches not counted")
+            h = ssm_scan_ref(a, b)
+            want = ssm_scan_bwd_ref(a, h, g)
+            tol = TOL[("ssm_scan", dn)]
+            err = max(compare(f"ssm_scan_bwd {list(shape)} {dn} {n}", got, w, tol)
+                      for n, got, w in zip(("da", "db"), (ar.grad, br.grad), want))
+            first = ar.grad.clone(), br.grad.clone()
+            ar.grad = br.grad = None
+            ssm_scan_batched(ar, br).backward(g)
+            if not (torch.equal(ar.grad, first[0]) and torch.equal(br.grad, first[1])):
+                raise AssertionError(f"ssm_scan_bwd {list(shape)} {dn}: two backward calls "
+                                     f"on the same inputs differ")
+            if shape != SCAN_MAIN or dt != torch.float32:
+                del a, b, g, ar, br, h, want, first
+                continue
+            da, db = torch.empty_like(a), torch.empty_like(a)
+            ms = timer(lambda: ssm_scan_bwd_cuda(a, h, g, da, db))
+            fwd_ms = timer(lambda: ssm_scan_batched(a, b))
+            plain = slow(lambda: ssm_scan_bwd_ref(a, h, g))
+            ap, bp = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            autograd_plain = _bwd_time(torch, slow, ssm_scan_ref(ap, bp), (ap, bp), g)
+            bound, by, byts, ops = scan_bwd_bound(*shape, a.element_size())
+            attrs = scan_kernel_attrs(dt, True)
+            log(f"    backward {ms:.3f} ms | bound {bound:.3f} ms ({by}: {byts / 1e9:.3f} GB, "
+                f"{ops / 1e9:.2f} GFLOP), {100 * bound / ms:.1f}% of it | plain reverse scan "
+                f"{plain:.3f} ms | autograd through the plain forward {autograd_plain:.3f} ms | "
+                f"library: none (no single PyTorch call computes a linear recurrence's "
+                f"gradient) | forward {fwd_ms:.3f} ms")
+            log(f"    backward kernel {_attrs_str(attrs)}; forward kernel "
+                f"{_attrs_str(scan_kernel_attrs(dt, False))}")
+            rows[("ssm_scan_bwd", shape, dn)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None, autograd_plain_ms=autograd_plain, **attrs)
+            del a, b, g, ar, br, h, want, first, da, db, ap, bp
+    torch.cuda.empty_cache()
     return rows
 
 
 def _zero_counts():
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
 
     rmsnorm.launches = rmsnorm.bwd_launches = 0
     flash_mha.launches = flash_mha.wgmma_launches = flash_mha.bwd_launches = 0
     flash_mha.wgmma_bwd_launches = 0
+    ssm_scan_batched.launches = ssm_scan_batched.bwd_launches = 0
 
 
 def _read_counts() -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
 
     return {"rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm.bwd_launches,
             "flash_attention": flash_mha.launches, "flash_attention_bwd": flash_mha.bwd_launches,
-            "wgmma": flash_mha.wgmma_launches, "wgmma_bwd": flash_mha.wgmma_bwd_launches}
+            "wgmma": flash_mha.wgmma_launches, "wgmma_bwd": flash_mha.wgmma_bwd_launches,
+            "ssm_scan": ssm_scan_batched.launches,
+            "ssm_scan_bwd": ssm_scan_batched.bwd_launches}
 
 
 def _check_run(history, what):
@@ -1344,9 +1468,6 @@ def phase_train(torch):
     profiled bf16 step. Returns the two runs' launches and their numbers."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
-    from repro_torch.models import build_model
-    from repro_torch.train import SyntheticData, make_train_step, schedule_for
-    from repro_torch.configs.base import ShapeSpec
 
     cfg = get_config(TRAIN["arch"])
     L, steps = cfg.n_layers, TRAIN["steps"]
@@ -1388,29 +1509,7 @@ def phase_train(torch):
         if launches[k] != n:
             raise AssertionError(f"train: {k} launched {launches[k]} times, want {n}")
 
-    def profile_step(state, dtype_name, steps_done):
-        """One more step on the trained state under torch.profiler: where a
-        step's time goes."""
-        model = build_model(cfg)
-        step_fn = make_train_step(model, lr_schedule=schedule_for(cfg, 3e-4, 1, steps_done))
-        data = SyntheticData(cfg, ShapeSpec("cli", S, B, "train"), seed=0, device="cuda")
-        batch = data.batch_at(steps_done)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        busy, kernels, top = _device_ms(torch, lambda: step_fn(state, batch), 1,
-                                        keys=("fa_bwd", "flash_attention", "rmsnorm"))
-        wall = (time.perf_counter() - t0) * 1e3
-        if busy is None:
-            log(f"[profile] {cfg.name} train step {dtype_name}: device time not measured "
-                f"(the profiler saw no CUDA kernel)")
-            return
-        log(f"[profile] {cfg.name} train step {dtype_name} B={B} S={S}: wall {wall:.1f} ms "
-            f"under the profiler, device busy {busy:.1f} ms ({100 * busy / wall:.1f}% busy), "
-            f"{kernels:.0f} kernels")
-        for ms, key in top:
-            log(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
-
-    profile_step(state, "f32", steps)
+    _profile_train_step(torch, cfg, state, B, S, "f32", steps)
     del state
     torch.cuda.empty_cache()
 
@@ -1436,13 +1535,95 @@ def phase_train(torch):
             or any(c16[k] != n for k, n in want16.items())):
         raise AssertionError(f"bf16 train: launches {c16}, want {want16} and every flash "
                              f"launch on the tensor cores")
-    profile_step(state16, "bf16", n16)
+    _profile_train_step(torch, cfg, state16, B, S, "bf16", n16)
     del state16
     gc.unfreeze()
     torch.cuda.empty_cache()
     return launches, c16, dict(step_ms=step_ms, peak_gib=peak,
                                losses=[h["loss"] for h in history],
                                bf16_step_ms=[1e3 * h["step_s"] for h in hist16])
+
+
+def _profile_train_step(torch, cfg, state, B, S, dtype_name, steps_done):
+    """One more step on the trained state under torch.profiler: where a
+    step's time goes, by kernel."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import build_model
+    from repro_torch.train import SyntheticData, make_train_step, schedule_for
+
+    model = build_model(cfg)
+    step_fn = make_train_step(model, lr_schedule=schedule_for(cfg, 3e-4, 1, steps_done))
+    data = SyntheticData(cfg, ShapeSpec("cli", S, B, "train"), seed=0, device="cuda")
+    batch = data.batch_at(steps_done)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    busy, kernels, top = _device_ms(torch, lambda: step_fn(state, batch), 1,
+                                    keys=("fa_bwd", "flash_attention", "rmsnorm", "ssm_scan"))
+    wall = (time.perf_counter() - t0) * 1e3
+    if busy is None:
+        log(f"[profile] {cfg.name} train step {dtype_name}: device time not measured "
+            f"(the profiler saw no CUDA kernel)")
+        return
+    log(f"[profile] {cfg.name} train step {dtype_name} B={B} S={S}: wall {wall:.1f} ms "
+        f"under the profiler, device busy {busy:.1f} ms ({100 * busy / wall:.1f}% busy), "
+        f"{kernels:.0f} kernels")
+    for ms, key in top:
+        log(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
+
+
+def phase_train_hybrid(torch):
+    """The hybrid train path at full width and depth: launch/train.py::train
+    for hymba-1.5b, f32, remat "full", B 4, S 1024 (+128 meta tokens), 4
+    steps, every kernel's count zeroed just before and read just after and
+    held to the counts the layer count implies; one profiled step. Returns
+    the run's launches and its numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+
+    cfg = get_config(HYBRID_TRAIN["arch"])
+    L, steps = cfg.n_layers, HYBRID_TRAIN["steps"]
+    B, S = HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"]
+    # per step: each hybrid layer runs ln1, norm_attn, norm_ssm and ln2, one
+    # attention and one scan, the final norm sits outside the layers; remat
+    # "full" recomputes each layer's forward once in the backward, and the
+    # backward runs each norm's, attention's and scan's once
+    per_step = {"rmsnorm": 4 * L + 1 + 4 * L, "rmsnorm_bwd": 4 * L + 1,
+                "flash_attention": 2 * L, "flash_attention_bwd": L,
+                "ssm_scan": 2 * L, "ssm_scan_bwd": L}
+    gc.collect()
+    gc.freeze()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state, history = train(HYBRID_TRAIN["arch"], steps=steps, batch=B, seq=S,
+                           dtype=torch.float32, log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check_run(history, f"{cfg.name} f32")
+    step_ms = [1e3 * h["step_s"] for h in history]
+    M = cfg.n_meta_tokens
+    log(f"[train] {cfg.name} f32 L={L} d={cfg.d_model} B={B} S={S} (+{M} meta tokens), "
+        f"remat full: losses " + ", ".join(f"{h['loss']:.4f}" for h in history)
+        + "; grad norms " + ", ".join(f"{h['grad_norm']:.3f}" for h in history))
+    med = statistics.median(step_ms[1:])
+    log(f"[train] ms per step {', '.join(f'{t:.1f}' for t in step_ms)} (median of steps 2-"
+        f"{steps}: {med:.1f} ms, {B * S / med * 1e3:,.0f} tok/s); "
+        f"max_memory_allocated {peak:.2f} GiB")
+    log(f"[train] launches: " + ", ".join(f"{k} {launches[k]} (want {per_step[k]} x {steps})"
+                                          for k in per_step)
+        + f"; per step rmsnorm 8L+1, rmsnorm_bwd 4L+1, flash 2L, flash_bwd L, ssm_scan 2L, "
+        f"ssm_scan_bwd L at L={L}")
+    for k, n in per_step.items():
+        if launches[k] != n * steps:
+            raise AssertionError(f"hybrid train: {k} launched {launches[k]} times, "
+                                 f"want {n * steps}")
+    _profile_train_step(torch, cfg, state, B, S, "f32", steps)
+    del state
+    gc.unfreeze()
+    torch.cuda.empty_cache()
+    return launches, dict(step_ms=step_ms, peak_gib=peak,
+                          losses=[h["loss"] for h in history])
 
 
 def _leaf_names(tree, prefix: str = "") -> list:
@@ -1454,25 +1635,28 @@ def _leaf_names(tree, prefix: str = "") -> list:
     return [prefix.rstrip("/")]
 
 
-def train_step_vs_plain(torch):
-    """One f32 train step at full width and 4 layers with the kernels, then
-    the same step from the same state with the plain versions patched in
-    (here, not by a switch in the package): loss and grad norm at rel 1e-4;
-    each leaf's gradient, read from its first AdamW moment (0.1 x the
-    clipped gradient after one step from zero), within STEP_GRAD_TOL of the
-    leaf's max; new parameters at atol 2 lr. One Adam step moves each
-    element by about lr sign(g), so the parameters alone compare signs; the
-    moments compare values. A third step, the plain versions with dK x 1.1,
-    must fail the moment check: the reading of a wrong backward."""
+def train_step_vs_plain(torch, arch, cut):
+    """One f32 train step of ``arch`` at full width, cut to 4 layers by the
+    config fields ``cut``, with the kernels, then the same step from the same
+    state with the plain versions patched in (here, not by a switch in the
+    package): loss and grad norm at rel 1e-4; each leaf's gradient, read
+    from its first AdamW moment (0.1 x the clipped gradient after one step
+    from zero), within STEP_GRAD_TOL of the leaf's max; new parameters at
+    atol 2 lr. One Adam step moves each element by about lr sign(g), so the
+    parameters alone compare signs; the moments compare values. A third
+    step, the plain versions with a wrong backward (dK x 1.1 in attention;
+    in a hybrid model da x 1.1 in the scan), must fail the moment check."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels.flash_attention.ref import flash_mha_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
     from repro_torch.models import attention as attention_mod
     from repro_torch.models import build_model
     from repro_torch.models import layers as layers_mod
+    from repro_torch.models import mamba as mamba_mod
     from repro_torch.train import SyntheticData, init_state, make_train_step, schedule_for
     from repro_torch.train.optim import tree_leaves, tree_map
 
@@ -1488,7 +1672,23 @@ def train_step_vs_plain(torch):
     def flash_dk_off(q, k, v, **kw):
         return flash_mha_ref(q, ScaleGrad.apply(k), v, **kw)
 
-    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=TRAIN["check_layers"])
+    def plain_scan(da_scale):
+        """The scan's plain forward and plain reverse scan, da scaled."""
+        class PlainScan(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, a, b):
+                h = ssm_scan_ref(a, b)
+                ctx.save_for_backward(a, h)
+                return h
+
+            @staticmethod
+            def backward(ctx, g):
+                da, db = ssm_scan_bwd_ref(*ctx.saved_tensors, g)
+                return da * da_scale, db
+        return PlainScan.apply
+
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    hybrid = cfg.family == "hybrid"
     model = build_model(cfg)
     lr = 3e-4
     step_fn = make_train_step(model, lr_schedule=schedule_for(cfg, lr, 0, 100))
@@ -1501,19 +1701,26 @@ def train_step_vs_plain(torch):
     _zero_counts()
     _, mk = step_fn(state, batch)
     ran = _read_counts()
-    saved = layers_mod.rmsnorm, attention_mod.flash_mha
+    saved = layers_mod.rmsnorm, attention_mod.flash_mha, mamba_mod.ssm_scan_batched
     try:
         layers_mod.rmsnorm, attention_mod.flash_mha = rmsnorm_ref, flash_mha_ref
+        mamba_mod.ssm_scan_batched = plain_scan(1.0)
         _zero_counts()
         _, mp = step_fn(twin, batch)
         plain_ran = _read_counts()
-        attention_mod.flash_mha = flash_dk_off
+        if hybrid:
+            mamba_mod.ssm_scan_batched = plain_scan(1.1)
+            wrong_what = "da x 1.1 in the scan"
+        else:
+            attention_mod.flash_mha = flash_dk_off
+            wrong_what = "dK x 1.1"
         step_fn(wrong, batch)
     finally:
-        layers_mod.rmsnorm, attention_mod.flash_mha = saved
+        layers_mod.rmsnorm, attention_mod.flash_mha, mamba_mod.ssm_scan_batched = saved
     torch.cuda.synchronize()
-    if min(ran[k] for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
-                            "flash_attention_bwd")) == 0 or any(plain_ran.values()):
+    need = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd") + (
+        ("ssm_scan", "ssm_scan_bwd") if hybrid else ())
+    if min(ran[k] for k in need) == 0 or any(plain_ran.values()):
         raise AssertionError(f"kernel step launched {ran}, plain step {plain_ran}")
     rel = {k: abs(float(mk[k]) - float(mp[k])) / abs(float(mp[k])) for k in ("loss", "grad_norm")}
     diffs = [(a - b).abs() for a, b in zip(tree_leaves(state["params"]),
@@ -1533,10 +1740,10 @@ def train_step_vs_plain(torch):
         f"card: loss {float(mk['loss']):.6f} / {float(mp['loss']):.6f} (rel {rel['loss']:.2e}), "
         f"grad_norm {float(mk['grad_norm']):.6f} / {float(mp['grad_norm']):.6f} (rel "
         f"{rel['grad_norm']:.2e}); new params max |diff| {worst:.3e} (atol 2 lr = {2 * lr:g}), "
-        f"mean {mean:.3e} (at most 1e-3 lr = {1e-3 * lr:g})")
+        f"mean {mean:.3e} (at most 1e-3 lr = {1e-3 * lr:g}); kernel launches {ran}")
     log(f"[train] gradients (first AdamW moments), {len(grads_k)} leaves, max |diff| / max "
         f"|plain| (limit {STEP_GRAD_TOL:g}): kernels {grads_k[leaf_k]:.3e} (worst leaf "
-        f"{leaf_k}); a wrong backward (dK x 1.1, plain versions) {grads_w[leaf_w]:.3e} "
+        f"{leaf_k}); a wrong backward ({wrong_what}, plain versions) {grads_w[leaf_w]:.3e} "
         f"(worst leaf {leaf_w})")
     if rel["loss"] > 1e-4 or rel["grad_norm"] > 1e-4 or worst > 2 * lr or mean > 1e-3 * lr:
         raise AssertionError("the kernel step and the plain step disagree")
@@ -1544,7 +1751,7 @@ def train_step_vs_plain(torch):
         raise AssertionError(f"the kernel step's gradient of {leaf_k} disagrees with the plain "
                              f"step's")
     if grads_w[leaf_w] <= STEP_GRAD_TOL:
-        raise AssertionError("the gradient check would pass a backward with dK x 1.1")
+        raise AssertionError(f"the gradient check would pass a backward with {wrong_what}")
     del state, twin, wrong
     torch.cuda.empty_cache()
 
@@ -1610,7 +1817,7 @@ def main() -> int:
         sched_row, sched_launches, sched_variants_launched = phase_prescreen(torch)
         rows = phase_kernels(torch)
         launches = {}
-        for arch in (DENSE, HYBRID):
+        for arch in (DENSE, HYBRID, MOE):
             phase_model(torch, arch)
             launches[arch], model, params = phase_serve(torch, arch)
             phase_profile(torch, model, params)
@@ -1618,7 +1825,9 @@ def main() -> int:
             torch.cuda.empty_cache()
         rows.update(train_kernels(torch))
         train_launches, bf16_launches, train_stats = phase_train(torch)
-        train_step_vs_plain(torch)
+        train_step_vs_plain(torch, DENSE, dict(n_layers=TRAIN["check_layers"]))
+        hybrid_launches, hybrid_stats = phase_train_hybrid(torch)
+        train_step_vs_plain(torch, HYBRID, HYBRID_TRAIN["check"])
         cli_on_the_card()
     except Exception:
         traceback.print_exc()
@@ -1634,12 +1843,19 @@ def main() -> int:
         (HYBRID, "flash_attention",
          ("flash", (4, 1152, 1152, 25, 5, 64, True, 1024, 128), "bfloat16")),
         (HYBRID, "ssm_scan", ("ssm_scan", (4, 1152, 51200), "float32")),
+        (MOE, "rmsnorm", ("rmsnorm", (4096, 2048), "bfloat16")),
+        (MOE, "flash_attention",
+         ("flash", (4, 1024, 1024, 32, 4, 128, True, 0, 0), "bfloat16")),
     ]
     kernels = [
         dict(name=name, route=ROUTES[name][0], source=ROUTES[name][1],
              replaces=REPLACES[name], launches=launches[arch][name], path=arch,
              shape=list(key[1]), dtype=key[2], **rows[key])
         for arch, name, key in entries]
+    # the MoE path's decode rows (B=4, d 2048), timed beside its prefill row
+    moe_rms = next(k for k in kernels if k["path"] == MOE and k["name"] == "rmsnorm")
+    moe_rms["decode"] = dict(shape=[4, 2048], dtype="bfloat16",
+                             **rows[("rmsnorm", (4, 2048), "bfloat16")])
     kernels.append(dict(name="list_schedule", route=ROUTES["list_schedule"][0],
                         source=ROUTES["list_schedule"][1],
                         replaces=REPLACES["list_schedule"], launches=sched_launches,
@@ -1671,6 +1887,30 @@ def main() -> int:
         kernels[-1].update(train_step_ms=train_stats["step_ms" if dt == "float32"
                                                      else "bf16_step_ms"])
     kernels[-1].update(train_peak_gib_f32=train_stats["peak_gib"])
+    # the hybrid train path, f32: its forward kernels (the flash forward that
+    # stores L, timed under autograd in phase 7) and backward kernels at
+    # hymba's train shapes; launches from the 4-step full-width run
+    hymba_fa = (4, 1152, 25, 5, 64, 1024, 128)
+    bwd = rows[("flash_attention_bwd", hymba_fa, "float32")]
+    fwd = dict(rows[("flash", (4, 1152, 1152, 25, 5, 64, True, 1024, 128), "float32")],
+               ms=bwd["forward_autograd_ms"], serve_instance_ms=bwd["forward_serve_ms"])
+    for name, key, source, row in (
+            ("rmsnorm", ("rmsnorm", (4608, 1600), "float32"), ROUTES["rmsnorm"][1], None),
+            ("flash_attention", None, SIMT_FLASH, fwd),
+            ("ssm_scan", ("ssm_scan", SCAN_MAIN, "float32"), ROUTES["ssm_scan"][1], None),
+            ("rmsnorm_bwd", ("rmsnorm_bwd", (4608, 1600), "float32"),
+             ROUTES["rmsnorm_bwd"][1], None),
+            ("flash_attention_bwd", ("flash_attention_bwd", hymba_fa, "float32"),
+             ROUTES["flash_attention_bwd"][1], None),
+            ("ssm_scan_bwd", ("ssm_scan_bwd", SCAN_MAIN, "float32"),
+             ROUTES["ssm_scan_bwd"][1], None)):
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=REPLACES[name],
+                            launches=hybrid_launches[name],
+                            path=f"train/{HYBRID_TRAIN['arch']}/float32",
+                            shape=list(key[1]) if key else list(hymba_fa), dtype="float32",
+                            **(row if row is not None else rows[key])))
+    kernels[-1].update(train_step_ms=hybrid_stats["step_ms"],
+                       train_peak_gib_f32=hybrid_stats["peak_gib"])
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -63,6 +63,8 @@ _SIGNATURES = {
     "repro_flash_attention_bwd_slots": (_INT, _INT, _INT, _INT, _INT, _INT, _INT),
     "repro_flash_attention_bwd_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP),
     "repro_ssm_scan": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
+    "repro_ssm_scan_bwd": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
+    "repro_ssm_scan_attrs": (_INT, _INT, _INTP, _INTP, _INTP),
     "repro_list_schedule": (_VP, _VP, _VP, _INT, _INT, _INT, _F32, _INT, _VP, _VP,
                             _VP, _VP, _VP),
     "repro_list_schedule_plan": (_INT, _INT, _INT, _INT, _INTP),

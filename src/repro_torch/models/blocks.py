@@ -1,7 +1,8 @@
 """Layer blocks: parameter templates + forward/prefill/decode paths.
 
 Counterpart of ``repro/models/blocks.py``, for the attention block of the
-dense family (``ATTN_BLOCK``) and the hybrid block of Hymba
+dense and MoE families (``ATTN_BLOCK``; its FFN is the dense SwiGLU or,
+where the config has experts, the MoE FFN) and the hybrid block of Hymba
 (``HYBRID_BLOCK``: attention and Mamba heads in parallel on one input).
 Each block kind is a ``Block`` record whose functions share one numeric
 core:
@@ -31,6 +32,7 @@ from ..configs.base import ArchConfig
 from .attention import attention, decode_attention
 from .layers import PT, apply_rope, map_templates, rms_norm, swiglu
 from .mamba import MambaState, mamba_decode_mix, mamba_mix
+from .moe import moe_ffn
 
 __all__ = ["Block", "BlockCtx", "BLOCKS", "ATTN_BLOCK", "HYBRID_BLOCK",
            "stackify", "rope_at"]
@@ -93,12 +95,10 @@ def _residual(x: torch.Tensor, f: torch.Tensor, res: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# attention (+ dense-FFN) block — dense family
+# attention (+ dense or MoE FFN) block — dense and MoE families
 # ---------------------------------------------------------------------------
 
 def _attn_template(cfg: ArchConfig) -> Dict[str, Any]:
-    if cfg.is_moe:
-        raise NotImplementedError("the MoE FFN is ported with the MoE slice")
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p: Dict[str, Any] = {
         "ln1": PT((d,), (None,), init="ones"),
@@ -116,9 +116,16 @@ def _attn_template(cfg: ArchConfig) -> Dict[str, Any]:
         p["q_norm"] = PT((hd,), (None,), init="ones")
         p["k_norm"] = PT((hd,), (None,), init="ones")
     f = cfg.d_ff
-    p["wg"] = PT((d, f), ("embed", "ff"))
-    p["wi"] = PT((d, f), ("embed", "ff"))
-    p["wo2"] = PT((f, d), ("ff", "embed"))
+    if cfg.is_moe:
+        E = cfg.n_experts
+        p["router"] = PT((d, E), ("embed", None))
+        p["we_gate"] = PT((E, d, f), ("expert", "embed", None))
+        p["we_up"] = PT((E, d, f), ("expert", "embed", None))
+        p["we_down"] = PT((E, f, d), ("expert", None, "embed"))
+    else:
+        p["wg"] = PT((d, f), ("embed", "ff"))
+        p["wi"] = PT((d, f), ("embed", "ff"))
+        p["wo2"] = PT((f, d), ("ff", "embed"))
     return p
 
 
@@ -151,11 +158,17 @@ def _qkv(cfg: ArchConfig, p, h, rope):
 
 
 def _ffn(cfg: ArchConfig, p, x, res):
+    """ln2, then the dense SwiGLU or the MoE FFN, and the residual."""
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return _residual(x, swiglu(h2, p["wg"], p["wi"], p["wo2"]), res)
+    if cfg.is_moe:
+        f = moe_ffn(h2, p["router"], p["we_gate"], p["we_up"], p["we_down"],
+                    k=cfg.experts_per_token)
+    else:
+        f = swiglu(h2, p["wg"], p["wi"], p["wo2"])
+    return _residual(x, f, res)
 
 
-# decode runs the same dense FFN on one token
+# decode runs the same FFN (dense or MoE) on one token
 _ffn_decode = _ffn
 
 

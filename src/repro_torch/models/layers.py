@@ -62,12 +62,29 @@ def map_templates(fn: Callable[[PT], Any], tree):
     raise TypeError(f"unexpected template node {type(tree).__name__}")
 
 
+# a normal leaf of more elements than this is drawn one slice of its first
+# axis at a time, into the destination tensor: a whole f32 draw and its
+# scaled copy of qwen3-moe-30b-a3b's stacked expert leaf [48, 128, 2048, 768]
+# would take 77 GB. Every leaf of smollm, minicpm, qwen2 and hymba lies
+# below it, so their values are those of one draw per leaf; above it lie the
+# expert leaves and qwen3-32b's stacked FFN leaves (8.4 G elements, whose
+# whole draw never fitted on one card).
+SLICED_DRAW_ELEMS = 1 << 30
+
+
 def init_params(template, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16, device=None):
     """Materialise a template: normal draws scaled by 1/sqrt(fan_in) (x0.1
     for "small"), zeros, ones or -1e30, drawn in f32 on the generator's
-    device and cast to the leaf's dtype. One draw per leaf in tree order."""
+    device and cast to the leaf's dtype. One draw per leaf in tree order;
+    a leaf above ``SLICED_DRAW_ELEMS`` elements takes one draw per slice of
+    its first axis, in order."""
     device = torch.device(device) if device is not None else generator.device
+
+    def draw(shape, scale: float, dt: torch.dtype) -> torch.Tensor:
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (x * scale).to(device=device, dtype=dt)
 
     def make(t: PT) -> torch.Tensor:
         dt = t.resolve_dtype(dtype)
@@ -81,9 +98,12 @@ def init_params(template, generator: torch.Generator,
         scale = 1.0 / math.sqrt(max(fan, 1))
         if t.init == "small":
             scale *= 0.1
-        x = torch.randn(t.shape, generator=generator, dtype=torch.float32,
-                        device=generator.device)
-        return (x * scale).to(device=device, dtype=dt)
+        if math.prod(t.shape) <= SLICED_DRAW_ELEMS:
+            return draw(t.shape, scale, dt)
+        out = torch.empty(t.shape, dtype=dt, device=device)
+        for i in range(t.shape[0]):
+            out[i] = draw(t.shape[1:], scale, dt)
+        return out
 
     return map_templates(make, template)
 

@@ -1,8 +1,8 @@
 """Model assembly: configs -> segments -> forward/prefill/decode programs.
 
-Counterpart of ``repro/models/model.py`` for two families:
+Counterpart of ``repro/models/model.py`` for three families:
 
-  dense            [attn x L]
+  dense, moe       [attn x L] (moe: the attention block's FFN is the MoE)
   hybrid (Hymba)   [SWA-hybrid runs] + [global-attention hybrid singles]
 
 A scanned segment (``jax.lax.scan`` over stacked params in the reference)
@@ -24,8 +24,10 @@ its input; "save-attn" keeps the attention's inputs and output, running the
 layer as two checkpointed parts around the attention call (the reference
 names that output for ``save_only_these_names``; a kernel launched through
 ``ctypes`` inside an autograd Function is invisible to
-``create_selective_checkpoint_contexts``, so the cut is made by hand).
-Prefill and decode ignore remat.
+``create_selective_checkpoint_contexts``, so the cut is made by hand). A
+block with no such cut (the hybrid block, whose reference names nothing)
+runs under "save-attn" as under "full", which is what the reference's
+policy computes for it. Prefill and decode ignore remat.
 """
 from __future__ import annotations
 
@@ -73,7 +75,7 @@ def _runs(total: int, singles: Tuple[int, ...]):
 
 
 def plan_segments(cfg: ArchConfig) -> List[Segment]:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return [Segment("attn", cfg.n_layers, True, window=cfg.sliding_window)]
     if cfg.family == "hybrid":
         return [Segment("hybrid", 1, False) if single else
@@ -81,7 +83,8 @@ def plan_segments(cfg: ArchConfig) -> List[Segment]:
                         n_sink=cfg.n_meta_tokens)
                 for single, _, n in _runs(cfg.n_layers, cfg.global_attn_layers)]
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (dense and hybrid only)")
+        f"family {cfg.family!r} is not ported yet (the ssm, vlm and audio families "
+        f"wait for later slices)")
 
 
 def _layers(seg: Segment, tree) -> Iterator[Dict[str, Any]]:
@@ -106,12 +109,6 @@ class Model:
             raise ValueError(f"remat_policy {remat_policy!r} not in {REMAT_POLICIES}")
         self.cfg = cfg
         self.segments = plan_segments(cfg)
-        if remat and remat_policy == "save-attn":
-            for seg in self.segments:
-                if BLOCKS[seg.kind].split is None:
-                    raise NotImplementedError(
-                        f"remat_policy 'save-attn': the {seg.kind!r} block is not cut "
-                        f"at its attention")
         self.remat = remat
         self.remat_policy = remat_policy
         self.ce_chunks = ce_chunks
@@ -203,7 +200,7 @@ class Model:
     def _remat_layer(self, blk, lp, x, ctx: BlockCtx) -> torch.Tensor:
         """One layer whose activations are recomputed in the backward."""
         cfg = self.cfg
-        if self.remat_policy == "full":
+        if self.remat_policy == "full" or blk.split is None:
             return checkpoint(blk.apply, cfg, lp, x, ctx, use_reentrant=False)
         first, mix, last = blk.split                # "save-attn"
         q, k, v = checkpoint(first, cfg, lp, x, ctx, use_reentrant=False)

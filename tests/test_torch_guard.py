@@ -58,6 +58,7 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.kernels.rmsnorm.ops",
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.kernels.ssm_scan.ops", "repro_torch.models.mamba",
+                "repro_torch.models.moe",
                 "repro_torch.models.model", "repro_torch.serve.engine",
                 "repro_torch.launch.serve", "repro_torch.core.vectorized",
                 "repro_torch.sweep.runner", "repro_torch.kernels.list_schedule.ops",
@@ -101,7 +102,7 @@ def test_shape_records_equal_reference():
 
 
 @pytest.mark.parametrize("arch", sorted(a for a, c in REGISTRY.items()
-                                         if c.family not in ("dense", "hybrid")))
+                                         if c.family not in ("dense", "hybrid", "moe")))
 def test_build_model_refuses_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(REGISTRY[arch])

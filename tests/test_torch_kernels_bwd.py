@@ -23,6 +23,14 @@ gradient:
   oracle's bottom-right one agree (ROADMAP §3). The tile predicates and the
   split plan are checked against the mask itself.
 
+* ssm_scan — the reverse scan ``ssm_scan_bwd_ref`` (the wrapper's CPU
+  backward) against ``jax.vjp`` of ``repro/models/mamba.py::selective_scan``
+  (an associative scan), for a in (0, 1) and ragged S and C, within 1e-4 of
+  each gradient's max; the wrapper's autograd Function on the CPU; and the
+  gradients of the Mamba mixer (whose in-place ``exp_`` and carried-state
+  add sit under autograd), with and without ``torch.utils.checkpoint``,
+  against ``jax.grad`` of the reference's.
+
 The kernels themselves against these plain versions run on the card
 (``test_torch_kernels_cuda.py``, ``chip_smoke.py``).
 """
@@ -38,6 +46,7 @@ import torch
 from _torch_common import randn
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rmsnorm_ref
+from repro.models import mamba as jax_mamba
 from repro.models.attention import attention as jax_attention
 from repro_torch.kernels.flash_attention.kernel import BWD_SPLIT_UNITS, SIMT_TILE
 from repro_torch.kernels.flash_attention.ops import flash_mha
@@ -48,6 +57,9 @@ from repro_torch.kernels.flash_attention.ref import (bwd_key_tile_rows, bwd_key_
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import (BWD_SCALAR, BWD_VECTOR, rmsnorm_bwd_plan,
                                              rmsnorm_bwd_ref, rmsnorm_bwd_tiled)
+from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+from repro_torch.models import mamba as t_mamba
 
 RMS_TOL, FLASH_TOL = 1e-5, 1e-4
 # the bf16 rule of the card (chip_smoke.py BWD_FLASH_BF16): max |got - want|
@@ -272,3 +284,116 @@ def test_library_hash_covers_every_csrc_file(tmp_path, monkeypatch):
     assert _build.library_path() != before
     header.write_bytes(header.read_bytes()[:-len(b"\n// edited\n")])
     assert _build.library_path() == before
+
+
+# -- ssm_scan ---------------------------------------------------------------
+
+SCAN_BWD_SHARE = 1e-4
+
+
+def _scan_inputs(shape, seed):
+    a = 1.0 / (1.0 + np.exp(-randn(seed, shape)))           # in (0, 1)
+    return a.astype(np.float32), randn(seed + 1, shape), randn(seed + 2, shape)
+
+
+def _share_close(got, want, share):
+    want = np.asarray(want, np.float32)
+    err = np.abs(got.detach().float().numpy() - want).max()
+    assert err <= share * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@jax.jit
+def _jax_scan_vjp(a, b, g):
+    return jax.vjp(jax_mamba.selective_scan, a, b)[1](g)
+
+
+@pytest.mark.parametrize("shape", [(37, 100), (3, 45, 130), (1, 1, 7), (2, 129, 33)])
+def test_ssm_scan_backward_matches_jax_grad(shape):
+    a, b, g = _scan_inputs(shape, 40)
+    as4 = (lambda t: t[None, ..., None]) if len(shape) == 2 else (lambda t: t[..., None])
+    jda, jdb = (np.asarray(t).reshape(shape) for t in _jax_scan_vjp(
+        *(jnp.asarray(as4(x)) for x in (a, b, g))))
+    at, bt, gt = (torch.from_numpy(x) for x in (a, b, g))
+    da, db = ssm_scan_bwd_ref(at, ssm_scan_ref(at, bt), gt)
+    assert da.dtype == db.dtype == torch.float32 and da.shape == db.shape == shape
+    _share_close(da, jda, SCAN_BWD_SHARE)
+    _share_close(db, jdb, SCAN_BWD_SHARE)
+
+
+def test_ssm_scan_backward_keeps_the_input_dtype():
+    a, b, g = (torch.from_numpy(x).bfloat16() for x in _scan_inputs((2, 50, 33), 44))
+    da, db = ssm_scan_bwd_ref(a, ssm_scan_ref(a, b), g)
+    assert da.dtype == db.dtype == torch.bfloat16
+    want = ssm_scan_bwd_ref(*(t.float() for t in (a, ssm_scan_ref(a, b), g)))
+    for got, w in zip((da, db), want):
+        torch.testing.assert_close(got.float(), w, rtol=1e-2, atol=1e-2 * float(w.abs().max()))
+
+
+def test_ssm_scan_wrapper_cpu_path_runs_the_reverse_scan():
+    """Under autograd on the CPU the wrapper's Function runs the plain
+    forward and ``ssm_scan_bwd_ref``, counting no launch; its gradients
+    equal autograd through the plain loop."""
+    a, b, g = (torch.from_numpy(x) for x in _scan_inputs((2, 40, 24), 48))
+    ar, br = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    ref_out = ssm_scan_ref(ar, br)
+    want = torch.autograd.grad(ref_out, (ar, br), g)
+    before = ssm_scan_batched.launches, ssm_scan_batched.bwd_launches
+    ar, br = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    out = ssm_scan_batched(ar, br)
+    assert type(out.grad_fn).__name__ == "_SsmScanFnBackward"
+    assert torch.equal(out.detach(), ref_out.detach())
+    out.backward(g)
+    assert (ssm_scan_batched.launches, ssm_scan_batched.bwd_launches) == before
+    h = ssm_scan_ref(a, b)
+    assert torch.equal(ar.grad, ssm_scan_bwd_ref(a, h, g)[0])
+    assert torch.equal(br.grad, ssm_scan_bwd_ref(a, h, g)[1])
+    for got, w in zip((ar.grad, br.grad), want):
+        torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5)
+
+
+_M = dict(B=2, S=13, DI=24, N=8, DTR=4, K=4)
+
+
+def _mamba_tree(seed):
+    B, S, DI, N, DTR, K = (_M[k] for k in ("B", "S", "DI", "N", "DTR", "K"))
+    return dict(
+        x_in=randn(seed, (B, S, DI)), z=randn(seed + 1, (B, S, DI)),
+        conv_w=0.1 * randn(seed + 2, (DI, K)),
+        w_x=randn(seed + 3, (DI, DTR + 2 * N)) / DI ** 0.5,
+        w_dt=randn(seed + 4, (DTR, DI)) / DTR ** 0.5,
+        b_dt=0.1 * randn(seed + 5, (DI,)), a_log=0.1 * randn(seed + 6, (DI, N)),
+        d_skip=np.ones((DI,), np.float32))
+
+
+_MAMBA_ARGS = ("x_in", "z", "conv_w", "w_x", "w_dt", "b_dt", "a_log", "d_skip")
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("remat", [False, True])
+def test_mamba_mix_gradients_match_jax_grad(carried, remat):
+    """The port's Mamba mixer under autograd (the scan's Function, the
+    in-place ``exp_`` and, with a carried state, the in-place add into the
+    first step), optionally under non-reentrant checkpointing, against
+    ``jax.grad`` of the reference's mixer; 1e-4 of each gradient's max."""
+    tree = _mamba_tree(60)
+    B, DI, N, K = _M["B"], _M["DI"], _M["N"], _M["K"]
+    conv, ssm = randn(70, (B, DI, K - 1)), randn(71, (B, DI, N))
+    cot = randn(72, (B, _M["S"], DI))
+    kw = dict(n_state=N, dt_rank=_M["DTR"])
+
+    def jloss(args):
+        st = jax_mamba.MambaState(jnp.asarray(conv), jnp.asarray(ssm)) if carried else None
+        return jnp.sum(jax_mamba.mamba_mix(*args, state=st, **kw) * cot)
+
+    want = jax.jit(jax.grad(jloss))([jnp.asarray(tree[k]) for k in _MAMBA_ARGS])
+    leaves = [torch.from_numpy(tree[k]).requires_grad_(True) for k in _MAMBA_ARGS]
+
+    def tloss(*args):
+        st = (t_mamba.MambaState(torch.from_numpy(conv), torch.from_numpy(ssm))
+              if carried else None)
+        return (t_mamba.mamba_mix(*args, state=st, **kw) * torch.from_numpy(cot)).sum()
+
+    loss = (torch.utils.checkpoint.checkpoint(tloss, *leaves, use_reentrant=False) if remat
+            else tloss(*leaves))
+    for name, got, w in zip(_MAMBA_ARGS, torch.autograd.grad(loss, leaves), want):
+        _share_close(got, w, SCAN_BWD_SHARE)

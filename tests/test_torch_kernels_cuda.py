@@ -39,8 +39,9 @@ from repro_torch.kernels.rmsnorm.ref import (BWD_SCALAR, BWD_VECTOR, LATENCY, RO
                                              rmsnorm_bwd_tiled, rmsnorm_plan, rmsnorm_ref,
                                              rmsnorm_tiled)
 from repro_torch.kernels.ssm_scan import ops as scan_ops
+from repro_torch.kernels.ssm_scan.kernel import scan_kernel_attrs
 from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
 
 _TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -52,6 +53,7 @@ def _no_plain(monkeypatch):
     monkeypatch.setattr(rms_ops, "rmsnorm_ref", boom)
     monkeypatch.setattr(flash_ops, "flash_mha_ref", boom)
     monkeypatch.setattr(scan_ops, "ssm_scan_ref", boom)
+    monkeypatch.setattr(scan_ops, "ssm_scan_bwd_ref", boom)
     monkeypatch.setattr(sched_ops, "list_schedule_ref", boom)
 
 
@@ -728,15 +730,79 @@ def test_flash_backward_raises_on_misaligned_bf16():
         out.backward(buf[1:].view(out.shape))
 
 
+# the scan's backward vs ssm_scan_bwd_ref on the card: max |err| within this
+# share of each gradient's max (f32: one FMA against a multiply and an add
+# per step; bf16: one rounding of each gradient and of the saved h)
+_SCAN_BWD_SHARE = {"f32": 1e-4, "bf16": 2e-2}
+
+
+def _scan_bwd_inputs(shape, dt, offset=0):
+    """a in (0, 1), b and dh, each at an element ``offset`` into its buffer."""
+    n = 1
+    for s in shape:
+        n *= s
+    out = []
+    for seed, f in ((20, torch.sigmoid), (21, None), (22, None)):
+        t = torch.from_numpy(randn(seed, (n + offset,)))
+        out.append((f(t) if f else t).to("cuda", _TDT[dt])[offset:].view(shape))
+    return out
+
+
 @pytest.mark.gpu
-def test_ssm_scan_raises_under_grad_on_the_card():
+@pytest.mark.parametrize("shape", [(4, 1152, 51200), (2, 257, 513), (37, 100), (1, 4097),
+                                   (3, 45, 130), (2, 1, 333), (1, 1, 1), (5, 9, 7)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ssm_scan_backward_cuda_vs_plain(shape, dt, monkeypatch):
+    """The backward kernel under the wrapper's autograd against the reverse
+    scan's plain version; a second backward gives the same bits."""
     require_sm90()
-    a = torch.rand(2, 8, 16, device="cuda", requires_grad=True)
-    b = torch.randn(2, 8, 16, device="cuda")
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        ssm_scan_batched(a, b)
-    with torch.no_grad():
-        assert ssm_scan_batched(a, b).shape == a.shape
+    a, b, g = _scan_bwd_inputs(shape, dt)
+    want = ssm_scan_bwd_ref(a, ssm_scan_ref(a, b), g)
+    _no_plain(monkeypatch)
+    ar, br = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    before = ssm_scan_batched.launches, ssm_scan_batched.bwd_launches
+    out = ssm_scan_batched(ar, br)
+    assert out.grad_fn is not None
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (ssm_scan_batched.launches, ssm_scan_batched.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    for got, w in zip((ar.grad, br.grad), want):
+        assert got.dtype == a.dtype and got.shape == a.shape
+        assert bool(torch.isfinite(got).all())
+        err = float((got.float() - w.float()).abs().max())
+        assert err <= _SCAN_BWD_SHARE[dt] * max(float(w.float().abs().max()), 1e-30)
+    first = ar.grad.clone(), br.grad.clone()
+    ar.grad = br.grad = None
+    ssm_scan_batched(ar, br).backward(g)
+    assert torch.equal(ar.grad, first[0]) and torch.equal(br.grad, first[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ssm_scan_backward_reads_misaligned_inputs(dt):
+    """Inputs one element into their buffers give the bits of aligned ones."""
+    require_sm90()
+    mis = _scan_bwd_inputs((3, 70, 129), dt, offset=1)
+    assert mis[0].data_ptr() % 16
+    aligned = [t.clone() for t in mis]
+
+    def grads(a, b, g):
+        ar, br = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        ssm_scan_batched(ar, br).backward(g)
+        return ar.grad, br.grad
+
+    for got, want in zip(grads(*mis), grads(*aligned)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ssm_scan_kernel_attrs(dt):
+    require_sm90()
+    for backward in (False, True):
+        attrs = scan_kernel_attrs(_TDT[dt], backward)
+        assert 0 < attrs["registers"] <= 255 and attrs["smem_bytes"] == 0
 
 
 @pytest.mark.gpu

@@ -82,8 +82,8 @@ def test_port_decode_matches_forward(arch):
             close(lg, model._logits(params, h[:, -1]), TOL["decode_vs_forward"])
 
 
-@pytest.mark.parametrize("change", [{"family": "ssm"},
-                                    {"n_experts": 4, "experts_per_token": 2}])
+# the MoE family is ported (tests/test_torch_moe.py); ssm and vlm are not
+@pytest.mark.parametrize("change", [{"family": "ssm"}, {"family": "vlm"}])
 def test_unported_families_raise(change):
     cfg = dataclasses.replace(REGISTRY["qwen2-1.5b"].reduced(), **change)
     with pytest.raises(NotImplementedError):

@@ -5,7 +5,9 @@ One ``make_train_step`` step of each package from the same f32 parameters
 batch (``SyntheticData`` of either package: the same numpy draws), for four
 reduced dense configs: smollm-135m, qwen2-1.5b (QKV bias, tied head),
 qwen3-32b (qk-norm) and minicpm-2b (WSD, ``dim_model_base`` logit scale);
-microbatches and EF compression on qwen2. Then the optimizer, schedules,
+microbatches and EF compression on qwen2; the hybrid hymba-1.5b (the
+ssm_scan backward, meta tokens, window and sinks), also under "save-attn";
+and qwen3-moe-30b-a3b (the MoE backward through the router's gates). Then the optimizer, schedules,
 int8 quantization, data and checkpoints, each against the JAX package, and
 the training CLI.
 
@@ -98,14 +100,25 @@ def _rel(a, b):
 
 CASES = [("smollm-135m", 1, False), ("qwen2-1.5b", 1, False), ("qwen3-32b", 1, False),
          ("minicpm-2b", 1, False), ("qwen2-1.5b", 2, False), ("qwen2-1.5b", 1, True),
-         ("qwen2-1.5b", 2, True)]
+         ("qwen2-1.5b", 2, True), ("hymba-1.5b", 1, False), ("qwen3-moe-30b-a3b", 1, False)]
 
 
 @pytest.mark.parametrize("arch,microbatches,compress_on", CASES)
 def test_train_step_matches_jax(arch, microbatches, compress_on):
+    _step_matches_jax(arch, microbatches, compress_on)
+
+
+def test_save_attn_hybrid_step_matches_jax():
+    """hymba under "save-attn": the reference's policy saves the named
+    attention output, which its hybrid block does not name, so both
+    packages recompute the whole layer."""
+    _step_matches_jax("hymba-1.5b", 1, False, remat_policy="save-attn")
+
+
+def _step_matches_jax(arch, microbatches, compress_on, remat_policy="full"):
     cfg, jcfg = REGISTRY[arch].reduced(), JAX_REGISTRY[arch].reduced()
-    model = build_model(cfg)
-    jmodel = jax_build_model(jcfg)
+    model = build_model(cfg, remat_policy=remat_policy)
+    jmodel = jax_build_model(jcfg, remat_policy=remat_policy)
     tree = _numpy_params(model, 0)
     kw = dict(microbatches=microbatches, compress=compress_on)
     # warmup 0: the first step runs at the peak rate, not at lr 0
@@ -178,9 +191,28 @@ def test_remat_policies_give_the_same_loss_and_grads(policy):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
 
-def test_save_attn_refuses_a_block_without_a_cut():
-    with pytest.raises(NotImplementedError, match="save-attn"):
-        build_model(REGISTRY["hymba-1.5b"].reduced(), remat_policy="save-attn")
+def test_save_attn_on_a_block_without_a_cut_is_full_remat():
+    """The hybrid block has no cut at its attention: "save-attn" runs it as
+    "full", the same loss and gradients to 1e-6."""
+    cfg = REGISTRY["hymba-1.5b"].reduced()
+    tree = _numpy_params(build_model(cfg), 1)
+    batch = SyntheticData(cfg, SHAPES["train_4k"], seed=2, batch_override=2,
+                          seq_override=S, device="cpu").batch_at(0)
+
+    def loss_and_grads(policy):
+        model = build_model(cfg, remat=True, remat_policy=policy)
+        params = params_from_numpy(model, tree, device="cpu")
+        leaves = optim.tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = model.loss(params, batch)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    want_loss, want = loss_and_grads("full")
+    got_loss, got = loss_and_grads("save-attn")
+    assert got_loss == pytest.approx(want_loss, rel=1e-6, abs=1e-6)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
 
 def test_adamw_converges_quadratic_parity():
