@@ -3,13 +3,16 @@
 
   python3 chip_smoke.py
 
-Five main paths are driven: the campaign prescreen of the builtin
+Eight main paths are driven: the campaign prescreen of the builtin
 lm_full_pod campaign (qwen3-32b, 72 cells x 192 parameter vectors);
 serving, each at full width and full depth, the dense decoder qwen2-1.5b,
 the hybrid hymba-1.5b (attention and Mamba heads, sliding window with
-meta-token sinks) and the MoE qwen3-moe-30b-a3b (128 experts, top 8, in
-bf16); training qwen2-1.5b; and training hymba-1.5b, both at full width and
-depth. Phases, each of which fails the run (non-zero exit, no result line):
+meta-token sinks), the MoE qwen3-moe-30b-a3b (128 experts, top 8, in
+bf16) and the xLSTM xlstm-125m (mLSTM and sLSTM cells); the VLM
+llama-3.2-vision-90b at full width and 4 of its 20 groups (gated
+cross-attention over 1024 image tokens, nested groups); the audio encoder
+hubert-xlarge at full width and depth (non-causal, head dim 80); training
+qwen2-1.5b; and training hymba-1.5b, both at full width and depth. Phases, each of which fails the run (non-zero exit, no result line):
 
   1. card   — name and power limit from nvidia-smi;
   2. build  — one nvcc per CUDA source, all started together, and one link
@@ -43,21 +46,34 @@ depth. Phases, each of which fails the run (non-zero exit, no result line):
      row-width limit; and the host us per call of the wrapper and of
      F.rms_norm at [4, 1536] bf16 (1000 calls back to back, wall clock,
      one synchronize). Flash: bf16 at hd 64/128 must run the
-     tensor-core kernel, everything else the CUDA-core (SIMT) one; at the
+     tensor-core kernel, everything else the CUDA-core (SIMT) one (HuBERT's
+     hd 80 in bf16 held to 2e-2; the VLM's self and cross shapes at 64
+     over 8 heads, Sq 1 among them); at the
      main shapes the instance, its registers, spill and shared memory, the
      share of its bound and its ratio to SDPA are printed (the CUDA-core
      instance's blocks an SM from the card's occupancy calculator); in f32
      beside the previous (scalar) design's time;
   4. model  — each model in f32: prefill + 2 decode steps match forward
      logits (hymba's 1100-token prompt wraps its window ring; qwen3-moe at
-     full width and 4 of its 48 layers);
-  5. serve  — each model in bf16 through ServeEngine: 8 requests, one
-     straggler evicted and re-queued; every kernel's launch count, zeroed
-     just before the run and read just after, must equal what the path
-     implies, and every flash launch must be the tensor-core kernel's; the
+     full width and 4 of its 48 layers; the VLM at 1 of its 20 groups, its
+     gates opened, and images + 1.0 must move its output by more than
+     1e-3); hubert-xlarge, which has no decode step, at full depth, B 2, T
+     1500: its forward with the kernels against the forward with the plain
+     versions (2e-3 of max |h|), and a late frame must move the first
+     outputs;
+  5. serve  — each decoder in bf16 through ServeEngine: 8 requests, one
+     straggler evicted and re-queued (xlstm-125m: each batch's padded S
+     and its mLSTM chunk length); the VLM through Model.prefill of 4 text
+     prompts with 1024 image tokens each, then 16 decode steps (neither
+     package gives it an engine path); hubert-xlarge as 8 encodes of B 4 x
+     T 1500 frames. Every kernel's launch count, zeroed just before the run
+     and read just after, must equal what the path implies
+     (``path_counts``), and every bf16 flash launch at hd 64/128 must be
+     the tensor-core kernel's (HuBERT's hd 80 runs the CUDA-core one); the
      peak memory must stay under 80 GB (qwen3-moe's weights are 61 GB);
   6. profile — wall vs device busy time of one prefill and of decode
-     steps of each model, with the top kernels (torch.profiler);
+     steps of each decoder (the VLM with its image tokens), and of one
+     encode of hubert-xlarge, with the top kernels (torch.profiler);
   7. train  — the backward kernels (rmsnorm: dx, dw; flash attention: dQ,
      dK, dV; bf16 at hd 64/128 on the tensor cores) at the train shapes
      through the wrappers' autograd, against the plain versions' autograd
@@ -135,6 +151,7 @@ BWD_FLASH_BF16 = 2e-2
 # (0.1 x its clipped gradient) within this share of the leaf's max
 STEP_GRAD_TOL = 1e-4
 DENSE, HYBRID, MOE, CAMPAIGN = "qwen2-1.5b", "hymba-1.5b", "qwen3-moe-30b-a3b", "lm_full_pod"
+XLSTM, VLM, AUDIO = "xlstm-125m", "llama-3.2-vision-90b", "hubert-xlarge"
 TRAIN = dict(arch=DENSE, steps=4, batch=4, seq=1024, bf16_steps=3, check_layers=4)
 # hybrid training: full width and depth, f32; the kernels-vs-plain step keeps
 # 4 layers, a global-attention layer at each end and two windowed ones
@@ -178,7 +195,23 @@ PATHS = {
     # the f32 model check at full width keeps 4 of 48 layers (12.5 GB)
     MOE: dict(model_B=2, model_S=256, model_smax=512, model_layers=4, lo=256, hi=1024,
               max_new=16, deadline=4, smax=2048, profile_S=1024),
+    XLSTM: dict(model_B=2, model_S=256, model_smax=512, lo=512, hi=1024, max_new=32,
+                deadline=8, smax=2048, profile_S=1024),
+    # the f32 model check keeps 1 of 20 groups (4 self + 1 cross layers, 25 GB);
+    # the bf16 serve run 4 of 20 (20 of 100 layers, 38 GB of weights): Model.prefill
+    # with 1024 image tokens a request, then decode steps (no engine path)
+    VLM: dict(model_B=2, model_S=256, model_smax=512, model_layers=5, serve_layers=20,
+              lo=512, hi=1024, max_new=16, profile_S=1024),
+    # an encoder: 30 s of audio at 20 ms a frame; forward only (no decode step)
+    AUDIO: dict(model_B=2, model_S=1500, encodes=8, batch=4, profile_S=1500),
 }
+# HuBERT's flash shape: the CUDA-core kernel at hd 80 (bf16 held to 2e-2)
+HUBERT_FA = (4, 1500, 1500, 16, 16, 80, False, 0, 0)
+HD80_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the VLM's attention: self (causal) and cross (text queries over 1024 image
+# tokens, at prefill and at a decode step), 64 q heads over 8 kv heads
+VLM_FA = [(4, 1024, 1024, 64, 8, 128, True, 0, 0), (4, 1024, 1024, 64, 8, 128, False, 0, 0),
+          (4, 1, 1024, 64, 8, 128, False, 0, 0)]
 CARD_BYTES = 80e9                          # the serve runs must fit one 80 GB card
 
 
@@ -700,10 +733,17 @@ def phase_kernels(torch):
     # hymba: prefill B=4 S=1024+128 meta, decode B=4; qwen3-moe (qk-norm,
     # 32 q and 4 kv heads of 128): prefill B=4 S=1024 (ln1/ln2, q_norm,
     # k_norm), decode B=4 (the same four)
+    # xlstm: prefill B=4 S=1024 and decode B=4 at d 768; hubert: an encode
+    # of B=4 T=1500 at d 1280; the VLM at d 8192 (the plan's MAX_D): prefill
+    # B=4 S=1024, its cross q-norm [B*S*64, 128] and k-norm over the image
+    # tokens [B*1024*8, 128], decode B=4 and the decode q-norm [4*64, 128]
     main_rms = [(4 * 1024, 1536), (4, 1536), (4 * 1024 * 12, 128),
                 (4 * 1152, 1600), (4, 1600),
                 (4 * 1024, 2048), (4 * 1024 * 32, 128), (4 * 1024 * 4, 128),
-                (4, 2048), (4 * 32, 128), (4 * 4, 128)]
+                (4, 2048), (4 * 32, 128), (4 * 4, 128),
+                (4 * 1024, 768), (4, 768), (4 * 1500, 1280),
+                (4 * 1024, 8192), (4 * 1024 * 64, 128), (4 * 1024 * 8, 128), (4, 8192),
+                (4 * 64, 128)]
     # every variant of the plan: narrow rows several to a warp, the widest
     # across warps, d that rules out 16-byte loads, x at an odd element
     # offset (the last element of a case says so)
@@ -758,7 +798,8 @@ def phase_kernels(torch):
     main_fa = [(4, 1024, 1024, 12, 2, 128, True, 0, 0),       # qwen2 prefill
                (4, 1152, 1152, 25, 5, 64, True, 1024, 128),   # hymba, S = w + sinks
                (4, 2176, 2176, 25, 5, 64, True, 1024, 128),   # hymba, 2048 + 128
-               (4, 1024, 1024, 32, 4, 128, True, 0, 0)]       # qwen3-moe prefill
+               (4, 1024, 1024, 32, 4, 128, True, 0, 0),       # qwen3-moe prefill
+               HUBERT_FA, *VLM_FA]
     edge_fa = [(2, 300, 300, 12, 2, 128, True, 0, 0),     # ragged S
                (2, 300, 300, 12, 2, 128, False, 0, 0),    # non-causal
                (2, 200, 500, 12, 2, 128, True, 0, 0),     # Sq < Sk, top-left mask
@@ -796,7 +837,8 @@ def phase_kernels(torch):
             tc = dt == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
             if ran != ((0, 0) if tc and Sk == 0 else (1, int(tc))):
                 raise AssertionError(f"{name}: (launches, wgmma launches) rose by {ran}")
-            err = compare(name, got, flash_mha_ref(q, k, v, **kw), TOL[("flash", dn)])
+            err = compare(name, got, flash_mha_ref(q, k, v, **kw),
+                          HD80_TOL[dn] if hd == 80 else TOL[("flash", dn)])
             if case not in main_fa:
                 continue
             ms = timer(lambda: flash_mha(q, k, v, **kw))
@@ -864,34 +906,58 @@ def phase_kernels(torch):
     return rows
 
 
-def phase_model(torch, arch):
+def _open_gates(params) -> None:
+    """gate_attn = gate_ffn = 1 in every VLM group (they start at 0, and
+    tanh(0) would hide the image path)."""
+    for grp in params["segments"]:
+        for g in ("gate_attn", "gate_ffn"):
+            grp["cross"][g].fill_(1.0)
+
+
+def _cut(cfg, key):
+    """The config at PATHS[cfg.name][key] layers, where the path cuts depth."""
     import dataclasses
 
+    n = PATHS[cfg.name].get(key)
+    return dataclasses.replace(cfg, n_layers=n) if n else cfg
+
+
+def phase_model(torch, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
     import numpy as np
 
-    cfg = get_config(arch)
-    if "model_layers" in PATHS[arch]:
-        cfg = dataclasses.replace(cfg, n_layers=PATHS[arch]["model_layers"])
+    t_phase = time.perf_counter()
+    cfg = _cut(get_config(arch), "model_layers")
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(gen, torch.float32, "cuda")
+    if cfg.family == "audio":
+        _encoder_check(torch, model, params, PATHS[arch]["model_B"], PATHS[arch]["model_S"],
+                       t_phase)
+        del params
+        torch.cuda.empty_cache()
+        return
     B, S, SMAX = (PATHS[arch][k] for k in ("model_B", "model_S", "model_smax"))
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, S + 2))).cuda()
+    extra = {}
+    if cfg.family == "vlm":
+        _open_gates(params)
+        extra["images"] = torch.randn((B, cfg.n_image_tokens, cfg.d_model), generator=gen,
+                                      device="cuda")
     tol = 2e-3  # the bound of tests/test_models_smoke.py; paths differ in f32 sum order
     with torch.inference_mode():
         got = []
-        lg, cache = model.prefill(params, {"tokens": toks[:, :S]}, SMAX)
+        lg, cache = model.prefill(params, {"tokens": toks[:, :S], **extra}, SMAX)
         got.append(lg)
         for n in (S, S + 1):
             lg, cache = model.decode_step(params, cache, toks[:, n:n + 1])
             got.append(lg)
         worst = 0.0
         for lg, n in zip(got, (S, S + 1, S + 2)):
-            h = model.forward(params, {"tokens": toks[:, :n]})
+            h = model.forward(params, {"tokens": toks[:, :n], **extra})
             want = model._logits(params, h[:, -1])
             if not bool(torch.isfinite(lg).all()) or lg.shape != (B, cfg.padded_vocab):
                 raise AssertionError(f"bad logits at n={n}: {tuple(lg.shape)}")
@@ -899,11 +965,92 @@ def phase_model(torch, arch):
             worst = max(worst, err)
             if not bool(torch.allclose(lg, want, rtol=tol, atol=tol)):
                 raise AssertionError(f"decode != forward at n={n}: {err:.3e}")
+        if cfg.family == "vlm":
+            # tests/test_models_smoke.py::test_vlm_needs_images
+            moved = model.forward(params, {"tokens": toks[:, :S],
+                                           "images": extra["images"] + 1.0})
+            delta = float((model.forward(params, {"tokens": toks[:, :S], **extra})
+                           - moved).abs().max())
+            log(f"[model] {cfg.name}: images + 1.0 move the output by {delta:.3e} (must "
+                f"exceed 1e-3; gates opened)")
+            if not delta > 1e-3:
+                raise AssertionError("the image path does not reach the output")
     log(f"[model] {cfg.name} f32 L={cfg.n_layers} d={cfg.d_model} B={B}: prefill {S} "
         f"(+{cfg.n_meta_tokens} meta) + 2 decode steps match forward, "
-        f"max_abs_err={worst:.3e} (tol {tol:g})")
+        f"max_abs_err={worst:.3e} (tol {tol:g}) [{time.perf_counter() - t_phase:.1f}s]")
     del params, cache
     torch.cuda.empty_cache()
+
+
+def _encoder_check(torch, model, params, B, T, t_phase):
+    """The audio encoder in f32 at full depth: its forward with the kernels
+    against the forward with the plain versions patched in (here, not by a
+    switch in the package), within 2e-3 of max |h|; and 10.0 added to the
+    last frame must move the first 4 outputs by more than 1e-4
+    (tests/test_models_smoke.py::test_encoder_bidirectional)."""
+    from repro_torch.kernels.flash_attention.ref import flash_mha_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import layers as layers_mod
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    frames = torch.randn((B, T, cfg.d_model), generator=gen, device="cuda")
+    late = frames.clone()
+    late[:, -1] += 10.0
+    with torch.inference_mode():
+        _zero_counts()
+        h = model.forward(params, {"frames": frames})
+        ran = _read_counts()
+        h_late = model.forward(params, {"frames": late})
+        saved = layers_mod.rmsnorm, attention_mod.flash_mha
+        try:
+            layers_mod.rmsnorm, attention_mod.flash_mha = rmsnorm_ref, flash_mha_ref
+            _zero_counts()
+            plain = model.forward(params, {"frames": frames})
+            plain_ran = _read_counts()
+        finally:
+            layers_mod.rmsnorm, attention_mod.flash_mha = saved
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(h).all()) or h.shape != (B, T, cfg.d_model):
+        raise AssertionError(f"bad encoder output {tuple(h.shape)}")
+    err, top = float((h - plain).abs().max()), float(plain.abs().max())
+    early = float((h - h_late)[:, :4].abs().max())
+    log(f"[model] {cfg.name} f32 L={cfg.n_layers} d={cfg.d_model} B={B} T={T}: forward with "
+        f"the kernels vs with the plain versions max_abs_err={err:.3e} (tol 2e-3 x max |h| = "
+        f"{2e-3 * top:.3e}); the last frame + 10.0 moves the first 4 outputs by {early:.3e} "
+        f"(must exceed 1e-4); launches {ran['rmsnorm']} rmsnorm, {ran['flash_attention']} "
+        f"flash [{time.perf_counter() - t_phase:.1f}s]")
+    (n_norms, n_flash), _ = path_counts(cfg)
+    if ran["rmsnorm"] != n_norms or ran["flash_attention"] != n_flash or any(plain_ran.values()):
+        raise AssertionError(f"kernel forward launched {ran}, plain forward {plain_ran}")
+    if err > 2e-3 * top:
+        raise AssertionError("the encoder with the kernels disagrees with the plain versions")
+    if not early > 1e-4:
+        raise AssertionError("a late frame does not reach the early outputs")
+
+
+def path_counts(cfg):
+    """Kernel launches the path implies: (rmsnorm, flash) a prefill and a
+    decode step. ln1 + ln2 per attention layer (+ norm_attn, norm_ssm in a
+    hybrid layer, + q_norm, k_norm under qk-norm); ln + norm_cell per mLSTM
+    layer, + ln2 per sLSTM layer; ln1, q_norm, k_norm (prefill only: decode
+    reads the cached image K) and ln2 per cross layer; audio's input norm;
+    the final norm. Flash: one a layer at prefill (self and cross), and at
+    decode one a cross layer (self decode attends the cache in plain torch)."""
+    from repro_torch.models.model import plan_segments
+
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        n_s = sum(g.n for g in plan_segments(cfg) if g.kind == "slstm")
+        norms = 2 * (L - n_s) + 3 * n_s + 1
+        return (norms, 0), (norms, 0)
+    if cfg.family == "vlm":
+        n_x = cfg.n_cross_layers
+        n_self = L - n_x
+        return ((2 * n_self + 4 * n_x + 1, L), (2 * n_self + 3 * n_x + 1, n_x))
+    per = (2 + 2 * (cfg.family == "hybrid") + 2 * cfg.qk_norm) * L + 1
+    return (per + (cfg.family == "audio"), L), (per, 0)
 
 
 def phase_serve(torch, arch):
@@ -914,8 +1061,10 @@ def phase_serve(torch, arch):
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
     from repro_torch.models import build_model
+    from repro_torch.models.ssm import chunk_len
     from repro_torch.serve import ServeEngine
 
+    t_phase = time.perf_counter()
     cfg = get_config(arch)
     path = PATHS[arch]
     model = build_model(cfg)
@@ -932,9 +1081,12 @@ def phase_serve(torch, arch):
         straggler = rid if i == 2 else straggler
 
     calls = {"prefill": [], "decode": []}
+    padded = []
 
     def timed(kind, fn):
         def run(*args):
+            if kind == "prefill":
+                padded.append(int(args[1]["tokens"].shape[1]))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args)
@@ -968,15 +1120,17 @@ def phase_serve(torch, arch):
     log(f"[serve] prefill {n_pf} calls, median {statistics.median(calls['prefill']):.1f} ms"
         f" per batch ({', '.join('%.1f' % t for t in calls['prefill'])}); decode "
         f"{n_dc} steps, median {statistics.median(calls['decode']):.2f} ms per step")
+    if cfg.family == "ssm":
+        log(f"[serve] padded S of each prefill batch and its mLSTM chunk length L: "
+            + ", ".join(f"S {n} L {chunk_len(n)} ({n // chunk_len(n)} chunks, "
+                        f"{t:.1f} ms)" for n, t in zip(padded, calls["prefill"])))
     peak = torch.cuda.max_memory_allocated()
     log(f"[serve] max_memory_allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")
     if peak >= CARD_BYTES:
         raise AssertionError(f"serve peak memory {peak / 1e9:.2f} GB >= {CARD_BYTES / 1e9:g} GB")
     hybrid = cfg.family == "hybrid"
-    # ln1 + ln2 per layer (+ norm_attn, norm_ssm in a hybrid layer, + q_norm,
-    # k_norm under qk-norm), final norm
-    per_step = (2 + 2 * hybrid + 2 * cfg.qk_norm) * cfg.n_layers + 1
-    want = {"rmsnorm": per_step * (n_pf + n_dc), "flash_attention": cfg.n_layers * n_pf,
+    (per_step, fa_pf), _ = path_counts(cfg)
+    want = {"rmsnorm": per_step * (n_pf + n_dc), "flash_attention": fa_pf * n_pf,
             "ssm_scan": cfg.n_layers * n_pf if hybrid else 0}
     if cfg.is_moe:
         log(f"[serve] MoE FFN: the dense oracle (every expert on every token, an "
@@ -984,8 +1138,9 @@ def phase_serve(torch, arch):
             f"top {cfg.experts_per_token}")
     log(f"[serve] launches: rmsnorm {launches['rmsnorm']} (want {per_step} x "
         f"{n_pf + n_dc}), flash_attention {launches['flash_attention']} (want "
-        f"{cfg.n_layers} x {n_pf}; tensor-core kernel {wgmma}), ssm_scan "
-        f"{launches['ssm_scan']} (want {want['ssm_scan']})")
+        f"{fa_pf} x {n_pf}; tensor-core kernel {wgmma}), ssm_scan "
+        f"{launches['ssm_scan']} (want {want['ssm_scan']}) "
+        f"[{time.perf_counter() - t_phase:.1f}s]")
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"{name} launches do not match the path")
@@ -999,6 +1154,122 @@ def phase_serve(torch, arch):
         raise AssertionError(f"unexpected token counts: {tokens}")
     if not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
         raise AssertionError("token outside the vocabulary")
+    return launches, model, params
+
+
+def phase_serve_vlm(torch):
+    """The VLM in bf16 at full width and PATHS depth (4 of 20 groups), gates
+    opened: Model.prefill of B=4 text prompts of 512-1024 tokens (left-padded
+    with token 0, as the engine pads) with 1024 image tokens a row, then
+    max_new greedy decode steps (the engine passes tokens only, in both
+    packages, so the VLM has no engine path). Exact launches, every flash
+    launch on the tensor cores, peak memory under 80 GB."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    path = PATHS[VLM]
+    cfg = _cut(get_config(VLM), "serve_layers")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, torch.bfloat16, "cuda")
+    _open_gates(params)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(path["lo"], path["hi"] + 1, 4)
+    S, steps = int(lengths.max()), path["max_new"]
+    toks = np.zeros((4, S), np.int64)
+    for i, n in enumerate(lengths):
+        toks[i, S - n:] = rng.integers(0, cfg.vocab_size, n)
+    batch = {"tokens": torch.from_numpy(toks).cuda(),
+             "images": torch.randn((4, cfg.n_image_tokens, cfg.d_model), generator=gen,
+                                   device="cuda").to(torch.bfloat16)}
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, out = [], []
+    _zero_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(params, batch, S + steps)
+        torch.cuda.synchronize()
+        pf = (time.perf_counter() - t0) * 1e3
+        for _ in range(steps):
+            nxt = lg.argmax(-1, keepdim=True)
+            out.append(nxt)
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, cache, nxt)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    ran = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    (n_pf, fa_pf), (n_dc, fa_dc) = path_counts(cfg)
+    want = {"rmsnorm": n_pf + steps * n_dc, "flash_attention": fa_pf + steps * fa_dc}
+    toks_out = torch.cat(out, 1)
+    log(f"[serve] {cfg.name} bf16 at {cfg.n_layers} of 100 layers ({cfg.n_self_layers} self "
+        f"+ {cfg.n_cross_layers} cross; {weights / 1e9:.2f} GB of weights), gates opened, "
+        f"prompts {sorted(int(n) for n in lengths)} padded to {S} + "
+        f"{cfg.n_image_tokens} image tokens a row: prefill {pf:.1f} ms, {steps} decode steps "
+        f"median {statistics.median(times):.2f} ms per step ({', '.join('%.1f' % t for t in times)})")
+    log(f"[serve] max_memory_allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")
+    log(f"[serve] launches: rmsnorm {ran['rmsnorm']} (want {n_pf} + {steps} x {n_dc}), "
+        f"flash_attention {ran['flash_attention']} (want {fa_pf} + {steps} x {fa_dc}; "
+        f"tensor-core kernel {ran['wgmma']}) [{time.perf_counter() - t_phase:.1f}s]")
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"serve peak memory {peak / 1e9:.2f} GB >= {CARD_BYTES / 1e9:g} GB")
+    for name, n in want.items():
+        if ran[name] != n:
+            raise AssertionError(f"{name} launches do not match the path")
+    if ran["wgmma"] != want["flash_attention"]:
+        raise AssertionError("a bf16 flash launch of the VLM missed the tensor-core kernel")
+    if not bool(torch.isfinite(lg).all()) or not bool(((toks_out >= 0)
+                                                       & (toks_out < cfg.vocab_size)).all()):
+        raise AssertionError("non-finite logits or a token outside the vocabulary")
+    launches = {"rmsnorm": ran["rmsnorm"], "flash_attention": ran["flash_attention"]}
+    return launches, model, params
+
+
+def phase_encode_audio(torch):
+    """The audio encoder in bf16 at full width and depth: PATHS encodes of
+    B=4 x T=1500 frames (30 s of audio at 20 ms a frame), each timed; exact
+    launches, none on the tensor cores (hd 80 runs the CUDA-core kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    path = PATHS[AUDIO]
+    cfg = get_config(AUDIO)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, torch.bfloat16, "cuda")
+    B, T, n = path["batch"], path["profile_S"], path["encodes"]
+    frames = torch.randn((n, B, T, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    _zero_counts()
+    with torch.inference_mode():
+        for i in range(n):
+            t0 = time.perf_counter()
+            h = model.forward(params, {"frames": frames[i]})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not bool(torch.isfinite(h).all()) or h.shape != (B, T, cfg.d_model):
+                raise AssertionError(f"bad encoder output {tuple(h.shape)}")
+    ran = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    (per, fa), _ = path_counts(cfg)
+    log(f"[serve] {cfg.name} bf16 L={cfg.n_layers}: {n} encodes of B={B} x T={T} frames, "
+        f"median {statistics.median(times):.1f} ms a batch ({', '.join('%.1f' % t for t in times)}); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    log(f"[serve] launches: rmsnorm {ran['rmsnorm']} (want {per} x {n}), flash_attention "
+        f"{ran['flash_attention']} (want {fa} x {n}; tensor-core kernel {ran['wgmma']}, want 0) "
+        f"[{time.perf_counter() - t_phase:.1f}s]")
+    if ran["rmsnorm"] != per * n or ran["flash_attention"] != fa * n or ran["wgmma"]:
+        raise AssertionError("launches do not match the encoder path")
+    launches = {"rmsnorm": ran["rmsnorm"], "flash_attention": ran["flash_attention"]}
     return launches, model, params
 
 
@@ -1029,19 +1300,32 @@ def _device_ms(torch, fn, steps: int, keys=("flash_attention",)):
 
 def phase_profile(torch, model, params):
     """Wall time vs device busy time of one prefill (B=4, S=1024 prompt
-    tokens) and of 8 decode steps after it: where the serving time goes."""
+    tokens; the VLM with 1024 image tokens a row) and of 8 decode steps
+    after it, or of one encode (audio, B=4, T=1500 frames): where the
+    serving time goes."""
     import numpy as np
 
     cfg = model.cfg
     path = PATHS[cfg.name]
     S = path["profile_S"]
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (4, S))).cuda()
+    dt = params["final_norm"].dtype
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if cfg.family == "audio":
+        batch = {"frames": torch.randn((4, S, cfg.d_model), generator=gen,
+                                       device="cuda").to(dt)}
+    else:
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (4, S))).cuda()}
+    if cfg.family == "vlm":
+        batch["images"] = torch.randn((4, cfg.n_image_tokens, cfg.d_model), generator=gen,
+                                      device="cuda").to(dt)
     state = {}
 
     def prefill():
-        state["lg"], state["cache"] = model.prefill(params, {"tokens": toks},
-                                                    path["smax"])
+        state["lg"], state["cache"] = model.prefill(params, batch, path.get("smax", S + 16))
+
+    def encode():
+        state["h"] = model.forward(params, batch)
 
     def decode(steps=8):
         nxt = state["lg"].argmax(-1, keepdim=True)
@@ -1049,9 +1333,11 @@ def phase_profile(torch, model, params):
             lg, state["cache"] = model.decode_step(params, state["cache"], nxt)
             nxt = lg.argmax(-1, keepdim=True)
 
+    runs = ([(f"{cfg.name} encode B=4 T={S}", encode, 1)] if cfg.family == "audio" else
+            [(f"{cfg.name} prefill B=4 S={S}", prefill, 1),
+             (f"{cfg.name} decode B=4 x8 steps", decode, 8)])
     with torch.inference_mode():
-        for name, fn, steps in ((f"{cfg.name} prefill B=4 S={S}", prefill, 1),
-                                (f"{cfg.name} decode B=4 x8 steps", decode, 8)):
+        for name, fn, steps in runs:
             fn()                                    # warm (and refill the cache)
             if fn is decode:
                 prefill()
@@ -1072,6 +1358,27 @@ def phase_profile(torch, model, params):
                 f"{100 - 100 * busy / wall:.1f}% idle), {kernels:.0f} kernels/step")
             for ms, key in top:
                 log(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
+        if cfg.family == "ssm":
+            _chunk_cost(torch, model, params, batch["tokens"], path["smax"])
+
+
+def _chunk_cost(torch, model, params, toks, smax):
+    """What the reference's mLSTM chunk rule costs: a prefill at S 1024
+    (L 256, 4 chunks) beside one at the prime S 1021 (L 1, 1021 chunks),
+    both timed on the host clock after a warm call; the same prompt, cut."""
+    from repro_torch.models.ssm import chunk_len
+
+    got = []
+    for S in (toks.shape[1], 1021):
+        batch = {"tokens": toks[:, :S]}
+        model.prefill(params, batch, smax)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, batch, smax)
+        torch.cuda.synchronize()
+        got.append(f"S {S} L {chunk_len(S)} ({S // chunk_len(S)} chunks) "
+                   f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    log(f"[profile] {model.cfg.name} prefill B=4 by the mLSTM chunk rule: " + "; ".join(got))
 
 
 def _bwd_time(torch, timer, out, inputs, grad):
@@ -1807,6 +2114,7 @@ def main() -> int:
         print(f"chip_smoke: cannot import the port from {HERE}/src: {e}",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     try:
         repro_torch.device.resolve_device(None)
         log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1817,10 +2125,14 @@ def main() -> int:
         sched_row, sched_launches, sched_variants_launched = phase_prescreen(torch)
         rows = phase_kernels(torch)
         launches = {}
-        for arch in (DENSE, HYBRID, MOE):
+        for arch in (DENSE, HYBRID, MOE, XLSTM, VLM, AUDIO):
             phase_model(torch, arch)
-            launches[arch], model, params = phase_serve(torch, arch)
+            serve = {VLM: phase_serve_vlm, AUDIO: phase_encode_audio}.get(
+                arch, lambda torch: phase_serve(torch, arch))
+            launches[arch], model, params = serve(torch)
+            t0 = time.perf_counter()
             phase_profile(torch, model, params)
+            log(f"[profile] {arch}: {time.perf_counter() - t0:.1f}s")
             del model, params
             torch.cuda.empty_cache()
         rows.update(train_kernels(torch))
@@ -1846,16 +2158,34 @@ def main() -> int:
         (MOE, "rmsnorm", ("rmsnorm", (4096, 2048), "bfloat16")),
         (MOE, "flash_attention",
          ("flash", (4, 1024, 1024, 32, 4, 128, True, 0, 0), "bfloat16")),
+        (XLSTM, "rmsnorm", ("rmsnorm", (4096, 768), "bfloat16")),
+        (VLM, "rmsnorm", ("rmsnorm", (4096, 8192), "bfloat16")),
+        (VLM, "flash_attention", ("flash", VLM_FA[0], "bfloat16")),
+        (AUDIO, "rmsnorm", ("rmsnorm", (6000, 1280), "bfloat16")),
+        (AUDIO, "flash_attention", ("flash", HUBERT_FA, "bfloat16")),
     ]
     kernels = [
-        dict(name=name, route=ROUTES[name][0], source=ROUTES[name][1],
+        dict(name=name, route=ROUTES[name][0],
+             source=SIMT_FLASH if (arch, name) == (AUDIO, "flash_attention") else ROUTES[name][1],
              replaces=REPLACES[name], launches=launches[arch][name], path=arch,
              shape=list(key[1]), dtype=key[2], **rows[key])
         for arch, name, key in entries]
-    # the MoE path's decode rows (B=4, d 2048), timed beside its prefill row
-    moe_rms = next(k for k in kernels if k["path"] == MOE and k["name"] == "rmsnorm")
-    moe_rms["decode"] = dict(shape=[4, 2048], dtype="bfloat16",
-                             **rows[("rmsnorm", (4, 2048), "bfloat16")])
+
+    def sub(arch, name, extra):
+        """More shapes of a path's kernel, timed beside its main row."""
+        k = next(k for k in kernels if k["path"] == arch and k["name"] == name)
+        for label, key in extra.items():
+            k[label] = dict(shape=list(key[1]), dtype=key[2], **rows[key])
+
+    # the decode rows (B=4), and the VLM's cross shapes
+    sub(MOE, "rmsnorm", {"decode": ("rmsnorm", (4, 2048), "bfloat16")})
+    sub(XLSTM, "rmsnorm", {"decode": ("rmsnorm", (4, 768), "bfloat16")})
+    sub(VLM, "rmsnorm", {"q_norm": ("rmsnorm", (262144, 128), "bfloat16"),
+                         "k_norm": ("rmsnorm", (32768, 128), "bfloat16"),
+                         "decode": ("rmsnorm", (4, 8192), "bfloat16"),
+                         "decode_q_norm": ("rmsnorm", (256, 128), "bfloat16")})
+    sub(VLM, "flash_attention", {"cross": ("flash", VLM_FA[1], "bfloat16"),
+                                 "cross_decode": ("flash", VLM_FA[2], "bfloat16")})
     kernels.append(dict(name="list_schedule", route=ROUTES["list_schedule"][0],
                         source=ROUTES["list_schedule"][1],
                         replaces=REPLACES["list_schedule"], launches=sched_launches,
@@ -1911,6 +2241,7 @@ def main() -> int:
                             **(row if row is not None else rows[key])))
     kernels[-1].update(train_step_ms=hybrid_stats["step_ms"],
                        train_peak_gib_f32=hybrid_stats["peak_gib"])
+    log(f"[wall] chip_smoke.py {time.perf_counter() - t_start:.1f}s, the build included")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

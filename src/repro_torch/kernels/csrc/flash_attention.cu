@@ -2,7 +2,8 @@
 // softmax, causal or not, with an optional sliding window and always-attended
 // sink prefix, GQA, read and written in the model layout. It takes every call
 // the tensor-core kernel (flash_attention_wgmma.cu, bf16 at hd 64/128) does
-// not: f32 at every head dim, kept true f32 (no TF32), and bf16 at hd 16/32.
+// not: f32 at every head dim, kept true f32 (no TF32), and bf16 at hd 16, 32
+// and 80 (HuBERT's d 1280 over 16 heads).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (`flash_attention_kernel`, launched by `flash_attention` at :99): running
@@ -265,6 +266,7 @@ int dispatch(const Args& a, int hd, cudaStream_t s, int* attr) {
     case 16: return run<T, 16>(a, s, attr);
     case 32: return run<T, 32>(a, s, attr);
     case 64: return run<T, 64>(a, s, attr);
+    case 80: return run<T, 80>(a, s, attr);
     case 128: return run<T, 128>(a, s, attr);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -272,7 +274,7 @@ int dispatch(const Args& a, int hd, cudaStream_t s, int* attr) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 128}; H % KV == 0;
+// dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 80, 128}; H % KV == 0;
 // window >= 0 and n_sink >= 0 act only when causal (0 = no window). lse:
 // nullptr (the serve path's instance), or [B*H, round_up(Sq, 64)] f32 that
 // receives each row's logsumexp in the exp2 domain (see the kernel).

@@ -77,10 +77,13 @@ __device__ __forceinline__ bool key_tile_visited(int k0, int q0, const Shape& sh
 
 // The columns of an hd-wide accumulator row a thread of column tx owns:
 // kVec-wide runs at kVec * tx + 16 * kVec * m (m < kChunks), hd / 16 in all.
+// kVec is the widest of 4, 2, 1 that divides hd / 16: 4 at hd 64 and 128, 2
+// at hd 32, 1 at hd 16 and at hd 80 (five single columns tx + 16 m).
 template <int HD>
 struct Cols {
+  static_assert(HD % 16 == 0, "hd must be a multiple of 16");
   static constexpr int kCount = HD / 16;
-  static constexpr int kVec = kCount >= 4 ? 4 : kCount;
+  static constexpr int kVec = kCount % 4 == 0 ? 4 : kCount % 2 == 0 ? 2 : 1;
   static constexpr int kChunks = kCount / kVec;
   static __device__ __forceinline__ int col(int tx, int m) { return kVec * tx + 16 * kVec * m; }
 };
@@ -124,22 +127,25 @@ __device__ __forceinline__ void store_f32(float* dst, const uint4& u) {
 // [kTile][HD + kLd] f32 tile; rows past S read as 0. 16-byte loads (every row
 // starts on 16 bytes when the tensor does: HD * sizeof(T) is a multiple of
 // 16), issued in groups of kGroup a thread (0: all of them) before the
-// group's first store; a tensor that is not 16-byte aligned is read element
-// by element.
+// group's first store; a thread's last group may be partial (hd 80: 5 f32
+// loads in groups of 4, 3 bf16 loads in groups of 2), its missing loads
+// predicated off as past the tile; a tensor that is not 16-byte aligned is
+// read element by element.
 template <typename T, int HD, int kGroup = 0>
 __device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int b, int S,
                                            int heads, int head, int r0) {
   constexpr int kVec = 16 / sizeof(T);           // elements of one load
+  static_assert(HD % kVec == 0, "a row must be whole 16-byte loads");
   constexpr int kPerRow = HD / kVec;
   constexpr int kLoads = kTile * kPerRow;
   constexpr int kIters = (kLoads + kThreads - 1) / kThreads;
   constexpr int kG = kGroup == 0 || kGroup > kIters ? kIters : kGroup;
-  static_assert(kIters % kG == 0, "groups of loads must divide a thread's loads");
+  constexpr int kGroups = (kIters + kG - 1) / kG;
   const long long rs = static_cast<long long>(heads) * HD;
   const T* base = src + (static_cast<long long>(b) * S * heads + head) * HD;
   if (reinterpret_cast<uintptr_t>(src) % 16 == 0) {
 #pragma unroll 1
-    for (int g = 0; g < kIters; g += kG) {
+    for (int g = 0; g < kGroups * kG; g += kG) {
       uint4 u[kG];
 #pragma unroll
       for (int i = 0; i < kG; ++i) {

@@ -8,7 +8,8 @@ so no transpose is materialised around them.
 * ``flash_attention_cuda`` — ``csrc/flash_attention.cu``: register-tiled
   f32 products on the CUDA cores (SIMT; ``SIMT_TILE`` query rows a block,
   key tiles of ``SIMT_TILE``, two blocks an SM), f32 or bf16, head dims
-  ``HEAD_DIMS``.
+  ``HEAD_DIMS`` (hd 80, HuBERT's, only here: 160-byte bf16 rows are wider
+  than the tensor-core kernel's 128-byte swizzle).
 * ``flash_attention_wgmma_cuda`` — ``csrc/flash_attention_wgmma.cu``: bf16
   on the tensor cores (wgmma) with K/V streamed by TMA, head dims
   ``WGMMA_HEAD_DIMS``, Sk > 0, 16-byte aligned tensors.
@@ -23,8 +24,8 @@ domain: L = m·scale·log2(e) + log2(l)); without it, the serve path's.
   units cut into splits of at most ``BWD_SPLIT_UNITS``); dQ per query tile;
   the partials added in split order. bf16 at ``WGMMA_HEAD_DIMS`` on the
   tensor cores (wgmma + TMA, 16-byte aligned tensors), everything else as
-  register-tiled f32 products on the CUDA cores; head dims ``HEAD_DIMS``,
-  Sk > 0.
+  register-tiled f32 products on the CUDA cores; head dims
+  ``BWD_HEAD_DIMS``, Sk > 0.
 """
 from __future__ import annotations
 
@@ -35,13 +36,15 @@ import torch
 
 from .. import _build
 
-__all__ = ["HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BLOCK_Q", "WGMMA_BLOCK_K",
+__all__ = ["HEAD_DIMS", "BWD_HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BLOCK_Q", "WGMMA_BLOCK_K",
            "SIMT_TILE", "flash_kernel_attrs", "BWD_SPLIT_UNITS", "BWD_KERNELS", "lse_rows",
            "flash_attention_cuda", "flash_attention_wgmma_cuda",
            "flash_attention_bwd_cuda", "bwd_slots", "wgmma_kernel_attrs",
            "bwd_kernel_attrs"]
 
-HEAD_DIMS = (16, 32, 64, 128)
+# head dims of the forward kernels, and of the backward's (no hd 80 yet)
+HEAD_DIMS = (16, 32, 64, 80, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 # query rows per block and keys per K/V tile of the tensor-core kernel
 # (kRows, kKeys in csrc/flash_attention_wgmma.cu)

@@ -11,7 +11,7 @@ tensor launches a kernel or raises.
 Dispatch on the card, by dtype and shape only: bf16 at hd 64 or 128 goes
 to the tensor-core kernel (``csrc/flash_attention_wgmma.cu``); every other
 call (f32, whose products would run as TF32 on the tensor cores, and bf16
-at the reduced configs' hd 16/32) to the CUDA-core kernel
+at the reduced configs' hd 16/32 and HuBERT's hd 80) to the CUDA-core kernel
 (``csrc/flash_attention.cu``: register-tiled f32 products, SIMT). The
 tensor-core path raises on what it does not take (a pointer that is not
 16-byte aligned); with Sk = 0 it launches nothing and returns the zero
@@ -27,7 +27,9 @@ output and L; its backward launches ``csrc/flash_attention_bwd.cu`` (D, dK
 and dV over a balanced grid as ordered partial sums, dQ, the partials'
 sum: no atomics). bf16 at hd 64/128 runs its tensor-core kernels (16-byte
 aligned q, k, v, else it raises), every other call its CUDA-core ones; out
-and dout must be 16-byte aligned in every call.
+and dout must be 16-byte aligned in every call. A head dim with a forward
+kernel and no backward one (80) is refused with a ValueError when the
+forward is called under autograd, not inside the backward.
 ``flash_mha.bwd_launches`` counts backward calls, each one such launch;
 ``flash_mha.wgmma_bwd_launches`` those that ran the tensor-core kernels. On
 the CPU the plain version's autograd is the backward.
@@ -37,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from .._build import DTYPE_CODES
-from .kernel import (HEAD_DIMS, WGMMA_HEAD_DIMS, flash_attention_bwd_cuda,
+from .kernel import (BWD_HEAD_DIMS, HEAD_DIMS, WGMMA_HEAD_DIMS, flash_attention_bwd_cuda,
                      flash_attention_cuda, flash_attention_wgmma_cuda, lse_rows)
 from .ref import flash_mha_ref
 
@@ -70,6 +72,10 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = (causal, window, n_sink)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if hd not in BWD_HEAD_DIMS:
+            raise ValueError(f"flash_mha: head dim {hd} has a forward kernel but no backward "
+                             f"kernel (backward head dims {BWD_HEAD_DIMS}); call it without "
+                             f"grad")
         return _FlashFn.apply(q, k, v, mask)
     return _forward(q, k, v, mask)
 

@@ -2,12 +2,18 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --reduced --device cpu --dtype float32
 
 Same options as the JAX package's ``launch/serve.py``, plus ``--device`` (default
 ``cuda``; raises when no GPU is present) and ``--dtype``. Parameters are
-drawn from seed 0; no weights are downloaded.
+drawn from seed 0; no weights are downloaded. ``--arch`` takes the
+families that decode from tokens alone: dense, moe, hybrid and ssm (xLSTM).
+The VLM and audio families have no engine path in either package: the
+engine's prefill passes tokens only (a VLM needs ``batch["images"]``; call
+``Model.prefill`` and ``Model.decode_step`` with them), and audio is an
+encoder with no decode step.
 """
 from __future__ import annotations
 
@@ -28,7 +34,9 @@ __all__ = ["main"]
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--arch", default="smollm-135m")
+    p.add_argument("--arch", default="smollm-135m",
+                   help="a dense, moe, hybrid or ssm arch (the vlm and audio families "
+                        "have no engine path in either package)")
     p.add_argument("--reduced", action="store_true")
     p.add_argument("--requests", type=int, default=6)
     p.add_argument("--max-new", type=int, default=12)
@@ -43,6 +51,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     dtype = resolve_dtype(args.dtype)
     cfg = get_config(args.arch)
+    if cfg.family in ("vlm", "audio"):
+        p.error(f"--arch {args.arch}: the {cfg.family} family has no engine path")
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)

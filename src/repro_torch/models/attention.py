@@ -9,6 +9,9 @@ Counterpart of ``repro/models/attention.py``:
     on chip.
   * ``sink_banded_attention`` — the reference's two-piece (sinks + band)
     form of the same masked softmax: here the same kernel call.
+  * ``cross_attention`` — text queries against the VLM's image K/V, no
+    mask: the same kernel, non-causal, with Sq != Sk (the reference computes
+    it in plain jnp). One call serves forward, prefill and decode (Sq = 1).
   * ``decode_attention`` — one new token against the KV cache, plain torch
     (the reference has no Pallas kernel there either).
 
@@ -22,7 +25,7 @@ import torch
 
 from ..kernels.flash_attention.ops import flash_mha
 
-__all__ = ["attention", "sink_banded_attention", "decode_attention"]
+__all__ = ["attention", "sink_banded_attention", "cross_attention", "decode_attention"]
 
 NEG_INF = -1e30
 
@@ -46,6 +49,13 @@ def sink_banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sinks as two pieces merged by a joint softmax; the kernel applies the
     joint mask directly, so this is ``attention`` with both set."""
     return attention(q, k, v, causal=True, window=window, n_sink=n_sink)
+
+
+def cross_attention(q: torch.Tensor, k_img: torch.Tensor, v_img: torch.Tensor) -> torch.Tensor:
+    """q [B,S,H,hd] x image K/V [B,I,KV,hd] -> [B,S,H,hd]: every query sees
+    every image token, GQA head i // G, scale 1/sqrt(hd), which is the
+    flash kernel's function without the causal mask."""
+    return flash_mha(q, k_img, v_img, causal=False)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

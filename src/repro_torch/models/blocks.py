@@ -1,11 +1,13 @@
 """Layer blocks: parameter templates + forward/prefill/decode paths.
 
-Counterpart of ``repro/models/blocks.py``, for the attention block of the
-dense and MoE families (``ATTN_BLOCK``; its FFN is the dense SwiGLU or,
-where the config has experts, the MoE FFN) and the hybrid block of Hymba
-(``HYBRID_BLOCK``: attention and Mamba heads in parallel on one input).
-Each block kind is a ``Block`` record whose functions share one numeric
-core:
+Counterpart of ``repro/models/blocks.py``, for every block kind of the
+reference: the attention block of the dense, MoE, audio and VLM families
+(``ATTN_BLOCK``; its FFN is the dense SwiGLU or, where the config has
+experts, the MoE FFN), the gated cross-attention block of the VLM
+(``CROSS_BLOCK``: text queries against the image tokens), the hybrid block
+of Hymba (``HYBRID_BLOCK``: attention and Mamba heads in parallel on one
+input) and the two xLSTM blocks (``MLSTM_BLOCK``, ``SLSTM_BLOCK``). Each
+block kind is a ``Block`` record whose functions share one numeric core:
 
   template(cfg)                      -> tree of PT
   apply(cfg, p, x, ctx)              -> x                 (forward, no cache)
@@ -14,9 +16,9 @@ core:
   cache_template(cfg, B, ctx)        -> tree of PT
 
 The cache is preallocated by the model and updated IN PLACE: ``prefill``
-writes this layer's K/V (and SSM state) into the cache slice it is given,
-and ``decode`` writes the new token's K/V at its slot; both return that
-same slice. (The JAX package returns a new cache and donates the old one.)
+writes this layer's K/V (SSM state, image K/V, cell state) into the cache
+slice it is given, and ``decode`` writes the new token's K/V (and state)
+at its slot; both return that same slice. (The JAX package returns a new cache and donates the old one.)
 A sliding-window layer keeps a ring: ``n_sink`` sink slots, then
 ``window`` slots that the positions after the sinks cycle through.
 """
@@ -27,15 +29,17 @@ from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .attention import attention, decode_attention
+from .attention import attention, cross_attention, decode_attention
 from .layers import PT, apply_rope, map_templates, rms_norm, swiglu
 from .mamba import MambaState, mamba_decode_mix, mamba_mix
 from .moe import moe_ffn
+from .ssm import mlstm_chunked, mlstm_decode_step, slstm_decode_step, slstm_scan
 
-__all__ = ["Block", "BlockCtx", "BLOCKS", "ATTN_BLOCK", "HYBRID_BLOCK",
-           "stackify", "rope_at"]
+__all__ = ["Block", "BlockCtx", "BLOCKS", "ATTN_BLOCK", "CROSS_BLOCK", "HYBRID_BLOCK",
+           "MLSTM_BLOCK", "SLSTM_BLOCK", "stackify", "rope_at"]
 
 
 @dataclass(frozen=True)
@@ -44,14 +48,16 @@ class BlockCtx:
 
     ``rope`` holds the cos/sin tables [S, hd/2] for forward/prefill and the
     tables at the decode position [1, hd/2] for decode (None: no RoPE).
-    ``pos`` is the absolute decode position as a Python int, so a decode
-    step never syncs with the device to read it.
+    ``img`` holds the VLM's image tokens [B, I, d] in the activation dtype
+    (forward and prefill). ``pos`` is the absolute decode position as a
+    Python int, so a decode step never syncs with the device to read it.
     """
 
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     window: int = 0            # 0 = full attention
     n_sink: int = 0            # always-attended prefix (Hymba meta tokens)
     causal: bool = True
+    img: Optional[torch.Tensor] = None
     pos: Optional[int] = None  # decode position
     smax: int = 0              # cache capacity (decode)
 
@@ -83,6 +89,13 @@ def rope_at(pos: int, head_dim: int, theta: float, device=None):
                                           device=device) / half))
     ang = freqs * float(pos)
     return torch.cos(ang)[None], torch.sin(ang)[None]
+
+
+def _store(cache, **state):
+    """Copy each named state into its preallocated cache leaf; the cache."""
+    for key, t in state.items():
+        cache[key].copy_(t)
+    return cache
 
 
 def _res_scale(cfg: ArchConfig) -> float:
@@ -283,6 +296,76 @@ ATTN_BLOCK = Block(
 
 
 # ---------------------------------------------------------------------------
+# cross-attention block (Llama-3.2-Vision): q from the text, k/v from the
+# image tokens, attention and FFN each behind a tanh gate that starts at 0
+# ---------------------------------------------------------------------------
+
+def _cross_template(cfg: ArchConfig) -> Dict[str, Any]:
+    d, H, KV, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    return {
+        "ln1": PT((d,), (None,), init="ones"),
+        "wq": PT((d, H, hd), ("embed", "heads", None), fan_in=d),
+        "wk": PT((d, KV, hd), ("embed", "kv_heads", None), fan_in=d),
+        "wv": PT((d, KV, hd), ("embed", "kv_heads", None), fan_in=d),
+        "wo": PT((H, hd, d), ("heads", None, "embed"), fan_in=H * hd),
+        "q_norm": PT((hd,), (None,), init="ones"),
+        "k_norm": PT((hd,), (None,), init="ones"),
+        "gate_attn": PT((), (), init="zeros"),
+        "ln2": PT((d,), (None,), init="ones"),
+        "wg": PT((d, f), ("embed", "ff")),
+        "wi": PT((d, f), ("embed", "ff")),
+        "wo2": PT((f, d), ("ff", "embed")),
+        "gate_ffn": PT((), (), init="zeros"),
+    }
+
+
+def _img_kv(p, img, eps):
+    """The image tokens' K (normed) and V [B, I, KV, hd]."""
+    k = rms_norm(_proj_heads(img, p["wk"]), p["k_norm"], eps)
+    return k, _proj_heads(img, p["wv"])
+
+
+def _cross_core(cfg: ArchConfig, p, x, k_img, v_img):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = rms_norm(_proj_heads(h, p["wq"]), p["q_norm"], cfg.norm_eps)
+    o = _out_proj(cross_attention(q, k_img, v_img), p["wo"])
+    x = x + torch.tanh(p["gate_attn"]) * o
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + torch.tanh(p["gate_ffn"]) * swiglu(h2, p["wg"], p["wi"], p["wo2"])
+
+
+def _cross_apply(cfg: ArchConfig, p, x, ctx: BlockCtx) -> torch.Tensor:
+    return _cross_core(cfg, p, x, *_img_kv(p, ctx.img, cfg.norm_eps))
+
+
+def _cross_prefill(cfg: ArchConfig, p, x, ctx: BlockCtx, cache):
+    """Apply + write the image K/V into this layer's cache slice."""
+    k_img, v_img = _img_kv(p, ctx.img, cfg.norm_eps)
+    return _cross_core(cfg, p, x, k_img, v_img), _store(cache, k=k_img, v=v_img)
+
+
+def _cross_decode(cfg: ArchConfig, p, x, cache, ctx: BlockCtx):
+    """x [B,1,d] against the image K/V that prefill cached."""
+    return _cross_core(cfg, p, x, cache["k"], cache["v"]), cache
+
+
+def _cross_cache_template(cfg: ArchConfig, B: int, ctx: BlockCtx):
+    KV, hd, I = cfg.n_kv_heads, cfg.hd, cfg.n_image_tokens
+    spec = PT((B, I, KV, hd), ("batch", None, "kv_heads", None), init="zeros")
+    return {"k": spec, "v": spec}
+
+
+CROSS_BLOCK = Block(
+    kind="cross",
+    template=_cross_template,
+    apply=_cross_apply,
+    prefill=_cross_prefill,
+    decode=_cross_decode,
+    cache_template=_cross_cache_template,
+)
+
+
+# ---------------------------------------------------------------------------
 # hybrid block (Hymba): parallel attention + Mamba heads on the same input,
 # outputs normalized and fused, then dense FFN.
 # ---------------------------------------------------------------------------
@@ -369,9 +452,7 @@ def _hybrid_cache_template(cfg: ArchConfig, B: int, ctx: BlockCtx):
 def _hybrid_prefill(cfg: ArchConfig, p, x, ctx: BlockCtx, cache):
     x, k, v, st = _hybrid_core(cfg, p, x, ctx)
     _pack_attn_cache(k, v, cache, ctx)
-    cache["conv"].copy_(st.conv)
-    cache["ssm"].copy_(st.ssm)
-    return x, cache
+    return x, _store(cache, conv=st.conv, ssm=st.ssm)
 
 
 def _hybrid_decode(cfg: ArchConfig, p, x, cache, ctx: BlockCtx):
@@ -382,9 +463,7 @@ def _hybrid_decode(cfg: ArchConfig, p, x, cache, ctx: BlockCtx):
     o_ssm, st = _hybrid_mamba(cfg, p, h, state=st, decode=True)
     x = _hybrid_fuse(cfg, p, x, o_attn, o_ssm)
     # the states stay f32 in the cache, as the reference's prefill stores them
-    cache["conv"].copy_(st.conv)
-    cache["ssm"].copy_(st.ssm)
-    return x, cache
+    return x, _store(cache, conv=st.conv, ssm=st.ssm)
 
 
 HYBRID_BLOCK = Block(
@@ -396,4 +475,146 @@ HYBRID_BLOCK = Block(
     cache_template=_hybrid_cache_template,
 )
 
-BLOCKS: Dict[str, Block] = {"attn": ATTN_BLOCK, "hybrid": HYBRID_BLOCK}
+
+# ---------------------------------------------------------------------------
+# mLSTM block (xLSTM): the cell is the whole layer (no separate FFN)
+# ---------------------------------------------------------------------------
+
+def _mlstm_template(cfg: ArchConfig) -> Dict[str, Any]:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    return {
+        "ln": PT((d,), (None,), init="ones"),
+        "wq": PT((d, H, hd), ("embed", "heads", None), fan_in=d),
+        "wk": PT((d, H, hd), ("embed", "heads", None), fan_in=d),
+        "wv": PT((d, H, hd), ("embed", "heads", None), fan_in=d),
+        "w_if": PT((d, H, 2), ("embed", "heads", None), init="small"),
+        "b_if": PT((H, 2), ("heads", None), init="zeros"),
+        "wz": PT((d, d), ("embed", None)),
+        "norm_cell": PT((d,), (None,), init="ones"),
+        "wo": PT((d, d), (None, "embed")),
+    }
+
+
+def _mlstm_io(cfg: ArchConfig, p, x):
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v = (_proj_heads(h, p[w]) for w in ("wq", "wk", "wv"))
+    gates = _proj_heads(h, p["w_if"]) + p["b_if"]            # [B,S,H,2]
+    return q, k, v, gates[..., 0], gates[..., 1], h @ p["wz"]
+
+
+def _mlstm_out(cfg: ArchConfig, p, x, hc, z):
+    B, S = z.shape[0], z.shape[1]
+    hc = rms_norm(hc.reshape(B, S, cfg.d_model), p["norm_cell"], cfg.norm_eps)
+    out = hc * F.silu(z.float()).to(hc.dtype)
+    return x + out @ p["wo"]
+
+
+def _mlstm_apply(cfg: ArchConfig, p, x, ctx: BlockCtx) -> torch.Tensor:
+    q, k, v, ig, fg, z = _mlstm_io(cfg, p, x)
+    return _mlstm_out(cfg, p, x, mlstm_chunked(q, k, v, ig, fg), z)
+
+
+def _mlstm_cache_template(cfg: ArchConfig, B: int, ctx: BlockCtx):
+    H, hd = cfg.n_heads, cfg.hd
+    return {
+        "C": PT((B, H, hd, hd), ("batch", "heads", None, None), init="zeros",
+                dtype="float32"),
+        "n": PT((B, H, hd), ("batch", "heads", None), init="zeros", dtype="float32"),
+        "m": PT((B, H), ("batch", "heads"), init="neg_inf", dtype="float32"),
+    }
+
+
+def _mlstm_prefill(cfg: ArchConfig, p, x, ctx: BlockCtx, cache):
+    q, k, v, ig, fg, z = _mlstm_io(cfg, p, x)
+    hc, (C, n, m) = mlstm_chunked(q, k, v, ig, fg, return_state=True)
+    return _mlstm_out(cfg, p, x, hc, z), _store(cache, C=C, n=n, m=m)
+
+
+def _mlstm_decode(cfg: ArchConfig, p, x, cache, ctx: BlockCtx):
+    q, k, v, ig, fg, z = _mlstm_io(cfg, p, x)
+    hc, (C, n, m) = mlstm_decode_step(q, k, v, ig, fg, (cache["C"], cache["n"], cache["m"]))
+    return _mlstm_out(cfg, p, x, hc, z), _store(cache, C=C, n=n, m=m)
+
+
+MLSTM_BLOCK = Block(
+    kind="mlstm",
+    template=_mlstm_template,
+    apply=_mlstm_apply,
+    prefill=_mlstm_prefill,
+    decode=_mlstm_decode,
+    cache_template=_mlstm_cache_template,
+)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (xLSTM): sequential scalar-memory cell + gated FFN
+# ---------------------------------------------------------------------------
+
+def _slstm_template(cfg: ArchConfig) -> Dict[str, Any]:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    f2 = 2 * d
+    return {
+        "ln": PT((d,), (None,), init="ones"),
+        "w_gates": PT((d, H, 4, hd), ("embed", "heads", None, None), fan_in=d),
+        "b_gates": PT((H, 4, hd), ("heads", None, None), init="zeros"),
+        "r_gates": PT((H, hd, 4, hd), ("heads", None, None, None), init="small"),
+        "norm_cell": PT((d,), (None,), init="ones"),
+        "wo": PT((d, d), (None, "embed")),
+        "ln2": PT((d,), (None,), init="ones"),
+        "wg": PT((d, f2), ("embed", "ff")),
+        "wi": PT((d, f2), ("embed", "ff")),
+        "wo2": PT((f2, d), ("ff", "embed")),
+    }
+
+
+def _slstm_gates(cfg: ArchConfig, p, x):
+    """'bsd,dhgk->bshgk' + bias: the gates' input part [B,S,H,4,hd]."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    d = p["w_gates"].shape[0]
+    gx = (h @ p["w_gates"].reshape(d, -1)).unflatten(-1, p["w_gates"].shape[1:])
+    return gx + p["b_gates"]
+
+
+def _slstm_post(cfg: ArchConfig, p, x, hs):
+    B, S = x.shape[0], x.shape[1]
+    hc = rms_norm(hs.reshape(B, S, cfg.d_model), p["norm_cell"], cfg.norm_eps)
+    x = x + hc @ p["wo"]
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + swiglu(h2, p["wg"], p["wi"], p["wo2"])
+
+
+def _slstm_apply(cfg: ArchConfig, p, x, ctx: BlockCtx) -> torch.Tensor:
+    hs, _ = slstm_scan(_slstm_gates(cfg, p, x), p["r_gates"])
+    return _slstm_post(cfg, p, x, hs)
+
+
+def _slstm_cache_template(cfg: ArchConfig, B: int, ctx: BlockCtx):
+    def leaf(init):
+        return PT((B, cfg.n_heads, cfg.hd), ("batch", "heads", None), init=init,
+                  dtype="float32")
+    return {"c": leaf("zeros"), "n": leaf("ones"), "h": leaf("zeros"), "m": leaf("neg_inf")}
+
+
+def _slstm_prefill(cfg: ArchConfig, p, x, ctx: BlockCtx, cache):
+    hs, (c, n, h, m) = slstm_scan(_slstm_gates(cfg, p, x), p["r_gates"])
+    return _slstm_post(cfg, p, x, hs), _store(cache, c=c, n=n, h=h, m=m)
+
+
+def _slstm_decode(cfg: ArchConfig, p, x, cache, ctx: BlockCtx):
+    hs, (c, n, h, m) = slstm_decode_step(
+        _slstm_gates(cfg, p, x), p["r_gates"],
+        (cache["c"], cache["n"], cache["h"], cache["m"]))
+    return _slstm_post(cfg, p, x, hs), _store(cache, c=c, n=n, h=h, m=m)
+
+
+SLSTM_BLOCK = Block(
+    kind="slstm",
+    template=_slstm_template,
+    apply=_slstm_apply,
+    prefill=_slstm_prefill,
+    decode=_slstm_decode,
+    cache_template=_slstm_cache_template,
+)
+
+BLOCKS: Dict[str, Block] = {
+    b.kind: b for b in (ATTN_BLOCK, CROSS_BLOCK, HYBRID_BLOCK, MLSTM_BLOCK, SLSTM_BLOCK)}

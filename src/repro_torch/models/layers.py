@@ -22,6 +22,7 @@ __all__ = [
     "PT",
     "map_templates",
     "init_params",
+    "const_leaf",
     "rms_norm",
     "rope_table",
     "apply_rope",
@@ -72,6 +73,17 @@ def map_templates(fn: Callable[[PT], Any], tree):
 SLICED_DRAW_ELEMS = 1 << 30
 
 
+# the init laws that draw nothing: the fill value of each
+CONST_INITS = {"zeros": 0.0, "ones": 1.0, "neg_inf": -1e30}
+
+
+def const_leaf(t: PT, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """A leaf of a constant init law (``CONST_INITS``: every cache leaf),
+    in its own dtype, ``dtype`` where it names none."""
+    return torch.full(t.shape, CONST_INITS[t.init], dtype=t.resolve_dtype(dtype),
+                      device=device)
+
+
 def init_params(template, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16, device=None):
     """Materialise a template: normal draws scaled by 1/sqrt(fan_in) (x0.1
@@ -88,12 +100,8 @@ def init_params(template, generator: torch.Generator,
 
     def make(t: PT) -> torch.Tensor:
         dt = t.resolve_dtype(dtype)
-        if t.init == "zeros":
-            return torch.zeros(t.shape, dtype=dt, device=device)
-        if t.init == "ones":
-            return torch.ones(t.shape, dtype=dt, device=device)
-        if t.init == "neg_inf":
-            return torch.full(t.shape, -1e30, dtype=dt, device=device)
+        if t.init in CONST_INITS:
+            return const_leaf(t, dtype, device)
         fan = t.fan_in or (t.shape[-2] if len(t.shape) >= 2 else t.shape[-1])
         scale = 1.0 / math.sqrt(max(fan, 1))
         if t.init == "small":

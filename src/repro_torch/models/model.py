@@ -1,20 +1,34 @@
 """Model assembly: configs -> segments -> forward/prefill/decode programs.
 
-Counterpart of ``repro/models/model.py`` for three families:
+Counterpart of ``repro/models/model.py`` for every family of the reference:
 
   dense, moe       [attn x L] (moe: the attention block's FFN is the MoE)
+  audio (HuBERT)   [attn x L], non-causal, over input frames (no embedding)
+  vlm              [vlm_group x G] (nested: ``inner`` self layers + 1 cross)
+  ssm (xLSTM)      [mlstm runs] + [slstm singles] at cfg.slstm_layers
   hybrid (Hymba)   [SWA-hybrid runs] + [global-attention hybrid singles]
 
 A scanned segment (``jax.lax.scan`` over stacked params in the reference)
 is a Python loop over the leading dim of the stacked tensors; a single
-segment keeps unstacked params and caches, as in the reference. Parameters
+segment keeps unstacked params and caches, as in the reference. A VLM group
+segment stacks its self layers twice, ``[G, inner, ...]``, and its cross
+layers once, ``[G, ...]``, as the reference's nested scan does. Parameters
 are a plain tree of tensors with the reference's paths:
-``{"embed"[, "meta"], "segments": [{<block params>}], "final_norm"[, "head"]}``.
-The cache is ``{"pos": int, "segments": [{"k", "v"[, "conv", "ssm"]}]}``,
-preallocated and updated in place by ``prefill`` and ``decode_step``.
-Hymba prepends ``n_meta_tokens`` learned meta tokens to every prompt: they
-are the sinks of its windowed layers, ``forward`` returns [B, S+M, d], and
-``pos`` counts real tokens only.
+``{"embed" | "in_norm"[, "meta"], "segments": [...], "final_norm"[, "head"]}``.
+The cache is ``{"pos": int, "segments": [...]}``, each leaf made by its
+template's init (zeros, ones or -1e30: the xLSTM cells' stabilisers start
+at -1e30, the sLSTM normaliser at 1), preallocated and updated in place by
+``prefill`` and ``decode_step``. Hymba prepends ``n_meta_tokens`` learned
+meta tokens to every prompt: they are the sinks of its windowed layers,
+``forward`` returns [B, S+M, d], and ``pos`` counts real tokens only.
+
+Inputs: ``batch["tokens"]`` [B, S]; the audio family reads
+``batch["frames"]`` [B, S, d] instead (input norm, then fixed sinusoidal
+positions), and the VLM also ``batch["images"]`` [B, I, d], cast to the
+activation dtype. The audio family is an encoder: it has ``forward``,
+``loss`` and ``prefill``, and ``decode_step`` refuses it, as the reference
+has no such path (its decode reads ``params["embed"]``). The ssm and audio
+families use no RoPE.
 
 Training: ``loss`` is the memory-bounded chunked cross entropy of the
 forward. When grad is enabled and ``remat`` is set, ``forward`` recomputes
@@ -27,12 +41,15 @@ names that output for ``save_only_these_names``; a kernel launched through
 ``create_selective_checkpoint_contexts``, so the cut is made by hand). A
 block with no such cut (the hybrid block, whose reference names nothing)
 runs under "save-attn" as under "full", which is what the reference's
-policy computes for it. Prefill and decode ignore remat.
+policy computes for it. A VLM group recomputes each self layer and the
+whole group, nested as in the reference. Prefill and decode ignore remat.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, List, Tuple
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -40,8 +57,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from .blocks import BLOCKS, BlockCtx, rope_at, stackify
-from .layers import (PT, cross_entropy_chunked, init_params, map_templates, rms_norm,
-                     rope_table)
+from .layers import (PT, const_leaf, cross_entropy_chunked, init_params, map_templates,
+                     rms_norm, rope_table)
 
 __all__ = ["Model", "Segment", "plan_segments", "build_model", "REMAT_POLICIES"]
 
@@ -52,12 +69,13 @@ REMAT_POLICIES = ("full", "save-attn")
 class Segment:
     """``n`` identical blocks: stacked on a leading dim when ``scanned``,
     else one block with unstacked params and cache."""
-    kind: str                  # block kind
-    n: int                     # number of layers in this segment
+    kind: str                  # block kind, or "vlm_group"
+    n: int                     # number of layers (vlm_group: groups) in this segment
     scanned: bool
     window: int = 0
     n_sink: int = 0
     causal: bool = True
+    inner: int = 0             # vlm_group: self layers per group
 
 
 def _runs(total: int, singles: Tuple[int, ...]):
@@ -77,27 +95,40 @@ def _runs(total: int, singles: Tuple[int, ...]):
 def plan_segments(cfg: ArchConfig) -> List[Segment]:
     if cfg.family in ("dense", "moe"):
         return [Segment("attn", cfg.n_layers, True, window=cfg.sliding_window)]
+    if cfg.family == "audio":
+        return [Segment("attn", cfg.n_layers, True, causal=False)]
+    if cfg.family == "vlm":
+        g = cfg.n_layers // (cfg.cross_attn_every + 1)
+        return [Segment("vlm_group", g, True, inner=cfg.cross_attn_every)]
+    if cfg.family == "ssm":
+        return [Segment("slstm" if single else "mlstm", n, not single)
+                for single, _, n in _runs(cfg.n_layers, cfg.slstm_layers)]
     if cfg.family == "hybrid":
         return [Segment("hybrid", 1, False) if single else
                 Segment("hybrid", n, True, window=cfg.sliding_window,
                         n_sink=cfg.n_meta_tokens)
                 for single, _, n in _runs(cfg.n_layers, cfg.global_attn_layers)]
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (the ssm, vlm and audio families "
-        f"wait for later slices)")
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
-def _layers(seg: Segment, tree) -> Iterator[Dict[str, Any]]:
-    """The per-layer trees of a segment: views into a stacked tree (one
+def _uses_rope(cfg: ArchConfig) -> bool:
+    return cfg.family not in ("ssm", "audio")
+
+
+def _unstack(tree, n: int) -> List[Any]:
+    """The n trees of a tree stacked on its leading dim: views, one
     ``unbind`` per leaf, whose backward stacks the layers' gradients in one
     pass, where indexing would add a zero-filled [n, ...] gradient per
-    layer), or the single block's own tree."""
-    if not seg.scanned:
-        yield tree
-        return
-    cols = {k: v.unbind(0) for k, v in tree.items()}
-    for i in range(seg.n):
-        yield {k: c[i] for k, c in cols.items()}
+    layer."""
+    cols = {k: (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
+            for k, v in tree.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _layers(seg: Segment, tree) -> List[Any]:
+    """The per-layer (vlm_group: per-group) trees of a segment, or the
+    single block's own tree."""
+    return _unstack(tree, seg.n) if seg.scanned else [tree]
 
 
 class Model:
@@ -120,11 +151,15 @@ class Model:
         cfg = self.cfg
         d = cfg.d_model
         t: Dict[str, Any] = {
-            "embed": PT((cfg.padded_vocab, d), (None, "embed"), fan_in=d),
-            "segments": [self._stack(seg, BLOCKS[seg.kind].template(cfg))
+            "segments": [self._seg_tree(seg, lambda kind: BLOCKS[kind].template(cfg))
                          for seg in self.segments],
             "final_norm": PT((d,), (None,), init="ones"),
         }
+        if cfg.family == "audio":
+            # frontend stub: frames arrive at d_model; a learned input norm
+            t["in_norm"] = PT((d,), (None,), init="ones")
+        else:
+            t["embed"] = PT((cfg.padded_vocab, d), (None, "embed"), fan_in=d)
         if cfg.n_meta_tokens:
             t["meta"] = PT((cfg.n_meta_tokens, d), (None, None), init="small")
         if not cfg.tie_embeddings:
@@ -132,8 +167,15 @@ class Model:
         return t
 
     @staticmethod
-    def _stack(seg: Segment, tmpl):
-        return stackify(tmpl, seg.n) if seg.scanned else tmpl
+    def _seg_tree(seg: Segment, make):
+        """A segment's tree from ``make(kind)``, a block kind's template:
+        stacked when scanned; a VLM group stacks the self layers' twice,
+        ``[G, inner, ...]``, and the cross layer's once, ``[G, ...]``."""
+        if seg.kind == "vlm_group":
+            return {"self": stackify(stackify(make("attn"), seg.inner), seg.n),
+                    "cross": stackify(make("cross"), seg.n)}
+        t = make(seg.kind)
+        return stackify(t, seg.n) if seg.scanned else t
 
     def init(self, generator: torch.Generator, dtype: torch.dtype = torch.bfloat16,
              device=None):
@@ -144,28 +186,28 @@ class Model:
     # cache templates
     # ------------------------------------------------------------------
     def cache_template(self, B: int, smax: int) -> Dict[str, Any]:
-        smax_tot = smax + self.cfg.n_meta_tokens
+        cfg = self.cfg
+        ctx = [self._ctx(seg, smax=smax + cfg.n_meta_tokens) for seg in self.segments]
         return {"segments": [
-            self._stack(seg, BLOCKS[seg.kind].cache_template(
-                self.cfg, B, self._ctx(seg, smax=smax_tot)))
-            for seg in self.segments]}
+            self._seg_tree(seg, lambda kind, c=c: BLOCKS[kind].cache_template(cfg, B, c))
+            for seg, c in zip(self.segments, ctx)]}
 
     def init_cache(self, B: int, smax: int, dtype: torch.dtype = torch.bfloat16,
                    device=None):
-        """Zeroed cache at ``pos`` 0."""
-        def zeros(t: PT):
-            return torch.zeros(t.shape, dtype=t.resolve_dtype(dtype), device=device)
-
-        cache = map_templates(zeros, self.cache_template(B, smax))
+        """The cache at ``pos`` 0, each leaf filled by its template's init
+        (zeros, ones or -1e30) in its own dtype (``dtype`` where the
+        template names none)."""
+        cache = map_templates(lambda t: const_leaf(t, dtype, device),
+                              self.cache_template(B, smax))
         cache["pos"] = 0
         return cache
 
     # ------------------------------------------------------------------
     # forward paths
     # ------------------------------------------------------------------
-    def _ctx(self, seg: Segment, rope=None, pos=None, smax: int = 0) -> BlockCtx:
+    def _ctx(self, seg: Segment, rope=None, img=None, pos=None, smax: int = 0) -> BlockCtx:
         return BlockCtx(rope=rope, window=seg.window, n_sink=seg.n_sink,
-                        causal=seg.causal, pos=pos, smax=smax)
+                        causal=seg.causal, img=img, pos=pos, smax=smax)
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         x = F.embedding(tokens, params["embed"])
@@ -173,29 +215,66 @@ class Model:
             x = x * self.cfg.scale_emb
         return x
 
-    def _embed_prompt(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """Token embeddings with the meta tokens (if any) prepended."""
-        x = self._embed(params, tokens)
+    def _embed_frames(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """Audio: the input norm, then fixed sinusoidal positions."""
+        x = rms_norm(frames.to(params["in_norm"].dtype), params["in_norm"], self.cfg.norm_eps)
+        S, d = x.shape[1], x.shape[2]
+        pos = torch.arange(S, dtype=torch.float32, device=x.device)[:, None]
+        div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=x.device)
+                        * (-math.log(1e4) / d))
+        pe = torch.zeros((S, d), dtype=torch.float32, device=x.device)
+        pe[:, 0::2] = torch.sin(pos * div)
+        pe[:, 1::2] = torch.cos(pos * div)
+        return x + pe.to(x.dtype)[None]
+
+    def _embed_prompt(self, params, batch) -> torch.Tensor:
+        """The input embeddings (tokens, or audio frames) with the meta
+        tokens (if any) prepended."""
+        if self.cfg.family == "audio":
+            x = self._embed_frames(params, batch["frames"])
+        else:
+            x = self._embed(params, batch["tokens"])
         if self.cfg.n_meta_tokens:
             meta = params["meta"].to(x.dtype).expand(x.shape[0], -1, -1)
             x = torch.cat([meta, x], dim=1)
         return x
 
     def _rope_for(self, S: int, device):
+        if not _uses_rope(self.cfg):
+            return None
         return rope_table(S, self.cfg.hd, self.cfg.rope_theta, device)
+
+    @staticmethod
+    def _images(batch, x: torch.Tensor):
+        img = batch.get("images")
+        return None if img is None else img.to(x.dtype)
 
     def forward(self, params, batch) -> torch.Tensor:
         """Embedding -> all segments -> final norm. Returns [B, S(+M), d]."""
         cfg = self.cfg
-        x = self._embed_prompt(params, batch["tokens"])
+        x = self._embed_prompt(params, batch)
         rope = self._rope_for(x.shape[1], x.device)
+        img = self._images(batch, x)
         remat = self.remat and torch.is_grad_enabled()
         for seg, p in zip(self.segments, params["segments"]):
-            ctx = self._ctx(seg, rope=rope)
+            ctx = self._ctx(seg, rope=rope, img=img)
+            if seg.kind == "vlm_group":
+                for gp in _layers(seg, p):
+                    x = (checkpoint(self._group, seg, gp, x, ctx, remat, use_reentrant=False)
+                         if remat else self._group(seg, gp, x, ctx, remat))
+                continue
             blk = BLOCKS[seg.kind]
             for lp in _layers(seg, p):
                 x = self._remat_layer(blk, lp, x, ctx) if remat else blk.apply(cfg, lp, x, ctx)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    def _group(self, seg: Segment, gp, x, ctx: BlockCtx, remat: bool) -> torch.Tensor:
+        """One VLM group: its self layers (each recomputed in the backward
+        under ``remat``), then its cross layer."""
+        attn = BLOCKS["attn"]
+        for lp in _unstack(gp["self"], seg.inner):
+            x = self._remat_layer(attn, lp, x, ctx) if remat else attn.apply(self.cfg, lp, x, ctx)
+        return BLOCKS["cross"].apply(self.cfg, gp["cross"], x, ctx)
 
     def _remat_layer(self, blk, lp, x, ctx: BlockCtx) -> torch.Tensor:
         """One layer whose activations are recomputed in the backward."""
@@ -240,24 +319,43 @@ class Model:
         """Process the prompt; returns (last-token logits [B,V] f32, cache).
 
         The cache is allocated here at capacity ``smax`` (plus the meta
-        tokens), in the dtype of the parameters (SSM states in f32), and
-        holds the prompt's K/V in its first or ring slots.
+        tokens), in the dtype of the parameters (SSM and cell states in
+        f32), and holds the prompt's K/V in its first or ring slots, the
+        recurrent states after the prompt and the VLM's image K/V.
         """
         cfg = self.cfg
-        x = self._embed_prompt(params, batch["tokens"])
+        x = self._embed_prompt(params, batch)
         B, S = x.shape[0], x.shape[1]
         rope = self._rope_for(S, x.device)
+        img = self._images(batch, x)
         cache = self.init_cache(B, smax, x.dtype, x.device)
         for seg, p, c in zip(self.segments, params["segments"], cache["segments"]):
-            ctx = self._ctx(seg, rope=rope)
-            blk = BLOCKS[seg.kind]
-            for lp, lc in zip(_layers(seg, p), _layers(seg, c)):
-                x, _ = blk.prefill(cfg, lp, x, ctx, lc)
+            ctx = self._ctx(seg, rope=rope, img=img)
+            x = self._run_segment(seg, p, c, x, ctx, "prefill")
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         # pos counts REAL tokens (meta prefix excluded); decode adds the meta
         # offset back for absolute positions and cache slots
         cache["pos"] = S - cfg.n_meta_tokens
         return self._logits(params, h[:, -1]), cache
+
+    def _run_segment(self, seg: Segment, p, c, x, ctx: BlockCtx, mode: str):
+        """Prefill or decode (``mode``) of one segment's layers, each
+        writing its cache slice in place."""
+        cfg = self.cfg
+
+        def step(blk, lp, lc, x):
+            if mode == "prefill":
+                return blk.prefill(cfg, lp, x, ctx, lc)[0]
+            return blk.decode(cfg, lp, x, lc, ctx)[0]
+
+        for lp, lc in zip(_layers(seg, p), _layers(seg, c)):
+            if seg.kind != "vlm_group":
+                x = step(BLOCKS[seg.kind], lp, lc, x)
+                continue
+            for sp, sc in zip(_unstack(lp["self"], seg.inner), _unstack(lc["self"], seg.inner)):
+                x = step(BLOCKS["attn"], sp, sc, x)
+            x = step(BLOCKS["cross"], lp["cross"], lc["cross"], x)
+        return x
 
     def decode_step(self, params, cache, tokens: torch.Tensor):
         """One decode step. tokens [B,1] -> (logits [B,V] f32, cache).
@@ -265,14 +363,14 @@ class Model:
         The cache is updated in place and returned with ``pos`` advanced.
         """
         cfg = self.cfg
+        if cfg.family == "audio":
+            raise ValueError(f"{cfg.name}: the audio family is an encoder and has no decode "
+                             f"step (use forward or prefill; the reference has no such path)")
         pos = cache["pos"] + cfg.n_meta_tokens    # absolute, meta included
         x = self._embed(params, tokens)
-        rope = rope_at(pos, cfg.hd, cfg.rope_theta, x.device)
+        rope = rope_at(pos, cfg.hd, cfg.rope_theta, x.device) if _uses_rope(cfg) else None
         for seg, p, c in zip(self.segments, params["segments"], cache["segments"]):
-            ctx = self._ctx(seg, rope=rope, pos=pos)
-            blk = BLOCKS[seg.kind]
-            for lp, lc in zip(_layers(seg, p), _layers(seg, c)):
-                x, _ = blk.decode(cfg, lp, x, lc, ctx)
+            x = self._run_segment(seg, p, c, x, self._ctx(seg, rope=rope, pos=pos), "decode")
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         cache["pos"] += 1
         return self._logits(params, h[:, 0]), cache

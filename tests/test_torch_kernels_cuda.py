@@ -175,6 +175,8 @@ def _flash_launched(q, k, v, **kw):
     (2, 517, 333, 6, 2, 128, True),     # Sq > Sk: rows past Sk see a ragged tile
     (1, 77, 300, 5, 1, 64, False),      # MQA, non-causal, one short query tile
     (2, 1, 129, 4, 4, 64, True),        # one row, one key past a tile
+    (2, 300, 300, 16, 16, 80, False),   # HuBERT's heads (hd 80), ragged tiles
+    (2, 333, 517, 6, 2, 80, True),      # hd 80, causal, Sq < Sk
 ])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_cuda_vs_plain(B, Sq, Sk, H, KV, hd, causal, dt, monkeypatch):
@@ -194,6 +196,24 @@ def test_flash_cuda_rejects_unsupported_head_dim():
     q = torch.zeros(1, 8, 2, 48, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         flash_mha(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_hd80_under_grad_refuses_before_the_forward(dt):
+    """hd 80 has a forward kernel and no backward one: under autograd the
+    wrapper raises when the forward is called, naming the backward, and
+    launches nothing; without grad the same call runs."""
+    require_sm90()
+    q = torch.from_numpy(randn(40, (1, 100, 4, 80))).to("cuda", _TDT[dt])
+    k = torch.from_numpy(randn(41, (1, 100, 4, 80))).to("cuda", _TDT[dt])
+    before = flash_mha.launches
+    with pytest.raises(ValueError, match="no backward"):
+        flash_mha(q.requires_grad_(), k, k, causal=False)
+    assert flash_mha.launches == before
+    with torch.no_grad():
+        close(flash_mha(q, k, k, causal=False), flash_mha_ref(q, k, k, causal=False),
+              1e-4 if dt == "f32" else TOL["flash_bf16"])
 
 
 @pytest.mark.gpu
@@ -285,6 +305,14 @@ def _rows_without_keys(Sq, Sk, causal, window, n_sink):
     (2, 130, 130, 8, 2, 16, True, 0, 0, "bf16"),         # reduced configs' hd
     (2, 300, 300, 4, 2, 32, True, 100, 7, "bf16"),
     (1, 77, 300, 5, 1, 32, False, 0, 0, "bf16"),
+    # hd 80 (HuBERT: 16 heads, MHA, non-causal): every column of the five
+    # a thread owns, staged in a partial last group of loads
+    (2, 1500, 1500, 16, 16, 80, False, 0, 0, "f32"),
+    (2, 1500, 1500, 16, 16, 80, False, 0, 0, "bf16"),
+    (2, 333, 517, 6, 2, 80, True, 0, 0, "f32"),          # causal, ragged, GQA
+    (1, 517, 77, 4, 1, 80, False, 0, 0, "bf16"),         # Sq > Sk, MQA
+    (1, 300, 300, 4, 2, 80, True, 100, 7, "f32"),        # window and sinks
+    (1, 5, 0, 2, 1, 80, False, 0, 0, "bf16"),            # no key at all
 ])
 def test_flash_simt_vs_tiled_emulation(B, Sq, Sk, H, KV, hd, causal, window, n_sink, dt,
                                        monkeypatch):
@@ -309,7 +337,7 @@ def test_flash_simt_vs_tiled_emulation(B, Sq, Sk, H, KV, hd, causal, window, n_s
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_forward_simt_attrs(hd, dt):
     """Registers, spill and shared memory of the CUDA-core forward's serve
@@ -327,7 +355,8 @@ def test_flash_forward_simt_attrs(hd, dt):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dt,hd", [("f32", 128), ("f32", 16), ("bf16", 32)])
+@pytest.mark.parametrize("dt,hd", [("f32", 128), ("f32", 16), ("bf16", 32), ("f32", 80),
+                                   ("bf16", 80)])
 def test_flash_simt_reads_misaligned_inputs(dt, hd, monkeypatch):
     """Contiguous q, k, v that do not start on 16 bytes: the CUDA-core
     kernel stages them element by element (its 16-byte loads need aligned

@@ -82,9 +82,24 @@ def test_port_decode_matches_forward(arch):
             close(lg, model._logits(params, h[:, -1]), TOL["decode_vs_forward"])
 
 
-# the MoE family is ported (tests/test_torch_moe.py); ssm and vlm are not
+# every family is ported now (the ssm and vlm ones were refused until
+# tests/test_torch_xlstm.py and tests/test_torch_multimodal.py held them):
+# a config switched to either family builds the reference's segments and
+# template, and only a family neither package knows raises
 @pytest.mark.parametrize("change", [{"family": "ssm"}, {"family": "vlm"}])
 def test_unported_families_raise(change):
+    from repro.models.layers import PT as JPT
+    from repro.models.model import plan_segments as jax_plan_segments
+    from repro_torch.models.layers import map_templates
+
     cfg = dataclasses.replace(REGISTRY["qwen2-1.5b"].reduced(), **change)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg).template()
+    jcfg = dataclasses.replace(JAX_REGISTRY["qwen2-1.5b"].reduced(), **change)
+    model = build_model(cfg)
+    assert [(s.kind, s.n, s.scanned, s.inner) for s in model.segments] == \
+        [(s.kind, s.n, s.scanned, s.inner) for s in jax_plan_segments(jcfg)]
+    flat = []
+    map_templates(lambda t: flat.append((t.shape, t.init)), model.template())
+    assert flat == [(t.shape, t.init) for t in jax.tree_util.tree_leaves(
+        jax_build_model(jcfg).template(), is_leaf=lambda t: isinstance(t, JPT))]
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, family="diffusion"))

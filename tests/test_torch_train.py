@@ -7,7 +7,11 @@ reduced dense configs: smollm-135m, qwen2-1.5b (QKV bias, tied head),
 qwen3-32b (qk-norm) and minicpm-2b (WSD, ``dim_model_base`` logit scale);
 microbatches and EF compression on qwen2; the hybrid hymba-1.5b (the
 ssm_scan backward, meta tokens, window and sinks), also under "save-attn";
-and qwen3-moe-30b-a3b (the MoE backward through the router's gates). Then the optimizer, schedules,
+qwen3-moe-30b-a3b (the MoE backward through the router's gates); xlstm-125m
+(mLSTM and sLSTM cells); llama-3.2-vision-90b with its cross-attention
+gates opened (the nested groups, remat of each self layer and of each
+group); and hubert-xlarge (frames, non-causal attention, the untied head).
+Then the optimizer, schedules,
 int8 quantization, data and checkpoints, each against the JAX package, and
 the training CLI.
 
@@ -100,7 +104,9 @@ def _rel(a, b):
 
 CASES = [("smollm-135m", 1, False), ("qwen2-1.5b", 1, False), ("qwen3-32b", 1, False),
          ("minicpm-2b", 1, False), ("qwen2-1.5b", 2, False), ("qwen2-1.5b", 1, True),
-         ("qwen2-1.5b", 2, True), ("hymba-1.5b", 1, False), ("qwen3-moe-30b-a3b", 1, False)]
+         ("qwen2-1.5b", 2, True), ("hymba-1.5b", 1, False), ("qwen3-moe-30b-a3b", 1, False),
+         ("xlstm-125m", 1, False), ("llama-3.2-vision-90b", 1, False),
+         ("hubert-xlarge", 1, False)]
 
 
 @pytest.mark.parametrize("arch,microbatches,compress_on", CASES)
@@ -120,6 +126,11 @@ def _step_matches_jax(arch, microbatches, compress_on, remat_policy="full"):
     model = build_model(cfg, remat_policy=remat_policy)
     jmodel = jax_build_model(jcfg, remat_policy=remat_policy)
     tree = _numpy_params(model, 0)
+    if cfg.family == "vlm":
+        # the gates start at 0 and tanh(0) would hide the image path
+        for seg in tree["segments"]:
+            for g in ("gate_attn", "gate_ffn"):
+                seg["cross"][g] = np.ones_like(seg["cross"][g])
     kw = dict(microbatches=microbatches, compress=compress_on)
     # warmup 0: the first step runs at the peak rate, not at lr 0
     jstep = jax.jit(jax_make_train_step(
