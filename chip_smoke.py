@@ -45,14 +45,16 @@ qwen2-1.5b; and training hymba-1.5b, both at full width and depth. Phases, each 
      against each other at 4096 rows on either side of the plan's
      row-width limit; and the host us per call of the wrapper and of
      F.rms_norm at [4, 1536] bf16 (1000 calls back to back, wall clock,
-     one synchronize). Flash: bf16 at hd 64/128 must run the
-     tensor-core kernel, everything else the CUDA-core (SIMT) one (HuBERT's
-     hd 80 in bf16 held to 2e-2; the VLM's self and cross shapes at 64
-     over 8 heads, Sq 1 among them); at the
+     one synchronize). Flash: bf16 at hd 64/80/128 must run the
+     tensor-core kernel, everything else the CUDA-core (SIMT) one (the
+     VLM's self and cross shapes at 64 over 8 heads, Sq 1 among them);
+     bf16 at hd 80 (HuBERT's, 32-byte swizzle) is also held to its tile
+     twin flash_mha_tiled at 1e-2; at the
      main shapes the instance, its registers, spill and shared memory, the
      share of its bound and its ratio to SDPA are printed (the CUDA-core
      instance's blocks an SM from the card's occupancy calculator); in f32
-     beside the previous (scalar) design's time;
+     beside the previous (scalar) design's time; bf16 at hd 80 beside the
+     CUDA-core bf16 instance (the earlier design), timed in this run;
   4. model  — each model in f32: prefill + 2 decode steps match forward
      logits (hymba's 1100-token prompt wraps its window ring; qwen3-moe at
      full width and 4 of its 48 layers; the VLM at 1 of its 20 groups, its
@@ -68,12 +70,13 @@ qwen2-1.5b; and training hymba-1.5b, both at full width and depth. Phases, each 
      package gives it an engine path); hubert-xlarge as 8 encodes of B 4 x
      T 1500 frames. Every kernel's launch count, zeroed just before the run
      and read just after, must equal what the path implies
-     (``path_counts``), and every bf16 flash launch at hd 64/128 must be
-     the tensor-core kernel's (HuBERT's hd 80 runs the CUDA-core one); the
+     (``path_counts``), and every bf16 flash launch (hd 64/80/128) must be
+     the tensor-core kernel's, HuBERT's 384 among them; the
      peak memory must stay under 80 GB (qwen3-moe's weights are 61 GB);
   6. profile — wall vs device busy time of one prefill and of decode
      steps of each decoder (the VLM with its image tokens), and of one
-     encode of hubert-xlarge, with the top kernels (torch.profiler);
+     encode of hubert-xlarge, with the top kernels and flash attention's
+     share of the device time (torch.profiler);
   7. train  — the backward kernels (rmsnorm: dx, dw; flash attention: dQ,
      dK, dV; bf16 at hd 64/128 on the tensor cores) at the train shapes
      through the wrappers' autograd, against the plain versions' autograd
@@ -169,8 +172,8 @@ REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
 REPLACES["rmsnorm_bwd"] = "src/repro/kernels/rmsnorm/kernel.py:36"
 REPLACES["flash_attention_bwd"] = "src/repro/kernels/flash_attention/kernel.py:99"
 REPLACES["ssm_scan_bwd"] = "src/repro/kernels/ssm_scan/kernel.py:53"
-# the route and source of each kernel on the main paths (bf16 flash at hd 64
-# and 128 runs the tensor-core kernel). The kernels line allows only the
+# the route and source of each kernel on the main paths (bf16 flash at hd 64,
+# 80 and 128 runs the tensor-core kernel). The kernels line allows only the
 # routes "cuda" and "triton"; the source names which flash kernel it was.
 ROUTES = {"rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu"),
           "flash_attention": ("cuda",
@@ -205,9 +208,16 @@ PATHS = {
     # an encoder: 30 s of audio at 20 ms a frame; forward only (no decode step)
     AUDIO: dict(model_B=2, model_S=1500, encodes=8, batch=4, profile_S=1500),
 }
-# HuBERT's flash shape: the CUDA-core kernel at hd 80 (bf16 held to 2e-2)
+# HuBERT's flash shape: bf16 on the tensor-core kernel at hd 80, f32 on the
+# CUDA-core one
 HUBERT_FA = (4, 1500, 1500, 16, 16, 80, False, 0, 0)
-HD80_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# a tensor-core flash kernel against its tile twin (flash_mha_tiled: the same
+# tiles, P rounded to bf16): sum order and the hardware exp2 are left, one
+# bf16 rounding of the output (2^-8)
+TWIN_TOL = 1e-2
+# the CUDA-core kernel in bf16 (P kept in f32) against the plain version:
+# one bf16 rounding of the output
+SIMT_BF16_TOL = 2e-2
 # the VLM's attention: self (causal) and cross (text queries over 1024 image
 # tokens, at prefill and at a decode step), 64 q heads over 8 kv heads
 VLM_FA = [(4, 1024, 1024, 64, 8, 128, True, 0, 0), (4, 1024, 1024, 64, 8, 128, False, 0, 0),
@@ -711,10 +721,11 @@ def phase_kernels(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (WGMMA_HEAD_DIMS,
+                                                            flash_attention_cuda,
                                                             flash_kernel_attrs,
                                                             wgmma_kernel_attrs)
     from repro_torch.kernels.flash_attention.ops import flash_mha
-    from repro_torch.kernels.flash_attention.ref import flash_mha_ref
+    from repro_torch.kernels.flash_attention.ref import flash_mha_ref, flash_mha_tiled
     from repro_torch.kernels.rmsnorm.kernel import kernel_attrs, kernel_plan
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import VARIANTS, rmsnorm_ref
@@ -821,7 +832,13 @@ def phase_kernels(torch):
                (1, 600, 600, 6, 2, 128, True, 200, 64),
                (2, 427, 427, 5, 5, 64, True, 5, 0),
                (1, 900, 900, 5, 1, 64, True, 128, 300),
-               (1, 5, 0, 2, 1, 128, True, 0, 0)]
+               (1, 5, 0, 2, 1, 128, True, 0, 0),
+               # hd 80 (bf16: five 16-column boxes, 32-byte swizzle): causal
+               # GQA with Sq < Sk, window and sinks, Sq > Sk MQA, no key
+               (2, 333, 517, 6, 2, 80, True, 0, 0),
+               (1, 300, 300, 4, 2, 80, True, 100, 7),
+               (1, 517, 77, 4, 1, 80, False, 0, 0),
+               (1, 5, 0, 2, 1, 80, False, 0, 0)]
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
         for case in main_fa + edge_fa:
@@ -837,8 +854,11 @@ def phase_kernels(torch):
             tc = dt == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
             if ran != ((0, 0) if tc and Sk == 0 else (1, int(tc))):
                 raise AssertionError(f"{name}: (launches, wgmma launches) rose by {ran}")
-            err = compare(name, got, flash_mha_ref(q, k, v, **kw),
-                          HD80_TOL[dn] if hd == 80 else TOL[("flash", dn)])
+            want = flash_mha_ref(q, k, v, **kw)
+            err = compare(name, got, want, TOL[("flash", dn)])
+            if tc and hd == 80:
+                compare(f"{name} vs its tile twin", got, flash_mha_tiled(q, k, v, **kw),
+                        TWIN_TOL)
             if case not in main_fa:
                 continue
             ms = timer(lambda: flash_mha(q, k, v, **kw))
@@ -864,6 +884,19 @@ def phase_kernels(torch):
                 inst = wgmma_kernel_attrs(hd, causal and win > 0)
                 log(f"    instance wgmma ({_attrs_str(inst)}) | kernel/SDPA {ms / lib:.2f}x | "
                     f"{100 * bound / ms:.1f}% of its bound ({ops / ms / 1e9:.1f} TFLOP/s)")
+                if hd == 80:
+                    # the earlier design: the CUDA-core kernel's bf16 instance,
+                    # which flash_mha no longer reaches, called directly
+                    simt = torch.empty_like(q)
+                    flash_attention_cuda(q, k, v, simt, **kw)
+                    compare(f"{name} CUDA-core instance (the earlier design)", simt, want,
+                            SIMT_BF16_TOL)
+                    simt_ms = timer(lambda: flash_attention_cuda(q, k, v, simt, **kw))
+                    log(f"    before (the CUDA-core bf16 instance, this run): {simt_ms:.3f} ms, "
+                        f"{100 * bound / simt_ms:.1f}% of its bound; now "
+                        f"{simt_ms / ms:.2f}x faster")
+                    inst = dict(inst, earlier_design_ms=simt_ms)
+                    del simt
             else:
                 inst = dict(flash_kernel_attrs(hd, dt), design=SIMT_DESIGN)
                 log(f"    instance {SIMT_DESIGN}, {inst['blocks_per_sm']} blocks an SM "
@@ -877,7 +910,7 @@ def phase_kernels(torch):
             rows[("flash", case, dn)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by=by, library_ms=lib, **inst)
-            del qt, kt, vt
+            del qt, kt, vt, want
 
     log("[kernels] ssm_scan vs plain")
     main_scan = [(4, 1152, 51200)]                 # hymba: [B, S, di * n]
@@ -1234,7 +1267,7 @@ def phase_serve_vlm(torch):
 def phase_encode_audio(torch):
     """The audio encoder in bf16 at full width and depth: PATHS encodes of
     B=4 x T=1500 frames (30 s of audio at 20 ms a frame), each timed; exact
-    launches, none on the tensor cores (hd 80 runs the CUDA-core kernel)."""
+    launches, every flash launch on the tensor cores (hd 80)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -1265,9 +1298,9 @@ def phase_encode_audio(torch):
         f"median {statistics.median(times):.1f} ms a batch ({', '.join('%.1f' % t for t in times)}); "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     log(f"[serve] launches: rmsnorm {ran['rmsnorm']} (want {per} x {n}), flash_attention "
-        f"{ran['flash_attention']} (want {fa} x {n}; tensor-core kernel {ran['wgmma']}, want 0) "
-        f"[{time.perf_counter() - t_phase:.1f}s]")
-    if ran["rmsnorm"] != per * n or ran["flash_attention"] != fa * n or ran["wgmma"]:
+        f"{ran['flash_attention']} (want {fa} x {n}; tensor-core kernel {ran['wgmma']}, want "
+        f"{fa * n}) [{time.perf_counter() - t_phase:.1f}s]")
+    if ran["rmsnorm"] != per * n or not ran["flash_attention"] == ran["wgmma"] == fa * n:
         raise AssertionError("launches do not match the encoder path")
     launches = {"rmsnorm": ran["rmsnorm"], "flash_attention": ran["flash_attention"]}
     return launches, model, params
@@ -1353,9 +1386,11 @@ def phase_profile(torch, model, params):
                 log(f"[profile] {name}: wall {wall:.2f} ms/step; device time not "
                     f"measured (the profiler saw no CUDA kernel)")
                 continue
+            flash = sum(ms for ms, key in top if "flash_attention" in key)
             log(f"[profile] {name}: wall {wall:.2f} ms/step, device busy "
                 f"{busy:.2f} ms/step ({100 * busy / wall:.1f}% busy, "
-                f"{100 - 100 * busy / wall:.1f}% idle), {kernels:.0f} kernels/step")
+                f"{100 - 100 * busy / wall:.1f}% idle), {kernels:.0f} kernels/step; "
+                f"flash attention {flash:.2f} ms/step ({100 * flash / busy:.1f}% of busy)")
             for ms, key in top:
                 log(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
         if cfg.family == "ssm":
@@ -1491,7 +1526,7 @@ def train_kernels(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
-        WGMMA_HEAD_DIMS, bwd_kernel_attrs, flash_attention_bwd_cuda, flash_attention_cuda,
+        WGMMA_BWD_HEAD_DIMS, bwd_kernel_attrs, flash_attention_bwd_cuda, flash_attention_cuda,
         flash_attention_wgmma_cuda, flash_kernel_attrs, lse_rows, wgmma_kernel_attrs)
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.flash_attention.ref import flash_mha_bwd_ref, flash_mha_ref
@@ -1576,7 +1611,7 @@ def train_kernels(torch):
         kw = dict(causal=True, window=win, n_sink=ns)
         for dt in dts:
             dn = str(dt).split(".")[1]
-            tc = dt == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+            tc = dt == torch.bfloat16 and hd in WGMMA_BWD_HEAD_DIMS
             q, k, v = randn((B, S, H, hd), dt), randn((B, S, KV, hd), dt), randn((B, S, KV, hd), dt)
             do = randn((B, S, H, hd), dt)
             qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -2166,7 +2201,7 @@ def main() -> int:
     ]
     kernels = [
         dict(name=name, route=ROUTES[name][0],
-             source=SIMT_FLASH if (arch, name) == (AUDIO, "flash_attention") else ROUTES[name][1],
+             source=ROUTES[name][1],
              replaces=REPLACES[name], launches=launches[arch][name], path=arch,
              shape=list(key[1]), dtype=key[2], **rows[key])
         for arch, name, key in entries]

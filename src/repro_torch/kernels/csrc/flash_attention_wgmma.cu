@@ -1,10 +1,10 @@
 // Flash attention forward on Hopper's tensor cores (sm_90a): bf16 q/k/v/o in
-// the model layout, head dim 64 or 128, online softmax, causal or not, with an
-// optional sliding window and always-attended sink prefix, GQA.
+// the model layout, head dim 64, 80 or 128, online softmax, causal or not,
+// with an optional sliding window and always-attended sink prefix, GQA.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (`flash_attention_kernel`, launched by `flash_attention` at :99) for bf16 at
-// head dims 64 and 128; every other call keeps the scalar kernel of
+// head dims 64, 80 and 128; every other call keeps the CUDA-core kernel of
 // flash_attention.cu. The function is that kernel's, unchanged: running
 // (m, l, acc) in f32, scale 1/sqrt(hd), causal mask `col <= row` aligned top
 // left, under a window `col > row - window || col < n_sink`, masked scores set
@@ -14,9 +14,11 @@
 // Bound on the H100: operations. At qwen2-1.5b's prefill (B 4, S 1024, H 12,
 // KV 2, hd 128, causal) the visible pairs need 12.9 GFLOP (13.0 us at 989
 // TFLOP/s bf16) against 29 MB of q/k/v/o (8.8 us at 3.35 TB/s); hymba-1.5b's
-// windowed call at S 1152 needs 17.0 GFLOP against 35 MB (PERF.md §6 has the
-// worked bounds). So the products have to run on the tensor cores, and the
-// loads must hide under them:
+// windowed call at S 1152 needs 17.0 GFLOP against 35 MB; HuBERT's encoder
+// call (B 4, S 1500, H = KV 16, hd 80, non-causal) 46.1 GFLOP (46.6 us)
+// against 61 MB (18.3 us), with one exp2 a pair (144 M) beside 320 flops
+// (PERF.md §6 has the worked bounds). So the products have to run on the
+// tensor cores, and the loads must hide under them:
 //
 // * Block: two consumer warpgroups of 64 query rows each (128 rows) and one
 //   producer warpgroup; one block per (query tile, b*h), heaviest tiles
@@ -24,23 +26,28 @@
 //   them from the producer (down to 40) to the consumers (up to 232), which
 //   hold the S and O accumulators and P without spilling at hd 128.
 // * Loads: one producer thread brings Q in once and streams K/V tiles of 128
-//   keys through a ring of stages (2 at hd 128, 3 at hd 64) by TMA, over
-//   tensor maps of the 4-D model layout [B, S, heads, hd] (no transpose is
-//   materialised). A box is 64 columns (one 128-byte swizzle row); hd 128
-//   takes two boxes side by side. `mbarrier`s say when a stage is full (TMA
+//   keys through a ring of stages (2 at hd 128, 3 at hd 64 and 80) by
+//   TMA, over tensor maps of the 4-D model layout [B, S, heads, hd] (no
+//   transpose is materialised). At hd 64 and 128 a box is 64 columns (one
+//   128-byte swizzle row) and hd 128 takes two boxes side by side. hd 80's
+//   160-byte rows are a multiple of 32 bytes but not of 64 or 128, so it
+//   takes five boxes of 16 columns under the 32-byte swizzle (the atom
+//   CUTLASS picks for a K extent of 80): each box is one k-step of S and one
+//   16-column atom of V. `mbarrier`s say when a stage is full (TMA
 //   byte count) and when both warpgroups have released it. TMA zero-fills
 //   rows past Sq or Sk. The tensor maps are `__grid_constant__` parameters,
 //   encoded on the host with cuTensorMapEncodeTiled, reached through
 //   cudaGetDriverEntryPoint (no -lcuda).
 // * Scores: S = Q K^T by wgmma m64n128k16, both operands K-major from the
-//   128-byte-swizzled shared memory, f32 in registers. Masking and the online
+//   swizzled shared memory, f32 in registers. Masking and the online
 //   softmax run on the accumulator fragments; a row's max and sum close over
 //   the four threads of a quad. Only tiles that cross the diagonal, the band
 //   edge, the sink edge or the Sk tail take the mask test. `l` sums the f32
 //   p, before rounding.
 // * Output: P is rounded to bf16 in registers and fed as the register A
 //   operand of O += P V (wgmma m64n{hd}k16); the S fragment layout is the A
-//   fragment layout. V is the MN-major B operand (transpose bit set).
+//   fragment layout. V is the MN-major B operand (transpose bit set): 8-key
+//   groups one atom (8 box rows) apart, 16- or 64-column atoms one box apart.
 // * Skipped tiles: the twin of ref.py::tile_visited. Causal key tiles wholly
 //   past the query tile's last row are not loaded, and under a window neither
 //   are tiles wholly between the sinks and the band of every row of the tile.
@@ -60,15 +67,40 @@ constexpr int kThreads = 128 * (kWarpgroups + 1);  // + one producer warpgroup
 constexpr float kNeg = -1e30f;
 constexpr int kLseAlign = 64;                     // lse rows padded to this (the backward's tile)
 
+// hd 80's stage count: 3 stages (141 KiB) or 4 (181 KiB) fit one block an
+// SM; flash_attention/stage_race.py builds the kernel with each and times
+// both (3 was 1% faster at HuBERT's shape on the H100: PERF.md §6)
+#ifndef FA_HD80_STAGES
+#define FA_HD80_STAGES 3
+#endif
+
+// The shared-memory plan of the instance at HD (Python twin:
+// kernel.py::wgmma_smem_plan). A box row is kRowBytes wide: 128 bytes (64
+// columns, 128-byte swizzle) where hd is a multiple of 64, else 32 bytes
+// (16 columns, 32-byte swizzle: hd 80).
 template <int HD>
 struct Cfg {
-  static constexpr int kBoxes = HD / kBox;
-  static constexpr int kStages = HD == 64 ? 3 : 2;
+  static constexpr bool kSw32 = HD % kBox != 0;
+  static constexpr int kBoxCols = kSw32 ? 16 : kBox;
+  static constexpr int kRowBytes = kBoxCols * 2;
+  static constexpr int kAtomBytes = 8 * kRowBytes;  // 8 box rows: one swizzle atom
+  static constexpr int kSteps = kRowBytes / 32;     // k-steps of 16 columns a box row
+  static constexpr int kBoxes = HD / kBoxCols;
+  static constexpr int kStages = HD == 64 ? 3 : HD == 80 ? FA_HD80_STAGES : 2;
   static constexpr int kQBytes = kRows * HD * 2;
   static constexpr int kTileBytes = kKeys * HD * 2;  // one K or one V tile
   static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
   // 1024 bytes of slack to align the swizzled tiles, then Q, K/V stages, barriers
   static constexpr int kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+  static_assert(HD % kBoxCols == 0 && kSmem <= 227 * 1024, "no shared-memory plan for HD");
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kSw32 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B;
+
+  // descriptor of a tile of box rows: 8-row atoms kAtomBytes apart, `lbo`
+  // between boxes (the MN-major V) or unused (K-major Q and K)
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+    return kSw32 ? desc_sw32(addr, lbo, kAtomBytes) : desc_sw128(addr, lbo, kAtomBytes);
+  }
 };
 
 // -- the kernel ---------------------------------------------------------------
@@ -85,11 +117,12 @@ __device__ __forceinline__ bool tile_visited(int k0, int q0, int Sk, int causal,
 }
 
 // q, o: [B, Sq, H, HD]; k, v: [B, Sk, KV, HD], bf16, read through the tensor
-// maps (boxes of kBox columns x 1 head x rows x 1 batch). kWindow: causal with
-// window > 0; the plain instance carries no window test. kLse: also store
-// each row's logsumexp for the backward, in the exp2 domain of the online
-// softmax, lse[bh * lse_stride + row] = m * scale_log2 + log2(l) (+inf for a
-// row that sees no key); the serve path launches the instance without it.
+// maps (boxes of Cfg<HD>::kBoxCols columns x 1 head x rows x 1 batch).
+// kWindow: causal with window > 0; the plain instance carries no window test.
+// kLse: also store each row's logsumexp for the backward, in the exp2 domain
+// of the online softmax, lse[bh * lse_stride + row] = m * scale_log2 +
+// log2(l) (+inf for a row that sees no key); the serve path launches the
+// instance without it.
 template <int HD, bool kWindow, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -134,7 +167,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_expect_tx(bar_q, C::kQBytes);
 #pragma unroll
     for (int bx = 0; bx < C::kBoxes; ++bx)
-      tma_load_4d(s_q + bx * kRows * 128, &q_map, bar_q, bx * kBox, h, q0, b);
+      tma_load_4d(s_q + bx * kRows * C::kRowBytes, &q_map, bar_q, bx * C::kBoxCols, h, q0, b);
     int it = 0;
     for (int k0 = 0; k0 < k_end; k0 += kKeys) {
       if (!tile_visited(k0, q0, Sk, causal, window, n_sink)) continue;
@@ -143,8 +176,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_expect_tx(bar_full(st), 2 * C::kTileBytes);
 #pragma unroll
       for (int bx = 0; bx < C::kBoxes; ++bx) {
-        tma_load_4d(s_k(st) + bx * kKeys * 128, &k_map, bar_full(st), bx * kBox, kvh, k0, b);
-        tma_load_4d(s_v(st) + bx * kKeys * 128, &v_map, bar_full(st), bx * kBox, kvh, k0, b);
+        const uint32_t off = bx * kKeys * C::kRowBytes;
+        tma_load_4d(s_k(st) + off, &k_map, bar_full(st), bx * C::kBoxCols, kvh, k0, b);
+        tma_load_4d(s_v(st) + off, &v_map, bar_full(st), bx * C::kBoxCols, kvh, k0, b);
       }
       ++it;
     }
@@ -169,21 +203,22 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
   mbar_wait(bar_q, 0);
-  const uint32_t q_wg = s_q + wg * 64 * 128;
+  const uint32_t q_wg = s_q + wg * 64 * C::kRowBytes;
   int it = 0;
   for (int k0 = 0; k0 < k_end; k0 += kKeys) {
     if (!tile_visited(k0, q0, Sk, causal, window, n_sink)) continue;
     const int st = it % C::kStages;
     mbar_wait(bar_full(st), (it / C::kStages) & 1);
 
-    // S = Q K^T over hd in steps of 16 (32 bytes inside a 128-byte box row)
+    // S = Q K^T over hd in steps of 16 (32 bytes of a box row: a quarter of
+    // a 128-byte row, or the whole of a 32-byte one)
     float s[kKeys / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      const uint64_t da = desc_sw128(q_wg + (kk / 4) * kRows * 128 + off, 16, 1024);
-      const uint64_t db = desc_sw128(s_k(st) + (kk / 4) * kKeys * 128 + off, 16, 1024);
+      const int bx = kk / C::kSteps, off = (kk % C::kSteps) * 32;
+      const uint64_t da = C::desc(q_wg + bx * kRows * C::kRowBytes + off, 16);
+      const uint64_t db = C::desc(s_k(st) + bx * kKeys * C::kRowBytes + off, 16);
       wgmma_ss_n128(s, da, db, kk > 0);
     }
     wgmma_commit();
@@ -249,7 +284,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
     // O += P V: P rounded to bf16 as the register A operand (the S fragment
     // of columns 16kk..16kk+15 is the A fragment of k-step kk); V MN-major,
-    // 8-key groups 1024 bytes apart, hd boxes kKeys*128 bytes apart
+    // 8-key groups one atom apart, hd boxes kKeys box rows apart
     uint32_t pa[kKeys / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
@@ -260,7 +295,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
-      const uint64_t db = desc_sw128(s_v(st) + kk * 16 * 128, kKeys * 128, 1024);
+      const uint64_t db = C::desc(s_v(st) + kk * 16 * C::kRowBytes, kKeys * C::kRowBytes);
       wgmma_rs<HD>(acc, pa[kk], db, 1);
     }
     wgmma_commit();
@@ -307,9 +342,11 @@ template <int HD, bool kWindow, bool kLse>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
            int Sk, int H, int KV, float scale_log2, int causal, int window, int n_sink,
            cudaStream_t stream) {
+  using C = Cfg<HD>;
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, B, Sq, H, HD, kRows) || !make_map(&km, k, B, Sk, KV, HD, kKeys) ||
-      !make_map(&vm, v, B, Sk, KV, HD, kKeys))
+  if (!make_map(&qm, q, B, Sq, H, HD, kRows, C::kBoxCols, C::kSwizzle) ||
+      !make_map(&km, k, B, Sk, KV, HD, kKeys, C::kBoxCols, C::kSwizzle) ||
+      !make_map(&vm, v, B, Sk, KV, HD, kKeys, C::kBoxCols, C::kSwizzle))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD, kWindow, kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -344,25 +381,32 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
              int Sk, int H, int KV, float scale_log2, int causal, int window, int n_sink,
              cudaStream_t s, int* attr) {
   const bool windowed = causal && window > 0;
+  if (lse != nullptr) {
+    // hd 80 has no backward yet, so no instance that stores L
+    if constexpr (HD == 80) return static_cast<int>(cudaErrorInvalidValue);
+    else if (windowed)
+      return launch_or_attrs<HD, true, true>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2, 1,
+                                             window, n_sink, s, attr);
+    else
+      return launch_or_attrs<HD, false, true>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2,
+                                              causal, 0, 0, s, attr);
+  }
   if (windowed)
-    return lse ? launch_or_attrs<HD, true, true>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2,
-                                                1, window, n_sink, s, attr)
-               : launch_or_attrs<HD, true, false>(q, k, v, o, lse, B, Sq, Sk, H, KV,
-                                                  scale_log2, 1, window, n_sink, s, attr);
-  return lse ? launch_or_attrs<HD, false, true>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2,
-                                               causal, 0, 0, s, attr)
-             : launch_or_attrs<HD, false, false>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2,
-                                                 causal, 0, 0, s, attr);
+    return launch_or_attrs<HD, true, false>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2, 1,
+                                            window, n_sink, s, attr);
+  return launch_or_attrs<HD, false, false>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2,
+                                           causal, 0, 0, s, attr);
 }
 
 }  // namespace
 
-// bf16 only; hd in {64, 128}; Sq, Sk > 0 (a tensor map has no empty
+// bf16 only; hd in {64, 80, 128}; Sq, Sk > 0 (a tensor map has no empty
 // dimension); H % KV == 0; q, k, v, o contiguous and 16-byte aligned; window
 // >= 0 and n_sink >= 0 act only when causal (0 = no window). lse: nullptr
 // (the serve path's instance), or [B*H, round_up(Sq, 64)] f32 that receives
-// each row's logsumexp in the exp2 domain (see the kernel). Returns
-// cudaGetLastError() after the launch.
+// each row's logsumexp in the exp2 domain (see the kernel; not at hd 80,
+// which has no backward yet: its instance that stores L is not built).
+// Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
                                            void* lse, int B, int Sq, int Sk, int H, int KV,
                                            int hd, int causal, int window, int n_sink,
@@ -378,6 +422,9 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const v
   float* l = static_cast<float*>(lse);
   if (hd == 64)
     return dispatch<64>(q, k, v, o, l, B, Sq, Sk, H, KV, scale_log2, causal, window, n_sink, s,
+                        nullptr);
+  if (hd == 80)
+    return dispatch<80>(q, k, v, o, l, B, Sq, Sk, H, KV, scale_log2, causal, window, n_sink, s,
                         nullptr);
   if (hd == 128)
     return dispatch<128>(q, k, v, o, l, B, Sq, Sk, H, KV, scale_log2, causal, window, n_sink, s,
@@ -397,6 +444,9 @@ extern "C" int repro_flash_attention_wgmma_attrs(int hd, int windowed, int lse, 
   int err = static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
     err = dispatch<64>(nullptr, nullptr, nullptr, nullptr, l, 1, 1, 1, 1, 1, 1.f, 1,
+                       windowed ? 1 : 0, 0, nullptr, attr);
+  if (hd == 80)
+    err = dispatch<80>(nullptr, nullptr, nullptr, nullptr, l, 1, 1, 1, 1, 1, 1.f, 1,
                        windowed ? 1 : 0, 0, nullptr, attr);
   if (hd == 128)
     err = dispatch<128>(nullptr, nullptr, nullptr, nullptr, l, 1, 1, 1, 1, 1, 1.f, 1,

@@ -1,9 +1,11 @@
 // Shared parts of the tensor-core flash attention kernels (sm_90a): the
 // forward (flash_attention_wgmma.cu) and the backward's bf16 kernels
 // (flash_attention_bwd.cu). PTX wrappers for mbarriers, TMA (tensor and 1-D
-// bulk copies), 128-byte-swizzle shared-memory descriptors and wgmma; on the
-// host, 4-D tensor maps of the model layout [batch, seq, heads, hd], encoded
-// through cudaGetDriverEntryPoint (no -lcuda).
+// bulk copies), 128-byte-swizzle shared-memory descriptors (hd 64 and 128:
+// 64-column boxes) and 32-byte-swizzle ones (hd 80: 16-column boxes, the
+// forward only) and wgmma; on the host, 4-D tensor maps of the model layout
+// [batch, seq, heads, hd], encoded through cudaGetDriverEntryPoint (no
+// -lcuda).
 //
 // Everything sits in an anonymous namespace: each including file gets its
 // own copy, and the two objects link into one library without clashes.
@@ -17,7 +19,7 @@
 
 namespace {
 
-constexpr int kBox = 64;  // columns per TMA box (128 bytes of bf16)
+constexpr int kBox = 64;  // columns per 128-byte-swizzle TMA box (128 bytes of bf16)
 
 // -- PTX wrappers -------------------------------------------------------------
 
@@ -67,6 +69,14 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// The same for a 32-byte-swizzled tile (256-byte aligned atoms of 8 rows x
+// 32 bytes: one k-step of 16 bf16 columns a row).
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -135,6 +145,26 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64x80] (+)= A[64x16] * B[16x80], A from registers, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // D[64x128] (+)= A[64x16] * B[16x128], A from registers, B MN-major (transposed)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                              uint64_t db, int scale_d) {
@@ -163,7 +193,9 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
+  static_assert(N == 64 || N == 80 || N == 128, "wgmma_rs: N is 64, 80 or 128");
   if constexpr (N == 64) wgmma_rs_n64(d, a, db, scale_d);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, db, scale_d);
   else wgmma_rs_n128(d, a, db, scale_d);
 }
 
@@ -238,11 +270,14 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map over a contiguous bf16 [batch, seq, heads, hd]; boxes of kBox
-// columns x 1 head x `rows` x 1 batch, 128-byte swizzle, zero fill past the
-// edges.
+// Tensor map over a contiguous bf16 [batch, seq, heads, hd]; boxes of
+// `box_cols` columns x 1 head x `rows` x 1 batch, zero fill past the edges.
+// A box row (box_cols x 2 bytes) must not be wider than the swizzle span:
+// 64 columns under the 128-byte swizzle (hd 64, 128), 16 under the 32-byte
+// one (hd 80).
 bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int hd,
-              int rows) {
+              int rows, int box_cols = kBox,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
@@ -250,10 +285,11 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, 
   const cuuint64_t row_bytes = static_cast<cuuint64_t>(hd) * 2;
   const cuuint64_t strides[3] = {row_bytes, row_bytes * heads,
                                  row_bytes * heads * static_cast<cuuint64_t>(seq)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBox), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, static_cast<cuuint32_t>(rows),
+                             1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -8,11 +8,14 @@ so no transpose is materialised around them.
 * ``flash_attention_cuda`` — ``csrc/flash_attention.cu``: register-tiled
   f32 products on the CUDA cores (SIMT; ``SIMT_TILE`` query rows a block,
   key tiles of ``SIMT_TILE``, two blocks an SM), f32 or bf16, head dims
-  ``HEAD_DIMS`` (hd 80, HuBERT's, only here: 160-byte bf16 rows are wider
-  than the tensor-core kernel's 128-byte swizzle).
+  ``HEAD_DIMS``.
 * ``flash_attention_wgmma_cuda`` — ``csrc/flash_attention_wgmma.cu``: bf16
   on the tensor cores (wgmma) with K/V streamed by TMA, head dims
-  ``WGMMA_HEAD_DIMS``, Sk > 0, 16-byte aligned tensors.
+  ``WGMMA_HEAD_DIMS``, Sk > 0, 16-byte aligned tensors. hd 64 and 128 take
+  64-column boxes under the 128-byte swizzle; HuBERT's hd 80 (160-byte
+  rows) five 16-column boxes under the 32-byte swizzle
+  (``wgmma_smem_plan``), and only the serve instance (no L: hd 80 has no
+  backward).
 
 Either forward, given ``lse``, launches its instance that also stores each
 row's logsumexp L for the backward ([B*H, lse_rows(Sq)] f32, in the exp2
@@ -22,7 +25,7 @@ domain: L = m·scale·log2(e) + log2(l)); without it, the serve path's.
   dV from the forward's L in four launches: D = rowsum(dO·O); dK, dV as f32
   partial sums over a balanced grid (each key tile's (head, query tile)
   units cut into splits of at most ``BWD_SPLIT_UNITS``); dQ per query tile;
-  the partials added in split order. bf16 at ``WGMMA_HEAD_DIMS`` on the
+  the partials added in split order. bf16 at ``WGMMA_BWD_HEAD_DIMS`` on the
   tensor cores (wgmma + TMA, 16-byte aligned tensors), everything else as
   register-tiled f32 products on the CUDA cores; head dims
   ``BWD_HEAD_DIMS``, Sk > 0.
@@ -36,8 +39,9 @@ import torch
 
 from .. import _build
 
-__all__ = ["HEAD_DIMS", "BWD_HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BLOCK_Q", "WGMMA_BLOCK_K",
-           "SIMT_TILE", "flash_kernel_attrs", "BWD_SPLIT_UNITS", "BWD_KERNELS", "lse_rows",
+__all__ = ["HEAD_DIMS", "BWD_HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BWD_HEAD_DIMS",
+           "WGMMA_BLOCK_Q", "WGMMA_BLOCK_K", "SMEM_PER_BLOCK", "wgmma_smem_plan", "SIMT_TILE",
+           "flash_kernel_attrs", "BWD_SPLIT_UNITS", "BWD_KERNELS", "lse_rows",
            "flash_attention_cuda", "flash_attention_wgmma_cuda",
            "flash_attention_bwd_cuda", "bwd_slots", "wgmma_kernel_attrs",
            "bwd_kernel_attrs"]
@@ -45,11 +49,40 @@ __all__ = ["HEAD_DIMS", "BWD_HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BLOCK_Q", "WG
 # head dims of the forward kernels, and of the backward's (no hd 80 yet)
 HEAD_DIMS = (16, 32, 64, 80, 128)
 BWD_HEAD_DIMS = (16, 32, 64, 128)
-WGMMA_HEAD_DIMS = (64, 128)
+# head dims where bf16 runs on the tensor cores: the forward's, and the
+# backward's (no hd-80 backward: no hd-80 call may reach a tensor-core one)
+WGMMA_HEAD_DIMS = (64, 80, 128)
+WGMMA_BWD_HEAD_DIMS = (64, 128)
 # query rows per block and keys per K/V tile of the tensor-core kernel
 # (kRows, kKeys in csrc/flash_attention_wgmma.cu)
 WGMMA_BLOCK_Q = 128
 WGMMA_BLOCK_K = 128
+# shared memory one block of an H100 may use (232,448 bytes)
+SMEM_PER_BLOCK = 227 * 1024
+# K/V stages of the tensor-core forward by head dim (kStages)
+_WGMMA_STAGES = {64: 3, 80: 3, 128: 2}
+
+
+def wgmma_smem_plan(hd: int) -> dict:
+    """The shared-memory plan of the tensor-core forward at ``hd``, the twin
+    of ``Cfg<HD>`` in ``csrc/flash_attention_wgmma.cu``: a TMA box of
+    ``box_cols`` columns, one row of it ``row_bytes`` wide under a swizzle
+    of ``swizzle_bytes`` (128 where hd is a multiple of 64, else 32: hd
+    80's 160-byte rows), ``boxes`` of them side by side; Q, then ``stages``
+    K/V stages, then the mbarriers, after 1 KiB of slack for the 1024-byte
+    alignment of the base. ``smem_bytes`` is what a block asks for."""
+    if hd not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"wgmma_smem_plan: head dim {hd} not in {WGMMA_HEAD_DIMS}")
+    swizzle = 128 if hd % 64 == 0 else 32
+    box_cols = swizzle // 2
+    stages = _WGMMA_STAGES[hd]
+    q_bytes = WGMMA_BLOCK_Q * hd * 2
+    tile_bytes = WGMMA_BLOCK_K * hd * 2
+    return dict(box_cols=box_cols, row_bytes=box_cols * 2, swizzle_bytes=swizzle,
+                boxes=hd // box_cols, stages=stages, q_bytes=q_bytes, tile_bytes=tile_bytes,
+                smem_bytes=1024 + q_bytes + stages * 2 * tile_bytes + 8 * (1 + 2 * stages))
+
+
 # the tile of the CUDA-core kernels (kTile in csrc/flash_simt.cuh): keys per
 # key tile and rows per query tile in every backward kernel and in the
 # CUDA-core forward; L and D rows are padded to it
@@ -92,7 +125,7 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Launch the tensor-core kernel into ``out`` [B,Sq,H,hd] with scale
     1/sqrt(hd) (and L into ``lse``, if given); the caller has checked
     device, bf16, shapes, contiguity, alignment, hd in ``WGMMA_HEAD_DIMS``
-    and Sk > 0."""
+    (and not 80 with ``lse``) and Sk > 0."""
     lib = _build.load()
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -165,13 +198,14 @@ def wgmma_kernel_attrs(hd: int, windowed: bool, lse: bool = False) -> dict:
     """Registers per thread at launch (setmaxnreg then moves them to the
     consumer warpgroups), spill bytes per thread and shared memory per block
     of the tensor-core forward for ``hd`` (cudaFuncGetAttributes); ``lse``:
-    the instance that stores L (autograd), else the serve path's."""
+    the instance that stores L (autograd; none at hd 80), else the serve
+    path's."""
     return _attrs("repro_flash_attention_wgmma_attrs", hd, int(windowed), int(lse))
 
 
 def bwd_kernel_attrs(kernel: str, hd: int, dtype: torch.dtype) -> dict:
     """The same for one kernel of the backward (``BWD_KERNELS``) that a call
-    in ``dtype`` at ``hd`` launches (bf16 at ``WGMMA_HEAD_DIMS``: the
+    in ``dtype`` at ``hd`` launches (bf16 at ``WGMMA_BWD_HEAD_DIMS``: the
     tensor-core dQ and dK/dV)."""
     return _attrs("repro_flash_attention_bwd_attrs", BWD_KERNELS.index(kernel), hd,
                   _build.DTYPE_CODES[dtype])

@@ -8,14 +8,15 @@ keys, and the first ``n_sink`` keys stay visible to every row after them
 (``ref.py`` states the mask). A CPU tensor takes the plain version; a CUDA
 tensor launches a kernel or raises.
 
-Dispatch on the card, by dtype and shape only: bf16 at hd 64 or 128 goes
-to the tensor-core kernel (``csrc/flash_attention_wgmma.cu``); every other
-call (f32, whose products would run as TF32 on the tensor cores, and bf16
-at the reduced configs' hd 16/32 and HuBERT's hd 80) to the CUDA-core kernel
+Dispatch on the card, by dtype and shape only: bf16 at hd 64, 80 (HuBERT's)
+or 128 goes to the tensor-core kernel (``csrc/flash_attention_wgmma.cu``);
+every other call (f32, whose products would run as TF32 on the tensor
+cores, and bf16 at the reduced configs' hd 16/32) to the CUDA-core kernel
 (``csrc/flash_attention.cu``: register-tiled f32 products, SIMT). The
 tensor-core path raises on what it does not take (a pointer that is not
-16-byte aligned); with Sk = 0 it launches nothing and returns the zero
-rows that the kernel's contract gives.
+16-byte aligned), and nothing falls back to the CUDA-core kernel; with Sk
+= 0 it launches nothing and returns the zero rows that the kernel's
+contract gives.
 ``flash_mha.launches`` counts every forward kernel launch and nothing
 else; ``flash_mha.wgmma_launches`` counts the tensor-core kernel's launches.
 
@@ -25,11 +26,12 @@ kernel, in its instance that also stores each row's logsumexp L (the serve
 path, without grad, keeps the instance without it). It saves q, k, v, the
 output and L; its backward launches ``csrc/flash_attention_bwd.cu`` (D, dK
 and dV over a balanced grid as ordered partial sums, dQ, the partials'
-sum: no atomics). bf16 at hd 64/128 runs its tensor-core kernels (16-byte
-aligned q, k, v, else it raises), every other call its CUDA-core ones; out
-and dout must be 16-byte aligned in every call. A head dim with a forward
-kernel and no backward one (80) is refused with a ValueError when the
-forward is called under autograd, not inside the backward.
+sum: no atomics). bf16 at hd 64/128 (``WGMMA_BWD_HEAD_DIMS``) runs its
+tensor-core kernels (16-byte aligned q, k, v, else it raises), every other
+call its CUDA-core ones; out and dout must be 16-byte aligned in every
+call. A head dim with a forward kernel and no backward one (80) is refused
+with a ValueError when the forward is called under autograd, not inside
+the backward, so no hd-80 call reaches a backward kernel.
 ``flash_mha.bwd_launches`` counts backward calls, each one such launch;
 ``flash_mha.wgmma_bwd_launches`` those that ran the tensor-core kernels. On
 the CPU the plain version's autograd is the backward.
@@ -39,8 +41,9 @@ from __future__ import annotations
 import torch
 
 from .._build import DTYPE_CODES
-from .kernel import (BWD_HEAD_DIMS, HEAD_DIMS, WGMMA_HEAD_DIMS, flash_attention_bwd_cuda,
-                     flash_attention_cuda, flash_attention_wgmma_cuda, lse_rows)
+from .kernel import (BWD_HEAD_DIMS, HEAD_DIMS, WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS,
+                     flash_attention_bwd_cuda, flash_attention_cuda,
+                     flash_attention_wgmma_cuda, lse_rows)
 from .ref import flash_mha_ref
 
 __all__ = ["flash_mha"]
@@ -80,8 +83,10 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, mask)
 
 
-def _tensor_cores(q) -> bool:
-    return q.dtype == torch.bfloat16 and q.shape[3] in WGMMA_HEAD_DIMS
+def _tensor_cores(q, head_dims=WGMMA_HEAD_DIMS) -> bool:
+    """Does a call on q run on the tensor cores (the forward's head dims, or
+    the backward's with ``WGMMA_BWD_HEAD_DIMS``)?"""
+    return q.dtype == torch.bfloat16 and q.shape[3] in head_dims
 
 
 def _check_aligned(*tensors) -> None:
@@ -133,7 +138,7 @@ class _FlashFn(torch.autograd.Function):
         if q.numel() == 0 or k.shape[1] == 0:    # no visible pair: every gradient is 0
             return dq.zero_(), dk.zero_(), dv.zero_(), None
         dout = dout.contiguous()
-        tensor_cores = _tensor_cores(q)
+        tensor_cores = _tensor_cores(q, WGMMA_BWD_HEAD_DIMS)
         _check_aligned(out, dout, *((q, k, v) if tensor_cores else ()))
         causal, window, n_sink = ctx.mask
         flash_attention_bwd_cuda(q, k, v, out, dout, lse, dq, dk, dv, causal=causal,

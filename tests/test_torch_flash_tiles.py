@@ -5,8 +5,11 @@ and the CUDA-core kernel's (``csrc/flash_attention.cu``, ``SIMT_TILE`` x
 ``SIMT_TILE``, P in f32), against the Pallas kernel in interpret mode,
 against JAX's ``attention_ref`` and ``models.attention.attention`` (window
 and sinks), against the plain version, L against ``torch.logsumexp``, and
-the tile-skip predicate against the mask itself. The kernels against the
-emulation on the card are in ``test_torch_kernels_cuda.py``.
+the tile-skip predicate against the mask itself; the dispatch of a call to
+the tensor cores by dtype and head dim, and the tensor-core forward's
+shared-memory plan (``wgmma_smem_plan``, the twin of ``Cfg<HD>``). The
+kernels against the emulation on the card are in
+``test_torch_kernels_cuda.py``.
 """
 import itertools
 import math
@@ -20,7 +23,11 @@ from _torch_common import TOL, close, randn
 from repro.kernels.flash_attention.ops import flash_mha as jax_flash_mha
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.models.attention import attention as jax_attention
-from repro_torch.kernels.flash_attention.kernel import SIMT_TILE, WGMMA_BLOCK_K, WGMMA_BLOCK_Q
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, SIMT_TILE, SMEM_PER_BLOCK,
+                                                        WGMMA_BLOCK_K, WGMMA_BLOCK_Q,
+                                                        WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS,
+                                                        wgmma_smem_plan)
 from repro_torch.kernels.flash_attention.ref import (NEG, flash_mha_ref, flash_mha_tiled,
                                                      tile_visited, visible)
 
@@ -44,6 +51,7 @@ def _inputs(B, Sq, Sk, H, KV, hd, dt, seed):
     (1, 128, 2, 2, 64),       # MHA
     (2, 256, 6, 2, 128),      # GQA 3:1 at qwen2's head dim
     (1, 256, 5, 1, 64),       # MQA
+    (1, 256, 4, 4, 80),       # HuBERT's head dim: five 16-column k-steps
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -194,3 +202,54 @@ def test_simt_tiled_lse_vs_logsumexp(Sq, Sk, causal, window, n_sink):
     close(out, flash_mha_ref(q, k, v, **kw), TOL["flash_f32"])
     if causal and window and not n_sink and Sq > Sk:
         assert empty.any()          # the case holds rows that see no key
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_tensor_core_tiles_at_hd80_ragged_vs_attention_ref(dt):
+    """HuBERT's pattern (non-causal, MHA, hd 80) at a ragged Sq = Sk = 300:
+    the tensor-core kernel's tile loop (128 x 128, P rounded to the input
+    dtype before P·V) against JAX's ``attention_ref``. f32: only sum order
+    differs (2e-5); bf16: P and the output rounded to bf16 (3e-2)."""
+    (qj, kj, vj), (qt, kt, vt) = _inputs(2, 300, 300, 4, 4, 80, dt, 80)
+    got = flash_mha_tiled(qt, kt, vt, causal=False)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    close(got, _attention_ref(qj, kj, vj, False), TOL[f"flash_{dt}"])
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_tensor_core_route_by_dtype_and_head_dim(hd, dt):
+    """The wrapper's route: a bf16 forward at hd 64, 80 or 128 runs on the
+    tensor cores, f32 never does; the backward's tensor-core head dims lack
+    80 (hd 80 has no backward kernel)."""
+    q = torch.empty((1, 1, 1, hd), dtype=_TDT[dt])
+    assert WGMMA_HEAD_DIMS == (64, 80, 128) and WGMMA_BWD_HEAD_DIMS == (64, 128)
+    assert flash_ops._tensor_cores(q) == (dt == "bf16" and hd in (64, 80, 128))
+    assert flash_ops._tensor_cores(q, WGMMA_BWD_HEAD_DIMS) == (dt == "bf16"
+                                                               and hd in (64, 128))
+
+
+@pytest.mark.parametrize("hd", WGMMA_HEAD_DIMS)
+def test_wgmma_smem_plan_invariants(hd):
+    """The tensor-core forward's shared-memory plan: the boxes tile hd
+    exactly (hd 80 is not padded to 128), a box row fits its swizzle span,
+    the 32-byte swizzle only where 160-byte rows rule out the 128-byte one,
+    and one block's shared memory fits the card's 227 KiB."""
+    p = wgmma_smem_plan(hd)
+    assert p["boxes"] * p["box_cols"] == hd
+    assert p["row_bytes"] == 2 * p["box_cols"] <= p["swizzle_bytes"]
+    assert p["swizzle_bytes"] == (128 if hd % 64 == 0 else 32)
+    assert p["q_bytes"] == WGMMA_BLOCK_Q * hd * 2 and p["tile_bytes"] == WGMMA_BLOCK_K * hd * 2
+    # every box (Q: 128 rows, K/V: 128 keys) starts on a 256-byte swizzle atom
+    assert (WGMMA_BLOCK_Q * p["row_bytes"]) % 256 == 0 and p["tile_bytes"] % 1024 == 0
+    assert p["smem_bytes"] == (1024 + p["q_bytes"] + 2 * p["stages"] * p["tile_bytes"]
+                               + 8 * (1 + 2 * p["stages"])) <= SMEM_PER_BLOCK
+    if hd == 80:
+        assert (p["box_cols"], p["boxes"], p["stages"]) == (16, 5, 3)
+        assert p["smem_bytes"] == 144440
+
+
+def test_wgmma_smem_plan_refuses_other_head_dims():
+    for hd in (16, 32, 96):
+        with pytest.raises(ValueError, match="head dim"):
+            wgmma_smem_plan(hd)

@@ -13,11 +13,12 @@ from _torch_common import (RMS_PLAN_GRID, TOL, close, hw_param_matrix, randn,
                            random_task_arrays, require_sm90)
 from repro_torch.core.vectorized import from_tasks, task_tensors
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.kernel import (SIMT_TILE, WGMMA_HEAD_DIMS,
+from repro_torch.kernels.flash_attention.kernel import (SIMT_TILE, SMEM_PER_BLOCK,
+                                                        WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS,
                                                         bwd_slots, flash_attention_cuda,
                                                         flash_attention_wgmma_cuda,
                                                         flash_kernel_attrs, lse_rows,
-                                                        wgmma_kernel_attrs)
+                                                        wgmma_kernel_attrs, wgmma_smem_plan)
 from repro_torch.kernels.flash_attention.kernel import bwd_kernel_attrs as flash_bwd_attrs
 from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.flash_attention.ref import (bwd_split_plan, flash_mha_bwd_ref,
@@ -149,7 +150,7 @@ def test_rmsnorm_c_plan_is_the_python_plan():
 
 def _flash_launched(q, k, v, **kw):
     """flash_mha(q, k, v, **kw) and the rise of (launches, wgmma_launches):
-    bf16 at hd 64/128 with a key is one tensor-core launch, Sk = 0 there
+    bf16 at hd 64/80/128 with a key is one tensor-core launch, Sk = 0 there
     none, anything else one CUDA-core (SIMT) launch."""
     before = flash_mha.launches, flash_mha.wgmma_launches
     got = flash_mha(q, k, v, **kw)
@@ -246,6 +247,14 @@ def test_flash_window_sink_cuda_vs_plain(B, S, H, KV, hd, window, n_sink, dt, mo
     (1, 700, 700, 25, 5, 64, True, 256, 128),    # hymba heads, skipped tiles
     (2, 333, 517, 6, 2, 128, True, 0, 0),
     (2, 300, 300, 4, 1, 64, False, 0, 0),
+    # hd 80 (five 16-column boxes under the 32-byte swizzle): HuBERT's heads
+    # (MHA, non-causal, ragged tiles), causal GQA with Sq < Sk, window and
+    # sinks, Sq > Sk MQA, and no key at all (no launch, rows come out 0)
+    (2, 1500, 1500, 16, 16, 80, False, 0, 0),
+    (2, 333, 517, 6, 2, 80, True, 0, 0),
+    (1, 300, 300, 4, 2, 80, True, 100, 7),
+    (1, 517, 77, 4, 1, 80, False, 0, 0),
+    (1, 5, 0, 2, 1, 80, False, 0, 0),
 ])
 def test_flash_wgmma_vs_tiled_emulation(B, Sq, Sk, H, KV, hd, causal, window, n_sink,
                                         monkeypatch):
@@ -262,6 +271,32 @@ def test_flash_wgmma_vs_tiled_emulation(B, Sq, Sk, H, KV, hd, causal, window, n_
     want = flash_mha_tiled(q, k, v, **kw)
     _no_plain(monkeypatch)
     close(_flash_launched(q, k, v, **kw), want, 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", WGMMA_HEAD_DIMS)
+def test_flash_wgmma_c_plan_is_the_python_plan(hd):
+    """Shared memory per block of each serve instance of the tensor-core
+    forward (windowed and not) is ``wgmma_smem_plan(hd)``'s, the twin of
+    ``Cfg<HD>``."""
+    require_sm90()
+    for windowed in (False, True):
+        assert wgmma_kernel_attrs(hd, windowed)["smem_bytes"] == \
+            wgmma_smem_plan(hd)["smem_bytes"]
+
+
+@pytest.mark.gpu
+def test_flash_wgmma_hd80_attrs():
+    """The hd-80 serve instances (32-byte swizzle, 3 stages): no spill,
+    and shared memory within the 227 KiB a block may use; the instance that
+    stores L is not built (hd 80 has no backward), so asking for it raises."""
+    require_sm90()
+    for windowed in (False, True):
+        a = wgmma_kernel_attrs(80, windowed)
+        assert a["spill_bytes"] == 0 and 0 < a["registers"] <= 255, a
+        assert 140 * 1024 <= a["smem_bytes"] <= SMEM_PER_BLOCK, a
+        with pytest.raises(RuntimeError):
+            wgmma_kernel_attrs(80, windowed, lse=True)
 
 
 @pytest.mark.gpu
@@ -305,14 +340,12 @@ def _rows_without_keys(Sq, Sk, causal, window, n_sink):
     (2, 130, 130, 8, 2, 16, True, 0, 0, "bf16"),         # reduced configs' hd
     (2, 300, 300, 4, 2, 32, True, 100, 7, "bf16"),
     (1, 77, 300, 5, 1, 32, False, 0, 0, "bf16"),
-    # hd 80 (HuBERT: 16 heads, MHA, non-causal): every column of the five
-    # a thread owns, staged in a partial last group of loads
+    # hd 80 in f32 (HuBERT: 16 heads, MHA, non-causal): every column of the
+    # five a thread owns, staged in a partial last group of loads (bf16 at
+    # hd 80 runs the tensor-core kernel: test_flash_wgmma_vs_tiled_emulation)
     (2, 1500, 1500, 16, 16, 80, False, 0, 0, "f32"),
-    (2, 1500, 1500, 16, 16, 80, False, 0, 0, "bf16"),
     (2, 333, 517, 6, 2, 80, True, 0, 0, "f32"),          # causal, ragged, GQA
-    (1, 517, 77, 4, 1, 80, False, 0, 0, "bf16"),         # Sq > Sk, MQA
     (1, 300, 300, 4, 2, 80, True, 100, 7, "f32"),        # window and sinks
-    (1, 5, 0, 2, 1, 80, False, 0, 0, "bf16"),            # no key at all
 ])
 def test_flash_simt_vs_tiled_emulation(B, Sq, Sk, H, KV, hd, causal, window, n_sink, dt,
                                        monkeypatch):
@@ -360,7 +393,10 @@ def test_flash_forward_simt_attrs(hd, dt):
 def test_flash_simt_reads_misaligned_inputs(dt, hd, monkeypatch):
     """Contiguous q, k, v that do not start on 16 bytes: the CUDA-core
     kernel stages them element by element (its 16-byte loads need aligned
-    rows) and writes what the aligned call writes, bit for bit."""
+    rows) and writes what the aligned call writes, bit for bit. bf16 at hd
+    80 runs on the tensor cores (TMA needs 16-byte aligned tensors): the
+    wrapper raises before any launch, and nothing falls back to the
+    CUDA-core kernel."""
     require_sm90()
     shapes = ((2, 200, 4, hd), (2, 200, 2, hd), (2, 200, 2, hd))
     mis = []
@@ -372,6 +408,12 @@ def test_flash_simt_reads_misaligned_inputs(dt, hd, monkeypatch):
     aligned = [t.clone() for t in mis]
     _no_plain(monkeypatch)
     for kw in (dict(causal=True), dict(causal=True, window=50, n_sink=3)):
+        if _TDT[dt] == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+            before = flash_mha.launches, flash_mha.wgmma_launches
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                flash_mha(*mis, **kw)
+            assert (flash_mha.launches, flash_mha.wgmma_launches) == before
+            continue
         assert torch.equal(_flash_launched(*mis, **kw), _flash_launched(*aligned, **kw))
 
 
@@ -609,7 +651,8 @@ _FLASH_BWD_CASES = [
 def _flash_bwd_launched(q, k, v, do, kw):
     """Forward and backward through the wrapper; the rise of the counts
     (launches, wgmma_launches, bwd_launches, wgmma_bwd_launches) must be one
-    forward and one backward, on the tensor cores for bf16 at hd 64/128."""
+    forward and one backward, on the tensor cores for bf16 at hd 64/128
+    (``WGMMA_BWD_HEAD_DIMS``)."""
     qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
     names = ("launches", "wgmma_launches", "bwd_launches", "wgmma_bwd_launches")
     before = [getattr(flash_mha, n) for n in names]
@@ -617,7 +660,7 @@ def _flash_bwd_launched(q, k, v, do, kw):
     assert out.grad_fn is not None
     out.backward(do)
     torch.cuda.synchronize()
-    tc = int(q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS)
+    tc = int(q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_BWD_HEAD_DIMS)
     assert [getattr(flash_mha, n) - b for n, b in zip(names, before)] == [1, tc, 1, tc]
     return out, (qr.grad, kr.grad, vr.grad)
 
@@ -648,7 +691,7 @@ def test_flash_backward_cuda_vs_plain(B, S, H, KV, hd, causal, window, n_sink, d
     # the emulation of the kernels on the same inputs: f32 up to sum order;
     # bf16 with P and dS rounded as the kernels round them (tensor_cores on
     # the tensor-core path), within the bf16 limit of the f32 gradient
-    tc = dt == "bf16" and hd in WGMMA_HEAD_DIMS
+    tc = dt == "bf16" and hd in WGMMA_BWD_HEAD_DIMS
     twin = flash_mha_bwd_tiled(q, k, v, out.detach(), do, tensor_cores=tc, **kw)
     for got, w in zip(grads, twin):
         if dt == "f32":
@@ -702,7 +745,7 @@ def test_flash_forward_lse_instance(B, S, H, KV, hd, causal, window, n_sink, dt)
     k = torch.from_numpy(randn(7, (B, S, KV, hd))).to("cuda", _TDT[dt])
     v = torch.from_numpy(randn(8, (B, S, KV, hd))).to("cuda", _TDT[dt])
     kw = dict(causal=causal, window=window, n_sink=n_sink)
-    tc = dt == "bf16" and hd in WGMMA_HEAD_DIMS
+    tc = dt == "bf16" and hd in WGMMA_BWD_HEAD_DIMS
     launch = flash_attention_wgmma_cuda if tc else flash_attention_cuda
     plain, with_l = torch.empty_like(q), torch.empty_like(q)
     lse = torch.full((B * H, lse_rows(S)), float("nan"), device="cuda")
@@ -737,9 +780,9 @@ def test_flash_backward_kernel_attrs(hd, dt):
     for kernel in ("dq", "dkdv", "delta", "finalize"):
         a = flash_bwd_attrs(kernel, hd, _TDT[dt])
         assert a["registers"] > 0
-        if dt == "bf16" and hd in WGMMA_HEAD_DIMS and kernel in ("dq", "dkdv"):
+        if dt == "bf16" and hd in WGMMA_BWD_HEAD_DIMS and kernel in ("dq", "dkdv"):
             assert a["spill_bytes"] == 0 and a["smem_bytes"] > 48 * 1024, a
-    if dt == "bf16" and hd in WGMMA_HEAD_DIMS:
+    if dt == "bf16" and hd in WGMMA_BWD_HEAD_DIMS:
         for windowed in (False, True):
             assert (wgmma_kernel_attrs(hd, windowed, lse=True)["spill_bytes"]
                     == wgmma_kernel_attrs(hd, windowed)["spill_bytes"] == 0)
