@@ -67,13 +67,6 @@ constexpr int kThreads = 128 * (kWarpgroups + 1);  // + one producer warpgroup
 constexpr float kNeg = -1e30f;
 constexpr int kLseAlign = 64;                     // lse rows padded to this (the backward's tile)
 
-// hd 80's stage count: 3 stages (141 KiB) or 4 (181 KiB) fit one block an
-// SM; flash_attention/stage_race.py builds the kernel with each and times
-// both (3 was 1% faster at HuBERT's shape on the H100: PERF.md §6)
-#ifndef FA_HD80_STAGES
-#define FA_HD80_STAGES 3
-#endif
-
 // The shared-memory plan of the instance at HD (Python twin:
 // kernel.py::wgmma_smem_plan). A box row is kRowBytes wide: 128 bytes (64
 // columns, 128-byte swizzle) where hd is a multiple of 64, else 32 bytes
@@ -86,7 +79,9 @@ struct Cfg {
   static constexpr int kAtomBytes = 8 * kRowBytes;  // 8 box rows: one swizzle atom
   static constexpr int kSteps = kRowBytes / 32;     // k-steps of 16 columns a box row
   static constexpr int kBoxes = HD / kBoxCols;
-  static constexpr int kStages = HD == 64 ? 3 : HD == 80 ? FA_HD80_STAGES : 2;
+  // K/V stages: hd 80 takes 3 (141 KiB; 4 stages, 181 KiB, measured 1% slower
+  // at HuBERT's shape on the H100: PERF.md §6)
+  static constexpr int kStages = HD == 128 ? 2 : 3;
   static constexpr int kQBytes = kRows * HD * 2;
   static constexpr int kTileBytes = kKeys * HD * 2;  // one K or one V tile
   static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
