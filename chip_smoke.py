@@ -3,7 +3,7 @@
 
   python3 chip_smoke.py
 
-Eight main paths are driven: the campaign prescreen of the builtin
+These main paths are driven: the campaign prescreen of the builtin
 lm_full_pod campaign (qwen3-32b, 72 cells x 192 parameter vectors);
 serving, each at full width and full depth, the dense decoder qwen2-1.5b,
 the hybrid hymba-1.5b (attention and Mamba heads, sliding window with
@@ -12,7 +12,10 @@ bf16) and the xLSTM xlstm-125m (mLSTM and sLSTM cells); the VLM
 llama-3.2-vision-90b at full width and 4 of its 20 groups (gated
 cross-attention over 1024 image tokens, nested groups); the audio encoder
 hubert-xlarge at full width and depth (non-causal, head dim 80); training
-qwen2-1.5b; and training hymba-1.5b, both at full width and depth. Phases, each of which fails the run (non-zero exit, no result line):
+qwen2-1.5b, hymba-1.5b, hubert-xlarge and xlstm-125m, each at full width
+and depth, qwen3-moe-30b-a3b at full width and 4 of its 48 layers, and the
+VLM's train step at its reduced() width. Phases, each of which fails the
+run (non-zero exit, no result line):
 
   1. card   — name and power limit from nvidia-smi;
   2. build  — one nvcc per CUDA source, all started together, and one link
@@ -80,7 +83,8 @@ qwen2-1.5b; and training hymba-1.5b, both at full width and depth. Phases, each 
      encode of hubert-xlarge, with the top kernels and flash attention's
      share of the device time (torch.profiler);
   7. train  — the backward kernels (rmsnorm: dx, dw; flash attention: dQ,
-     dK, dV; bf16 at hd 64/128 on the tensor cores) at the train shapes
+     dK, dV; bf16 at hd 64/128 on the tensor cores; HuBERT's hd 80 and the
+     VLM's self and cross heads among the shapes) at the train shapes
      through the wrappers' autograd, against the plain versions' autograd
      on the card (bf16 flash against the plain backward in f32 of the same
      inputs, each gradient within a share of its max, beside the readings
@@ -110,18 +114,36 @@ qwen2-1.5b; and training hymba-1.5b, both at full width and depth. Phases, each 
      them), ms per step, peak memory, one profiled step; then the step at
      full width and 4 layers, kernels vs plain, whose check a plain
      backward with da x 1.1 in the scan must fail;
+  7c. audio train — launch/train.py::train for hubert-xlarge at full width
+     and depth, B 4 x T 1500, remat "full": 4 f32 steps and 3 bf16 steps
+     with exact counts (bf16: every flash forward on the tensor cores, every
+     backward on the CUDA cores), one profiled step of each; the step at 4
+     layers kernels vs plain, whose check dK x 1.1 must fail;
+  7d. xLSTM train — xlstm-125m at full width and depth, f32, B 4, S 1024,
+     4 steps with exact rmsnorm counts, one profiled step; kernels vs plain
+     at full depth and S 8, 16, 32 and 64, held to limits stated from
+     step_rounding.py's ulp controls (at S 1024 rounding alone moves the
+     gradient as far as a wrong backward), which rmsnorm's dx x 1.1 must
+     fail;
+  7e. MoE train — qwen3-moe-30b-a3b at full width and 4 of 48 layers, f32,
+     B 4, S 1024, 3 steps with exact counts; kernels vs plain at 2 layers
+     and B 1 (dK x 1.1 must fail);
+  7f. VLM train — llama-3.2-vision-90b's step at its reduced() width
+     (gates opened), kernels vs plain (dK x 1.1 must fail): one group at
+     full width holds ~102 GB of f32 train state, more than one card;
   8. cli    — python -m repro_torch.sweep run on a golden slice's spec on the
      card (a subprocess): its frozen records must equal the fixture.
 
 The line before the last is a JSON object {"kernels": [...]} (list_schedule,
 which replaces the prescreen's XLA program and no Pallas kernel, the
-dense train path's rows in f32 and bf16 and the hybrid train path's in f32,
-the backward kernels among them); the
+train paths' rows: dense and HuBERT in f32 and bf16, the hybrid and xLSTM
+in f32, the backward kernels among them); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
 >= 9.0 and nvcc; exits 1 without them.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -153,8 +175,10 @@ BWD_TOL = {("rmsnorm", "float32"): 1e-4, ("rmsnorm", "bfloat16"): 3e-2,
 # P); a dQ 10% off or a dS without D reads far above it (both are shown)
 BWD_FLASH_BF16 = 2e-2
 # the 4-layer train step, kernels vs plain: each leaf's first AdamW moment
-# (0.1 x its clipped gradient) within this share of the leaf's max
+# (0.1 x its clipped gradient) within this share of the leaf's max; the
+# step's peak learning rate
 STEP_GRAD_TOL = 1e-4
+STEP_LR = 3e-4
 DENSE, HYBRID, MOE, CAMPAIGN = "qwen2-1.5b", "hymba-1.5b", "qwen3-moe-30b-a3b", "lm_full_pod"
 XLSTM, VLM, AUDIO = "xlstm-125m", "llama-3.2-vision-90b", "hubert-xlarge"
 TRAIN = dict(arch=DENSE, steps=4, batch=4, seq=1024, bf16_steps=3, check_layers=4)
@@ -162,6 +186,25 @@ TRAIN = dict(arch=DENSE, steps=4, batch=4, seq=1024, bf16_steps=3, check_layers=
 # 4 layers, a global-attention layer at each end and two windowed ones
 HYBRID_TRAIN = dict(arch=HYBRID, steps=4, batch=4, seq=1024,
                     check=dict(n_layers=4, global_attn_layers=(0, 3)))
+# HuBERT training: full width and depth, B 4 x T 1500 (phase 5's encode
+# shape), f32 then bf16; the kernels-vs-plain step at 4 layers
+AUDIO_TRAIN = dict(steps=4, bf16_steps=3, batch=4, seq=1500, check=dict(n_layers=4))
+# xLSTM training: full width and depth, f32. Its f32 gradient is
+# ill-conditioned at full width: on the H100, step_rounding.py's controls
+# (the plain step with rmsnorm's output and input gradient moved by one ulp,
+# 8 seeds) move a leaf's first moment by up to 1.264e-3 of its max and the
+# grad norm by up to 1.68e-4 at S 8-64, 3.5e-2 at S 256 and 1.25 at S 1024,
+# where they pass a wrong backward (0.76). So kernels vs plain runs at full
+# depth and each S of 8-64, held to twice those largest readings (PERF.md §6)
+XLSTM_TRAIN = dict(steps=4, batch=4, seq=1024, check_seqs=(8, 16, 32, 64),
+                   grad_tol=2.5e-3, norm_tol=3.5e-4)
+# qwen3-moe training: full width, 4 of 48 layers (~50 GB of f32 train state)
+# at B 4 x S 1024: the dense oracle's intermediates grow with the tokens, but
+# a step's peak, 58.1 GiB at B 2, 3 and 4 alike on the H100, comes after
+# them; kernels vs plain at 2 layers and B 1, the plain step's state beside
+# the kernel step's (~60 GB)
+MOE_TRAIN = dict(steps=3, batch=4, seq=1024, layers=4,
+                 check=dict(n_layers=2), check_batch=1)
 # the ssm_scan backward's main shape: hymba's train step, [B, S + meta, di * n]
 SCAN_MAIN = (4, 1152, 51200)
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
@@ -229,6 +272,13 @@ FWD_HD80_SHARE = 2e-2
 VLM_FA = [(4, 1024, 1024, 64, 8, 128, True, 0, 0), (4, 1024, 1024, 64, 8, 128, False, 0, 0),
           (4, 1, 1024, 64, 8, 128, False, 0, 0)]
 CARD_BYTES = 80e9                          # the serve runs must fit one 80 GB card
+# the flash backward's train shapes, ((B, S, H, KV, hd, window, n_sink),
+# causal): qwen2; hymba's window and sinks; HuBERT (hd 80, non-causal); the
+# VLM's self (causal) and cross (Sq 1024 over its 1024 image tokens) heads
+QWEN_BWD, HYMBA_BWD = (4, 1024, 12, 2, 128, 0, 0), (4, 1152, 25, 5, 64, 1024, 128)
+HUBERT_BWD, VLM_BWD = (4, 1500, 16, 16, 80, 0, 0), (4, 1024, 64, 8, 128, 0, 0)
+FLASH_BWD_CASES = [(QWEN_BWD, True), (HYMBA_BWD, True), (HUBERT_BWD, False), (VLM_BWD, True),
+                   (VLM_BWD, False)]
 
 
 def log(msg: str) -> None:
@@ -1572,10 +1622,12 @@ def train_kernels(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
-        WGMMA_BWD_HEAD_DIMS, bwd_kernel_attrs, flash_attention_bwd_cuda, flash_attention_cuda,
-        flash_attention_wgmma_cuda, flash_kernel_attrs, lse_rows, wgmma_kernel_attrs)
+        WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS, bwd_kernel_attrs, flash_attention_bwd_cuda,
+        flash_attention_cuda, flash_attention_wgmma_cuda, flash_kernel_attrs, lse_rows,
+        wgmma_kernel_attrs)
     from repro_torch.kernels.flash_attention.ops import flash_mha
-    from repro_torch.kernels.flash_attention.ref import flash_mha_bwd_ref, flash_mha_ref
+    from repro_torch.kernels.flash_attention.ref import (flash_mha_bwd_ref, flash_mha_bwd_tiled,
+                                                         flash_mha_ref)
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import BWD_VARIANTS, rmsnorm_bwd_ref, rmsnorm_ref
@@ -1594,8 +1646,10 @@ def train_kernels(torch):
 
     log("[train] rmsnorm backward vs plain (dx, dw)")
     # qwen2 at B 4, S 1024: ln1/ln2/final rows, and the [B*S*H, hd] rows of
-    # a qk-norm model; hymba at B 4, S 1024 + 128 meta tokens
-    for shape in ((4 * 1024, 1536), (4 * 1024 * 12, 128), (4 * 1152, 1600)):
+    # a qk-norm model; hymba at B 4, S 1024 + 128 meta tokens; HuBERT at B 4,
+    # T 1500; xlstm-125m at B 4, S 1024
+    for shape in ((4 * 1024, 1536), (4 * 1024 * 12, 128), (4 * 1152, 1600), (4 * 1500, 1280),
+                  (4 * 1024, 768)):
         for dt in (torch.float32, torch.bfloat16):
             dn = str(dt).split(".")[1]
             x, w, g = randn(shape, dt), randn(shape[-1:], dt, 0.1, 1.0), randn(shape, dt)
@@ -1648,16 +1702,18 @@ def train_kernels(torch):
             del x, w, g, xr, wr, xp, wp, yl, dx, dw, want, first
 
     log("[train] flash attention backward vs plain (dQ, dK, dV)")
-    # (B, S, H, KV, hd, window, n_sink): qwen2 causal; hymba's window and sinks
-    cases = [((4, 1024, 12, 2, 128, 0, 0), (torch.float32, torch.bfloat16)),
-             ((4, 1152, 25, 5, 64, 1024, 128), (torch.float32, torch.bfloat16))]
+    # (B, S, H, KV, hd, window, n_sink), causal: qwen2; hymba's window and
+    # sinks; HuBERT's non-causal hd 80 (the CUDA-core backward in both
+    # dtypes, its bf16 forward on the tensor cores); the VLM's self and cross
+    # attention at full width (text queries over its 1024 image tokens)
     names = ("launches", "wgmma_launches", "bwd_launches", "wgmma_bwd_launches")
-    for case, dts in cases:
+    for case, causal in FLASH_BWD_CASES:
         B, S, H, KV, hd, win, ns = case
-        kw = dict(causal=True, window=win, n_sink=ns)
-        for dt in dts:
+        kw = dict(causal=causal, window=win, n_sink=ns)
+        for dt in (torch.float32, torch.bfloat16):
             dn = str(dt).split(".")[1]
             tc = dt == torch.bfloat16 and hd in WGMMA_BWD_HEAD_DIMS
+            tc_fwd = dt == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
             q, k, v = randn((B, S, H, hd), dt), randn((B, S, KV, hd), dt), randn((B, S, KV, hd), dt)
             do = randn((B, S, H, hd), dt)
             qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -1665,9 +1721,10 @@ def train_kernels(torch):
             out = flash_mha(qr, kr, vr, **kw)
             out.backward(do)
             rose = [getattr(flash_mha, n) - b for n, b in zip(names, before)]
-            if rose != [1, int(tc), 1, int(tc)]:
+            if rose != [1, int(tc_fwd), 1, int(tc)]:
                 raise AssertionError(f"flash {case} {dn}: counts {names} rose by {rose}")
-            name = f"flash_bwd B={B} S={S} H={H} KV={KV} hd={hd} window={win} sinks={ns} {dn}"
+            name = (f"flash_bwd B={B} S={S} H={H} KV={KV} hd={hd} "
+                    f"{'causal' if causal else 'full'} window={win} sinks={ns} {dn}")
             grads = (qr.grad, kr.grad, vr.grad)
             if dt == torch.float32:
                 want = flash_mha_bwd_ref(q, k, v, do, **kw)
@@ -1676,13 +1733,27 @@ def train_kernels(torch):
                 del want
             else:
                 err = _flash_bf16_check(torch, name, (q, k, v, do), kw, grads)
+            if hd == 80:
+                # the new hd-80 kernels against their twin on the same output
+                # (P and dS in f32, as on the CUDA cores)
+                twin = flash_mha_bwd_tiled(q, k, v, out.detach(), do, tensor_cores=False, **kw)
+                for g, got, w in zip(("dQ", "dK", "dV"), grads, twin):
+                    if dt == torch.float32:
+                        compare(f"{name} {g} vs its tile twin", got, w, BWD_TOL[("flash", dn)])
+                        continue
+                    share = float((got.float() - w.float()).abs().max() / w.float().abs().max())
+                    log(f"  {name} {g} vs its tile twin: max|err| / max|want| {share:.3e} "
+                        f"(limit {BWD_FLASH_BF16:g}) {'ok' if share <= BWD_FLASH_BF16 else 'FAIL'}")
+                    if share > BWD_FLASH_BF16:
+                        raise AssertionError(f"{name} {g}: kernel disagrees with its tile twin")
+                del twin
             first = tuple(t.clone() for t in grads)
             qr.grad = kr.grad = vr.grad = None
             flash_mha(qr, kr, vr, **kw).backward(do)
             same_bits(name, first, (qr.grad, kr.grad, vr.grad))
             # the forward under autograd (stores L) and the serve instance,
             # then the backward, each alone
-            fwd = flash_attention_wgmma_cuda if tc else flash_attention_cuda
+            fwd = flash_attention_wgmma_cuda if tc_fwd else flash_attention_cuda
             o, o2 = torch.empty_like(q), torch.empty_like(q)
             lse = torch.empty((B * H, lse_rows(S)), dtype=torch.float32, device="cuda")
             fwd_ms = timer(lambda: fwd(q, k, v, o, lse=lse, **kw))
@@ -1712,20 +1783,22 @@ def train_kernels(torch):
                 mask = (c <= r) & ((c > r - win) | (c < ns))
                 yl = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
             else:
-                yl = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+                yl = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                    enable_gqa=True)
             lib = _bwd_time(torch, timer, yl, (qt, kt, vt), do.transpose(1, 2).contiguous())
             peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
-            bound, by, byts, ops = flash_bwd_bound(B, S, H, KV, hd, True, q.element_size(),
+            bound, by, byts, ops = flash_bwd_bound(B, S, H, KV, hd, causal, q.element_size(),
                                                    peak, win, ns)
-            prev = BEFORE_MS[("flash_attention_bwd", case, dn)]
-            prev_fwd = BEFORE_MS[("flash_attention_fwd", case, dn)]
+            prev = BEFORE_MS.get(("flash_attention_bwd", case, dn))
+            prev_fwd = BEFORE_MS.get(("flash_attention_fwd", case, dn))
             attrs = {kn: bwd_kernel_attrs(kn, hd, dt) for kn in ("dkdv", "dq")}
             log(f"    {'tensor-core (wgmma)' if tc else 'CUDA-core (SIMT)'} kernels: dK/dV "
                 f"{_attrs_str(attrs['dkdv'])}; dQ {_attrs_str(attrs['dq'])}"
                 + "; forward that stores L "
-                + _attrs_str(wgmma_kernel_attrs(hd, win > 0, True) if tc
-                             else flash_kernel_attrs(hd, dt, True)))
-            log(f"    backward {ms:.3f} ms (before: {prev:.3f} ms, {prev / ms:.1f}x) | bound "
+                + ("(wgmma) " + _attrs_str(wgmma_kernel_attrs(hd, win > 0, True)) if tc_fwd
+                   else "(SIMT) " + _attrs_str(flash_kernel_attrs(hd, dt, True))))
+            log(f"    backward {ms:.3f} ms"
+                + (f" (before: {prev:.3f} ms, {prev / ms:.1f}x)" if prev else "") + " | bound "
                 f"{bound * 1e3:.2f} us ({by}: the function's 5 products, {byts / 1e6:.2f} MB, "
                 f"{ops / 1e9:.2f} GFLOP at {peak / 1e12:g} TFLOP/s; the kernels compute 7, "
                 f"{ops * 1.4 / 1e9:.2f} GFLOP, {bound * 1.4e3:.2f} us) | plain backward "
@@ -1733,13 +1806,13 @@ def train_kernels(torch):
                 f"{100 * bound / ms:.1f}% of its bound, kernel/SDPA {ms / lib:.2f}x")
             log(f"    backward by kernel (profiler, L2 warm): {split}")
             prev_serve = BEFORE_MS.get(("flash_attention_fwd_serve",
-                                        (B, S, S, H, KV, hd, True, win, ns), dn))
+                                        (B, S, S, H, KV, hd, causal, win, ns), dn))
             log(f"    forward under autograd (stores L) {fwd_ms:.3f} ms, serve instance "
-                f"{serve_ms:.3f} ms (before, the forward under autograd: {prev_fwd:.3f} ms"
-                + (f"; the serve instance: {prev_serve:.3f} ms" if prev_serve else "")
-                + f") | forward + backward {fwd_ms + ms:.3f} ms (before: "
-                f"{prev_fwd + prev:.3f} ms)")
-            rows[("flash_attention_bwd", case, dn)] = dict(
+                f"{serve_ms:.3f} ms, the same bits | forward + backward {fwd_ms + ms:.3f} ms"
+                + (f" (before: the forward under autograd {prev_fwd:.3f} ms"
+                   + (f", the serve instance {prev_serve:.3f} ms" if prev_serve else "")
+                   + f"; forward + backward {prev_fwd + prev:.3f} ms)" if prev_fwd else ""))
+            rows[("flash_attention_bwd", case + (causal,), dn)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=lib, forward_autograd_ms=fwd_ms, forward_serve_ms=serve_ms,
                 **{f"{kn}_{key}": val for kn, a in attrs.items() for key, val in a.items()})
@@ -1847,25 +1920,22 @@ def _check_run(history, what):
         raise AssertionError(f"{what}: the loss did not change from step 1 to step 2")
 
 
-def phase_train(torch):
-    """The train path at full width: launch/train.py::train for qwen2-1.5b,
-    f32 (the launcher's default), remat "full", B 4, S 1024, 4 steps, with
-    every kernel's count zeroed just before and read just after; then one
-    profiled step; then 3 bf16 steps with the same exact counts, whose flash
-    forwards and backwards must all be tensor-core launches, and one
-    profiled bf16 step. Returns the two runs' launches and their numbers."""
+def _train_full(torch, arch, per_step, steps, B, S, dtype, rule, layers=None):
+    """launch/train.py::train for ``arch`` (remat "full"; ``layers``: its
+    depth cut to that many layers), every kernel's count zeroed just before
+    and held to ``per_step`` x steps just after (a kernel it leaves out must
+    not launch); the losses, grad norms, ms per step and peak memory are
+    logged. Returns the trained state and the run's launches and
+    numbers."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
 
-    cfg = get_config(TRAIN["arch"])
-    L, steps = cfg.n_layers, TRAIN["steps"]
-    B, S = TRAIN["batch"], TRAIN["seq"]
-    # per step: the forward runs ln1, ln2 per layer and the final norm and one
-    # attention per layer; remat "full" recomputes each layer's forward once
-    # in the backward (the final norm sits outside the layers and is not
-    # recomputed); the backward runs each norm's and attention's once
-    per_step = {"rmsnorm": 2 * L + 1 + 2 * L, "rmsnorm_bwd": 2 * L + 1,
-                "flash_attention": 2 * L, "flash_attention_bwd": L}
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    dn = str(dtype).split(".")[1]
     # the earlier phases leave hundreds of thousands of Python objects
     # (campaign records, profiler events): a full collection over them is
     # slow and would land inside a timed step, so collect them now and
@@ -1875,61 +1945,64 @@ def phase_train(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    state, history = train(TRAIN["arch"], steps=steps, batch=B, seq=S, dtype=torch.float32,
+    state, history = train(arch, steps=steps, batch=B, seq=S, layers=layers, dtype=dtype,
                            log_every=1, device="cuda")
     torch.cuda.synchronize()
     launches = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    _check_run(history, f"{cfg.name} f32")
+    _check_run(history, f"{cfg.name} {dn}")
     step_ms = [1e3 * h["step_s"] for h in history]
-    log(f"[train] {cfg.name} f32 L={L} d={cfg.d_model} B={B} S={S}, remat full: losses "
+    med = statistics.median(step_ms[1:])
+    M = cfg.n_meta_tokens
+    log(f"[train] {cfg.name} {dn} L={cfg.n_layers} d={cfg.d_model} B={B} S={S}"
+        + (f" (+{M} meta tokens)" if M else "") + ", remat full: losses "
         + ", ".join(f"{h['loss']:.4f}" for h in history) + "; grad norms "
         + ", ".join(f"{h['grad_norm']:.3f}" for h in history))
     log(f"[train] ms per step {', '.join(f'{t:.1f}' for t in step_ms)} (median of steps 2-"
-        f"{steps}: {statistics.median(step_ms[1:]):.1f} ms, "
-        f"{B * S / statistics.median(step_ms[1:]) * 1e3:,.0f} tok/s); "
+        f"{steps}: {med:.1f} ms, {B * S / med * 1e3:,.0f} tok/s); "
         f"max_memory_allocated {peak:.2f} GiB")
-    want = {k: n * steps for k, n in per_step.items()}
-    log(f"[train] launches: " + ", ".join(f"{k} {launches[k]} (want {per_step[k]} x {steps})"
-                                          for k in per_step)
-        + f"; per step rmsnorm 4L+1, rmsnorm_bwd 2L+1, flash 2L, flash_bwd L at L={L}")
-    for k, n in want.items():
-        if launches[k] != n:
-            raise AssertionError(f"train: {k} launched {launches[k]} times, want {n}")
+    want = {k: per_step.get(k, 0) * steps for k in launches}
+    log(f"[train] launches: " + ", ".join(f"{k} {launches[k]} (want {per_step.get(k, 0)} x "
+                                          f"{steps})" for k in launches if want[k] or launches[k])
+        + f"; per step {rule} at L={cfg.n_layers}")
+    if launches != want:
+        raise AssertionError(f"{cfg.name} {dn} train: launches {launches}, want {want}")
+    return state, dict(launches=launches, step_ms=step_ms, peak_gib=peak,
+                       losses=[h["loss"] for h in history])
 
+
+def phase_train(torch):
+    """The dense train path at full width: launch/train.py::train for
+    qwen2-1.5b, f32 (the launcher's default), remat "full", B 4, S 1024, 4
+    steps with exact counts and one profiled step; then 3 bf16 steps with
+    the same counts, whose flash forwards and backwards must all be
+    tensor-core launches, and one profiled bf16 step. Returns the two runs'
+    launches and numbers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN["arch"])
+    L, steps, n16 = cfg.n_layers, TRAIN["steps"], TRAIN["bf16_steps"]
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    # per step: the forward runs ln1, ln2 per layer and the final norm and one
+    # attention per layer; remat "full" recomputes each layer's forward once
+    # in the backward (the final norm sits outside the layers and is not
+    # recomputed); the backward runs each norm's and attention's once
+    per_step = {"rmsnorm": 2 * L + 1 + 2 * L, "rmsnorm_bwd": 2 * L + 1,
+                "flash_attention": 2 * L, "flash_attention_bwd": L}
+    rule = "rmsnorm 4L+1, rmsnorm_bwd 2L+1, flash 2L, flash_bwd L"
+    state, f32 = _train_full(torch, DENSE, per_step, steps, B, S, torch.float32, rule)
     _profile_train_step(torch, cfg, state, B, S, "f32", steps)
     del state
     torch.cuda.empty_cache()
-
-    # bf16 (init_state's default): every flash forward on the tensor cores
-    gc.collect()                                # the profiler's events
-    gc.freeze()
-    _zero_counts()
-    state16, hist16 = train(TRAIN["arch"], steps=TRAIN["bf16_steps"], batch=B, seq=S,
-                            dtype=torch.bfloat16, log_every=1, device="cuda")
-    torch.cuda.synchronize()
-    c16 = _read_counts()
-    _check_run(hist16, f"{cfg.name} bf16")
-    n16 = TRAIN["bf16_steps"]
-    log(f"[train] {cfg.name} bf16 {n16} steps: losses "
-        + ", ".join(f"{h['loss']:.4f}" for h in hist16)
-        + "; ms per step " + ", ".join("%.1f" % (1e3 * h["step_s"]) for h in hist16)
-        + f"; flash "
-        f"forwards {c16['flash_attention']} of which tensor-core {c16['wgmma']}, backwards "
-        f"{c16['flash_attention_bwd']} of which tensor-core {c16['wgmma_bwd']} (want "
-        f"{L} x {n16})")
-    want16 = {k: n * n16 for k, n in per_step.items()}
-    if (c16["wgmma"] != c16["flash_attention"] or c16["wgmma_bwd"] != c16["flash_attention_bwd"]
-            or any(c16[k] != n for k, n in want16.items())):
-        raise AssertionError(f"bf16 train: launches {c16}, want {want16} and every flash "
-                             f"launch on the tensor cores")
-    _profile_train_step(torch, cfg, state16, B, S, "bf16", n16)
-    del state16
+    # bf16 (init_state's default): every flash forward and backward on the
+    # tensor cores
+    state, b16 = _train_full(torch, DENSE, dict(per_step, wgmma=2 * L, wgmma_bwd=L), n16, B, S,
+                             torch.bfloat16, rule + ", every flash launch on the tensor cores")
+    _profile_train_step(torch, cfg, state, B, S, "bf16", n16)
+    del state
     gc.unfreeze()
     torch.cuda.empty_cache()
-    return launches, c16, dict(step_ms=step_ms, peak_gib=peak,
-                               losses=[h["loss"] for h in history],
-                               bf16_step_ms=[1e3 * h["step_s"] for h in hist16])
+    return f32, b16
 
 
 def _profile_train_step(torch, cfg, state, B, S, dtype_name, steps_done):
@@ -1960,13 +2033,10 @@ def _profile_train_step(torch, cfg, state, B, S, dtype_name, steps_done):
 
 
 def phase_train_hybrid(torch):
-    """The hybrid train path at full width and depth: launch/train.py::train
-    for hymba-1.5b, f32, remat "full", B 4, S 1024 (+128 meta tokens), 4
-    steps, every kernel's count zeroed just before and read just after and
-    held to the counts the layer count implies; one profiled step. Returns
-    the run's launches and its numbers."""
+    """7b: launch/train.py::train for hymba-1.5b at full width and depth,
+    f32, remat "full", B 4, S 1024 (+128 meta tokens), 4 steps with exact
+    counts, one profiled step. Returns the run's launches and numbers."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import train
 
     cfg = get_config(HYBRID_TRAIN["arch"])
     L, steps = cfg.n_layers, HYBRID_TRAIN["steps"]
@@ -1978,40 +2048,96 @@ def phase_train_hybrid(torch):
     per_step = {"rmsnorm": 4 * L + 1 + 4 * L, "rmsnorm_bwd": 4 * L + 1,
                 "flash_attention": 2 * L, "flash_attention_bwd": L,
                 "ssm_scan": 2 * L, "ssm_scan_bwd": L}
-    gc.collect()
-    gc.freeze()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
-    state, history = train(HYBRID_TRAIN["arch"], steps=steps, batch=B, seq=S,
-                           dtype=torch.float32, log_every=1, device="cuda")
-    torch.cuda.synchronize()
-    launches = _read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    _check_run(history, f"{cfg.name} f32")
-    step_ms = [1e3 * h["step_s"] for h in history]
-    M = cfg.n_meta_tokens
-    log(f"[train] {cfg.name} f32 L={L} d={cfg.d_model} B={B} S={S} (+{M} meta tokens), "
-        f"remat full: losses " + ", ".join(f"{h['loss']:.4f}" for h in history)
-        + "; grad norms " + ", ".join(f"{h['grad_norm']:.3f}" for h in history))
-    med = statistics.median(step_ms[1:])
-    log(f"[train] ms per step {', '.join(f'{t:.1f}' for t in step_ms)} (median of steps 2-"
-        f"{steps}: {med:.1f} ms, {B * S / med * 1e3:,.0f} tok/s); "
-        f"max_memory_allocated {peak:.2f} GiB")
-    log(f"[train] launches: " + ", ".join(f"{k} {launches[k]} (want {per_step[k]} x {steps})"
-                                          for k in per_step)
-        + f"; per step rmsnorm 8L+1, rmsnorm_bwd 4L+1, flash 2L, flash_bwd L, ssm_scan 2L, "
-        f"ssm_scan_bwd L at L={L}")
-    for k, n in per_step.items():
-        if launches[k] != n * steps:
-            raise AssertionError(f"hybrid train: {k} launched {launches[k]} times, "
-                                 f"want {n * steps}")
+    state, run = _train_full(torch, HYBRID, per_step, steps, B, S, torch.float32,
+                             "rmsnorm 8L+1, rmsnorm_bwd 4L+1, flash 2L, flash_bwd L, "
+                             "ssm_scan 2L, ssm_scan_bwd L")
     _profile_train_step(torch, cfg, state, B, S, "f32", steps)
     del state
     gc.unfreeze()
     torch.cuda.empty_cache()
-    return launches, dict(step_ms=step_ms, peak_gib=peak,
-                          losses=[h["loss"] for h in history])
+    return run
+
+
+def phase_train_audio(torch):
+    """7c: launch/train.py::train for hubert-xlarge at full width and depth
+    (1.26 B parameters), remat "full", B 4 x T 1500 (30 s of audio a row):
+    4 f32 steps and 3 bf16 steps, each with exact counts (bf16: every flash
+    forward on the tensor cores, every backward on the CUDA cores: no
+    tensor-core backward at hd 80), and one profiled step of each. Returns
+    the two runs' launches and numbers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(AUDIO)
+    L, a = cfg.n_layers, AUDIO_TRAIN
+    # per step: the input norm (outside the layers, not recomputed), ln1
+    # and ln2 of each layer, the final norm; remat "full" recomputes each
+    # layer once; one attention a layer, and each norm's and attention's
+    # backward once
+    per_step = {"rmsnorm": 4 * L + 2, "rmsnorm_bwd": 2 * L + 2,
+                "flash_attention": 2 * L, "flash_attention_bwd": L}
+    rule = "rmsnorm 4L+2, rmsnorm_bwd 2L+2, flash 2L, flash_bwd L"
+    runs = []
+    for dtype, steps, extra, note in (
+            (torch.float32, a["steps"], {}, ""),
+            (torch.bfloat16, a["bf16_steps"], dict(wgmma=2 * L),
+             ", every flash forward on the tensor cores, every backward on the CUDA cores")):
+        state, run = _train_full(torch, AUDIO, dict(per_step, **extra), steps, a["batch"],
+                                 a["seq"], dtype, rule + note)
+        _profile_train_step(torch, cfg, state, a["batch"], a["seq"],
+                            "f32" if dtype == torch.float32 else "bf16", steps)
+        del state
+        gc.unfreeze()
+        torch.cuda.empty_cache()
+        runs.append(run)
+    return runs
+
+
+def phase_train_xlstm(torch):
+    """7d: launch/train.py::train for xlstm-125m at full width and depth,
+    f32, remat "full", B 4, S 1024, 4 steps with exact rmsnorm counts (no
+    attention: no flash launch), one profiled step. Returns the run's
+    launches and numbers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(XLSTM)
+    n_s = len(cfg.slstm_layers)
+    n_m = cfg.n_layers - n_s
+    # per step: an mLSTM layer runs ln and norm_cell, an sLSTM layer also
+    # ln2, the final norm sits outside the layers; remat "full" recomputes
+    # each layer once, and the backward runs each norm's once
+    norms = 2 * n_m + 3 * n_s
+    per_step = {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1}
+    x = XLSTM_TRAIN
+    state, run = _train_full(torch, XLSTM, per_step, x["steps"], x["batch"], x["seq"],
+                             torch.float32, f"rmsnorm 2N+1, rmsnorm_bwd N+1 with N = 2 x "
+                             f"{n_m} mLSTM + 3 x {n_s} sLSTM layers = {norms}")
+    _profile_train_step(torch, cfg, state, x["batch"], x["seq"], "f32", x["steps"])
+    del state
+    gc.unfreeze()
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_train_moe(torch):
+    """7e: f32 steps of qwen3-moe-30b-a3b at full width and 4 of its 48
+    layers (12.5 GB of parameters, ~50 GB with gradients and both AdamW
+    moments) through launch/train.py::train, at the batch that leaves room
+    for the dense oracle's [E, T, 768] f32 intermediates (0.4 GB each per
+    1024 tokens), with exact counts. Returns the run's launches and
+    numbers."""
+    m = MOE_TRAIN
+    L = m["layers"]
+    # per step: ln1, q_norm, k_norm and ln2 of each layer and the final norm;
+    # remat "full" recomputes each layer once; one attention a layer
+    per_step = {"rmsnorm": 8 * L + 1, "rmsnorm_bwd": 4 * L + 1,
+                "flash_attention": 2 * L, "flash_attention_bwd": L}
+    state, run = _train_full(torch, MOE, per_step, m["steps"], m["batch"], m["seq"],
+                             torch.float32, "rmsnorm 8L+1, rmsnorm_bwd 4L+1, flash 2L, "
+                             "flash_bwd L", layers=L)
+    del state
+    gc.unfreeze()
+    torch.cuda.empty_cache()
+    return run
 
 
 def _leaf_names(tree, prefix: str = "") -> list:
@@ -2023,90 +2149,145 @@ def _leaf_names(tree, prefix: str = "") -> list:
     return [prefix.rstrip("/")]
 
 
-def train_step_vs_plain(torch, arch, cut):
-    """One f32 train step of ``arch`` at full width, cut to 4 layers by the
-    config fields ``cut``, with the kernels, then the same step from the same
-    state with the plain versions patched in (here, not by a switch in the
-    package): loss and grad norm at rel 1e-4; each leaf's gradient, read
-    from its first AdamW moment (0.1 x the clipped gradient after one step
-    from zero), within STEP_GRAD_TOL of the leaf's max; new parameters at
-    atol 2 lr. One Adam step moves each element by about lr sign(g), so the
-    parameters alone compare signs; the moments compare values. A third
-    step, the plain versions with a wrong backward (dK x 1.1 in attention;
-    in a hybrid model da x 1.1 in the scan), must fail the moment check."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeSpec
+def plain_versions(torch, dk=1.0, dx=1.0, da=1.0):
+    """The plain versions (rmsnorm, flash_mha, ssm_scan_batched) that the
+    train checks patch into the model modules (here, not by a switch in the
+    package). A scale other than 1 multiplies one gradient in their backward,
+    a wrong backward: dK in attention, dx in rmsnorm, da in the scan."""
     from repro_torch.kernels.flash_attention.ref import flash_mha_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
-    from repro_torch.models import attention as attention_mod
-    from repro_torch.models import build_model
-    from repro_torch.models import layers as layers_mod
-    from repro_torch.models import mamba as mamba_mod
-    from repro_torch.train import SyntheticData, init_state, make_train_step, schedule_for
-    from repro_torch.train.optim import tree_leaves, tree_map
 
-    class ScaleGrad(torch.autograd.Function):
+    class Scale(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, t):
+        def forward(ctx, t, s):
+            ctx.s = s
             return t.clone()
 
         @staticmethod
         def backward(ctx, g):
-            return g * 1.1
+            return g * ctx.s, None
 
-    def flash_dk_off(q, k, v, **kw):
-        return flash_mha_ref(q, ScaleGrad.apply(k), v, **kw)
+    class PlainScan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, b):
+            h = ssm_scan_ref(a, b)
+            ctx.save_for_backward(a, h)
+            return h
 
-    def plain_scan(da_scale):
-        """The scan's plain forward and plain reverse scan, da scaled."""
-        class PlainScan(torch.autograd.Function):
-            @staticmethod
-            def forward(ctx, a, b):
-                h = ssm_scan_ref(a, b)
-                ctx.save_for_backward(a, h)
-                return h
+        @staticmethod
+        def backward(ctx, g):
+            d_a, d_b = ssm_scan_bwd_ref(*ctx.saved_tensors, g)
+            return d_a * da, d_b
 
-            @staticmethod
-            def backward(ctx, g):
-                da, db = ssm_scan_bwd_ref(*ctx.saved_tensors, g)
-                return da * da_scale, db
-        return PlainScan.apply
+    def rmsnorm(x, w, eps):
+        return rmsnorm_ref(Scale.apply(x, dx), w, eps)
 
-    cfg = dataclasses.replace(get_config(arch), **cut)
-    hybrid = cfg.family == "hybrid"
-    model = build_model(cfg)
-    lr = 3e-4
-    step_fn = make_train_step(model, lr_schedule=schedule_for(cfg, lr, 0, 100))
-    state = init_state(model, torch.Generator(device="cuda").manual_seed(2),
-                       dtype=torch.float32, device="cuda")
-    twin = tree_map(lambda t: t.clone(), state)
-    wrong = tree_map(lambda t: t.clone(), state)
-    batch = SyntheticData(cfg, ShapeSpec("cli", TRAIN["seq"], TRAIN["batch"], "train"),
-                          seed=1, device="cuda").batch_at(0)
-    _zero_counts()
-    _, mk = step_fn(state, batch)
-    ran = _read_counts()
-    saved = layers_mod.rmsnorm, attention_mod.flash_mha, mamba_mod.ssm_scan_batched
+    def flash(q, k, v, **kw):
+        return flash_mha_ref(q, Scale.apply(k, dk), v, **kw)
+
+    return (rmsnorm_ref if dx == 1.0 else rmsnorm, flash_mha_ref if dk == 1.0 else flash,
+            PlainScan.apply)
+
+
+@contextlib.contextmanager
+def patched(fns):
+    """Within it, the model modules call ``fns`` (rmsnorm, flash_mha,
+    ssm_scan_batched) in place of the kernels' wrappers."""
+    from repro_torch.models import attention, layers, mamba
+
+    mods = ((layers, "rmsnorm"), (attention, "flash_mha"), (mamba, "ssm_scan_batched"))
+    saved = [getattr(m, n) for m, n in mods]
+    for (m, n), f in zip(mods, fns):
+        setattr(m, n, f)
     try:
-        layers_mod.rmsnorm, attention_mod.flash_mha = rmsnorm_ref, flash_mha_ref
-        mamba_mod.ssm_scan_batched = plain_scan(1.0)
-        _zero_counts()
-        _, mp = step_fn(twin, batch)
-        plain_ran = _read_counts()
-        if hybrid:
-            mamba_mod.ssm_scan_batched = plain_scan(1.1)
-            wrong_what = "da x 1.1 in the scan"
-        else:
-            attention_mod.flash_mha = flash_dk_off
-            wrong_what = "dK x 1.1"
-        step_fn(wrong, batch)
+        yield
     finally:
-        layers_mod.rmsnorm, attention_mod.flash_mha, mamba_mod.ssm_scan_batched = saved
+        for (m, n), f in zip(mods, saved):
+            setattr(m, n, f)
+
+
+def step_setup(torch, arch, cut, B, S, reduced=False):
+    """The config (``reduced``: its reduced() one, then the fields ``cut``
+    replaced), the f32 step function, a function that draws the train state
+    anew from one seed (the VLM's gates opened) and one batch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import build_model
+    from repro_torch.train import SyntheticData, init_state, make_train_step, schedule_for
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg, **cut)
+    model = build_model(cfg)
+    step_fn = make_train_step(model, lr_schedule=schedule_for(cfg, STEP_LR, 0, 100))
+
+    def fresh():
+        state = init_state(model, torch.Generator(device="cuda").manual_seed(2),
+                           dtype=torch.float32, device="cuda")
+        if cfg.family == "vlm":
+            _open_gates(state["params"])
+        return state
+
+    batch = SyntheticData(cfg, ShapeSpec("cli", S, B, "train"), seed=1,
+                          device="cuda").batch_at(0)
+    return cfg, step_fn, fresh, batch
+
+
+def one_step(torch, step_fn, fresh, batch, fns=None):
+    """One step from a fresh state, with the kernels or (``fns``) with
+    those functions patched in: the state after it (the step updates it in
+    place), its metrics, the launches it made and the sum of each parameter
+    as drawn."""
+    from repro_torch.train.optim import tree_leaves
+
+    with patched(fns) if fns else contextlib.nullcontext():
+        state = fresh()
+        drawn = [float(t.sum(dtype=torch.float64)) for t in tree_leaves(state["params"])]
+        _zero_counts()
+        _, metrics = step_fn(state, batch)
+        launches = _read_counts()
+    return state, metrics, launches, drawn
+
+
+def moment_shares(want, got) -> dict:
+    """Each leaf's max |m - m_want| over want's max |m| (m: the first AdamW
+    moment, 0.1 x the clipped gradient after one step from zero)."""
+    from repro_torch.train.optim import tree_leaves
+
+    return {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for n, a, b in zip(_leaf_names(want["opt"]["m"]), tree_leaves(got["opt"]["m"]),
+                               tree_leaves(want["opt"]["m"]))}
+
+
+def train_step_vs_plain(torch, arch, cut, B=TRAIN["batch"], S=TRAIN["seq"], reduced=False,
+                        grad_tol=STEP_GRAD_TOL, norm_tol=1e-4):
+    """One f32 train step of ``arch`` at full width (``reduced``: its
+    reduced() config), cut by the config fields ``cut``, with the kernels,
+    then the same step from the same state with the plain versions patched
+    in: loss at rel 1e-4 and grad norm at rel ``norm_tol``; each leaf's
+    gradient, read from its first AdamW moment, within ``grad_tol`` of the
+    leaf's max; new parameters at atol 2 lr. One Adam step moves each
+    element by about lr sign(g), so the parameters alone compare signs; the
+    moments compare values. A third step, the plain versions with a wrong
+    backward (dK x 1.1 in attention; in a hybrid model da x 1.1 in the scan;
+    in xLSTM, which has no attention, dx x 1.1 in rmsnorm), must fail the
+    moment check by 10x. Each step starts from a state drawn anew from one
+    seed, so at most two states are held at once."""
+    from repro_torch.train.optim import tree_leaves
+
+    cfg, step_fn, fresh, batch = step_setup(torch, arch, cut, B, S, reduced)
+    hybrid, attention = cfg.family == "hybrid", cfg.family != "ssm"
+    lr = STEP_LR
+    state, mk, ran, drawn = one_step(torch, step_fn, fresh, batch)
+    twin, mp, plain_ran, drawn_twin = one_step(torch, step_fn, fresh, batch,
+                                               plain_versions(torch))
     torch.cuda.synchronize()
-    need = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd") + (
+    if drawn_twin != drawn:
+        raise AssertionError(f"{cfg.name}: two draws of the state from one seed differ")
+    need = ("rmsnorm", "rmsnorm_bwd") + (
+        ("flash_attention", "flash_attention_bwd") if attention else ()) + (
         ("ssm_scan", "ssm_scan_bwd") if hybrid else ())
     if min(ran[k] for k in need) == 0 or any(plain_ran.values()):
         raise AssertionError(f"kernel step launched {ran}, plain step {plain_ran}")
@@ -2115,33 +2296,43 @@ def train_step_vs_plain(torch, arch, cut):
                                            tree_leaves(twin["params"]))]
     worst = max(float(d.max()) for d in diffs)
     mean = float(sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs))
-
-    def moment_shares(opt):
-        """Each leaf's max |m - m_plain| over the plain step's max |m|."""
-        return {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-                for n, a, b in zip(_leaf_names(twin["opt"]["m"]), tree_leaves(opt["m"]),
-                                   tree_leaves(twin["opt"]["m"]))}
-
-    grads_k, grads_w = moment_shares(state["opt"]), moment_shares(wrong["opt"])
+    del diffs
+    grads_k = moment_shares(twin, state)
+    del state
+    torch.cuda.empty_cache()
+    if hybrid:
+        wrong_what, wrong_fns = "da x 1.1 in the scan", plain_versions(torch, da=1.1)
+    elif attention:
+        wrong_what, wrong_fns = "dK x 1.1", plain_versions(torch, dk=1.1)
+    else:
+        wrong_what, wrong_fns = "dx x 1.1 in rmsnorm", plain_versions(torch, dx=1.1)
+    wrong = one_step(torch, step_fn, fresh, batch, wrong_fns)[0]
+    grads_w = moment_shares(twin, wrong)
+    del wrong
     leaf_k, leaf_w = max(grads_k, key=grads_k.get), max(grads_w, key=grads_w.get)
-    log(f"[train] {cfg.name} at {cfg.n_layers} layers, one f32 step, kernels vs plain on the "
+    n_params = sum(t.numel() for t in tree_leaves(twin["params"]))
+    log(f"[train] {cfg.name} at {cfg.n_layers} layers ({n_params / 1e6:.1f} M parameters), "
+        f"B={B} S={S}, one f32 step, kernels vs plain on the "
         f"card: loss {float(mk['loss']):.6f} / {float(mp['loss']):.6f} (rel {rel['loss']:.2e}), "
         f"grad_norm {float(mk['grad_norm']):.6f} / {float(mp['grad_norm']):.6f} (rel "
-        f"{rel['grad_norm']:.2e}); new params max |diff| {worst:.3e} (atol 2 lr = {2 * lr:g}), "
-        f"mean {mean:.3e} (at most 1e-3 lr = {1e-3 * lr:g}); kernel launches {ran}")
+        f"{rel['grad_norm']:.2e}, limit {norm_tol:.1e}); new params max |diff| {worst:.3e} "
+        f"(atol 2 lr = {2 * lr:g}), mean {mean:.3e} (at most 1e-3 lr = {1e-3 * lr:g}); kernel "
+        f"launches {ran}")
     log(f"[train] gradients (first AdamW moments), {len(grads_k)} leaves, max |diff| / max "
-        f"|plain| (limit {STEP_GRAD_TOL:g}): kernels {grads_k[leaf_k]:.3e} (worst leaf "
+        f"|plain| (limit {grad_tol:.1e}): kernels {grads_k[leaf_k]:.3e} (worst leaf "
         f"{leaf_k}); a wrong backward ({wrong_what}, plain versions) {grads_w[leaf_w]:.3e} "
         f"(worst leaf {leaf_w})")
-    if rel["loss"] > 1e-4 or rel["grad_norm"] > 1e-4 or worst > 2 * lr or mean > 1e-3 * lr:
+    del twin
+    torch.cuda.empty_cache()
+    if (rel["loss"] > 1e-4 or rel["grad_norm"] > norm_tol or worst > 2 * lr
+            or mean > 1e-3 * lr):
         raise AssertionError("the kernel step and the plain step disagree")
-    if grads_k[leaf_k] > STEP_GRAD_TOL:
+    if grads_k[leaf_k] > grad_tol:
         raise AssertionError(f"the kernel step's gradient of {leaf_k} disagrees with the plain "
                              f"step's")
-    if grads_w[leaf_w] <= STEP_GRAD_TOL:
-        raise AssertionError(f"the gradient check would pass a backward with {wrong_what}")
-    del state, twin, wrong
-    torch.cuda.empty_cache()
+    if grads_w[leaf_w] <= 10 * grad_tol:
+        raise AssertionError(f"the gradient check would pass a backward with {wrong_what} or "
+                             f"come within 10x of it")
 
 
 def cli_on_the_card():
@@ -2217,14 +2408,33 @@ def main() -> int:
             del model, params
             torch.cuda.empty_cache()
         rows.update(train_kernels(torch))
-        train_launches, bf16_launches, train_stats = phase_train(torch)
+        dense_runs = phase_train(torch)
         train_step_vs_plain(torch, DENSE, dict(n_layers=TRAIN["check_layers"]))
-        hybrid_launches, hybrid_stats = phase_train_hybrid(torch)
+        hybrid_run = phase_train_hybrid(torch)
         train_step_vs_plain(torch, HYBRID, HYBRID_TRAIN["check"])
+        t0 = time.perf_counter()
+        audio_runs = phase_train_audio(torch)
+        train_step_vs_plain(torch, AUDIO, AUDIO_TRAIN["check"], S=AUDIO_TRAIN["seq"])
+        log(f"[train] phase 7c (hubert-xlarge): {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        xlstm_run = phase_train_xlstm(torch)
+        for S in XLSTM_TRAIN["check_seqs"]:
+            train_step_vs_plain(torch, XLSTM, {}, S=S, grad_tol=XLSTM_TRAIN["grad_tol"],
+                                norm_tol=XLSTM_TRAIN["norm_tol"])
+        log(f"[train] phase 7d (xlstm-125m): {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase_train_moe(torch)
+        train_step_vs_plain(torch, MOE, MOE_TRAIN["check"], B=MOE_TRAIN["check_batch"])
+        log(f"[train] phase 7e (qwen3-moe-30b-a3b): {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        train_step_vs_plain(torch, VLM, {}, reduced=True)
+        log(f"[train] phase 7f (llama-3.2-vision-90b, reduced): {time.perf_counter() - t0:.1f}s")
         cli_on_the_card()
     except Exception:
         traceback.print_exc()
         return 1
+
+    from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
 
     # one entry per kernel and main path; the row is timed at that path's
     # main shape, and the launches are that path's serve run
@@ -2272,56 +2482,56 @@ def main() -> int:
                         replaces=REPLACES["list_schedule"], launches=sched_launches,
                         variants_launched=sched_variants_launched, path=CAMPAIGN,
                         **sched_row))
-    # the train path, f32 (the launcher's default) and bf16: its forward
-    # kernels (f32 flash runs the CUDA-core kernel, bf16 the tensor-core one, both
-    # in the instance that stores L, timed under autograd in phase 7) and the
-    # backward kernels (bf16 flash on the tensor cores), timed at its main
-    # shapes; launches from the 4-step f32 and the 3-step bf16 full-width runs
-    qwen_fa = (4, 1024, 12, 2, 128, 0, 0)
-    for dt, counts, fwd_source in (("float32", train_launches, SIMT_FLASH),
-                                   ("bfloat16", bf16_launches, ROUTES["flash_attention"][1])):
-        train_path = f"train/{TRAIN['arch']}/{dt}"
-        bwd = rows[("flash_attention_bwd", qwen_fa, dt)]
-        fwd = dict(rows[("flash", (4, 1024, 1024, 12, 2, 128, True, 0, 0), dt)],
-                   ms=bwd["forward_autograd_ms"], serve_instance_ms=bwd["forward_serve_ms"])
-        for name, key, source, row in (
-                ("rmsnorm", ("rmsnorm", (4096, 1536), dt), ROUTES["rmsnorm"][1], None),
-                ("flash_attention", None, fwd_source, fwd),
-                ("rmsnorm_bwd", ("rmsnorm_bwd", (4096, 1536), dt), ROUTES["rmsnorm_bwd"][1],
-                 None),
-                ("flash_attention_bwd", ("flash_attention_bwd", qwen_fa, dt),
-                 ROUTES["flash_attention_bwd"][1], None)):
-            kernels.append(dict(name=name, route="cuda", source=source,
-                                replaces=REPLACES[name], launches=counts[name], path=train_path,
-                                shape=list(key[1]) if key else list(qwen_fa), dtype=dt,
-                                **(row if row is not None else rows[key])))
-        kernels[-1].update(train_step_ms=train_stats["step_ms" if dt == "float32"
-                                                     else "bf16_step_ms"])
-    kernels[-1].update(train_peak_gib_f32=train_stats["peak_gib"])
-    # the hybrid train path, f32: its forward kernels (the flash forward that
-    # stores L, timed under autograd in phase 7) and backward kernels at
-    # hymba's train shapes; launches from the 4-step full-width run
-    hymba_fa = (4, 1152, 25, 5, 64, 1024, 128)
-    bwd = rows[("flash_attention_bwd", hymba_fa, "float32")]
-    fwd = dict(rows[("flash", (4, 1152, 1152, 25, 5, 64, True, 1024, 128), "float32")],
-               ms=bwd["forward_autograd_ms"], serve_instance_ms=bwd["forward_serve_ms"])
-    for name, key, source, row in (
-            ("rmsnorm", ("rmsnorm", (4608, 1600), "float32"), ROUTES["rmsnorm"][1], None),
-            ("flash_attention", None, SIMT_FLASH, fwd),
-            ("ssm_scan", ("ssm_scan", SCAN_MAIN, "float32"), ROUTES["ssm_scan"][1], None),
-            ("rmsnorm_bwd", ("rmsnorm_bwd", (4608, 1600), "float32"),
-             ROUTES["rmsnorm_bwd"][1], None),
-            ("flash_attention_bwd", ("flash_attention_bwd", hymba_fa, "float32"),
-             ROUTES["flash_attention_bwd"][1], None),
-            ("ssm_scan_bwd", ("ssm_scan_bwd", SCAN_MAIN, "float32"),
-             ROUTES["ssm_scan_bwd"][1], None)):
-        kernels.append(dict(name=name, route="cuda", source=source, replaces=REPLACES[name],
-                            launches=hybrid_launches[name],
-                            path=f"train/{HYBRID_TRAIN['arch']}/float32",
-                            shape=list(key[1]) if key else list(hymba_fa), dtype="float32",
-                            **(row if row is not None else rows[key])))
-    kernels[-1].update(train_step_ms=hybrid_stats["step_ms"],
-                       train_peak_gib_f32=hybrid_stats["peak_gib"])
+    def train_path(arch, dt, counts, rms_shape, fa=None, scan=False, **stats):
+        """The rows of one train path in dtype dt: its forward kernels
+        (rmsnorm at rms_shape; the flash forward in the instance that stores
+        L, timed under autograd in phase 7, at fa = (its phase-3 key, its
+        backward case, causal); ssm_scan) and its backward kernels at the
+        same shapes; launches from the path's full-width run; ``stats`` on
+        the last row."""
+        fwd, bwd = [], []
+        fwd.append(("rmsnorm", rows[("rmsnorm", rms_shape, dt)], ROUTES["rmsnorm"][1],
+                    rms_shape))
+        bwd.append(("rmsnorm_bwd", rows[("rmsnorm_bwd", rms_shape, dt)],
+                    ROUTES["rmsnorm_bwd"][1], rms_shape))
+        if fa:
+            fwd_key, case, causal = fa
+            b = rows[("flash_attention_bwd", case + (causal,), dt)]
+            tc = dt == "bfloat16" and case[4] in WGMMA_HEAD_DIMS
+            fwd.append(("flash_attention",
+                        dict(rows[("flash", fwd_key, dt)], ms=b["forward_autograd_ms"],
+                             serve_instance_ms=b["forward_serve_ms"]),
+                        ROUTES["flash_attention"][1] if tc else SIMT_FLASH, case))
+            bwd.append(("flash_attention_bwd", b, ROUTES["flash_attention_bwd"][1], case))
+        if scan:
+            fwd.append(("ssm_scan", rows[("ssm_scan", SCAN_MAIN, dt)], ROUTES["ssm_scan"][1],
+                        SCAN_MAIN))
+            bwd.append(("ssm_scan_bwd", rows[("ssm_scan_bwd", SCAN_MAIN, dt)],
+                        ROUTES["ssm_scan_bwd"][1], SCAN_MAIN))
+        for name, row, source, shape in fwd + bwd:
+            kernels.append(dict(name=name, route="cuda", source=source, replaces=REPLACES[name],
+                                launches=counts[name], path=f"train/{arch}/{dt}",
+                                shape=list(shape), dtype=dt, **row))
+        kernels[-1].update(stats)
+
+    # the train paths, f32 (the launcher's default) and bf16 (f32 flash runs
+    # the CUDA-core kernel, bf16 at hd 64/80/128 the tensor-core one; the
+    # backward on the tensor cores for bf16 at hd 64/128, else on the CUDA
+    # cores); launches from the full-width runs of phases 7 to 7d
+    qwen = ((4, 1024, 1024, 12, 2, 128, True, 0, 0), QWEN_BWD, True)
+    f32, b16 = dense_runs
+    train_path(DENSE, "float32", f32["launches"], (4096, 1536), qwen,
+               train_step_ms=f32["step_ms"])
+    train_path(DENSE, "bfloat16", b16["launches"], (4096, 1536), qwen,
+               train_step_ms=b16["step_ms"], train_peak_gib_f32=f32["peak_gib"])
+    train_path(HYBRID, "float32", hybrid_run["launches"], (4608, 1600),
+               ((4, 1152, 1152, 25, 5, 64, True, 1024, 128), HYMBA_BWD, True), scan=True,
+               train_step_ms=hybrid_run["step_ms"], train_peak_gib_f32=hybrid_run["peak_gib"])
+    for dt, run in zip(("float32", "bfloat16"), audio_runs):
+        train_path(AUDIO, dt, run["launches"], (6000, 1280), (HUBERT_FA, HUBERT_BWD, False),
+                   train_step_ms=run["step_ms"], train_peak_gib=run["peak_gib"])
+    train_path(XLSTM, "float32", xlstm_run["launches"], (4096, 768),
+               train_step_ms=xlstm_run["step_ms"], train_peak_gib=xlstm_run["peak_gib"])
     log(f"[wall] chip_smoke.py {time.perf_counter() - t_start:.1f}s, the build included")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

@@ -64,11 +64,16 @@
 //   registers); K/V tiles of 64 keys stream in: S = Q K^T, dP = dO V^T, dS
 //   rounded to bf16, dQ += dS K (K MN-major).
 // Every other call (f32, kept true f32 as on the rest of the port, and bf16
-// at hd 16/32) runs (b) and (c) on the CUDA cores as register-tiled products
-// from shared memory (a SIMT GEMM): 256 threads as 16 x 16, each owning a
-// 4 x 4 block of S^T/dP^T (S/dP in dQ), then 4 rows x hd/16 columns of dK and
-// dV (dQ); tiles staged as f32 rows padded by 4 floats, read as float4
-// (flash_simt.cuh, shared with the forward).
+// at hd 16/32/80) runs (b) and (c) on the CUDA cores as register-tiled
+// products from shared memory (a SIMT GEMM): 256 threads as 16 x 16, each
+// owning a 4 x 4 block of S^T/dP^T (S/dP in dQ), then 4 rows x hd/16 columns
+// of dK and dV (dQ); tiles staged as f32 rows padded by 4 floats, read as
+// float4 (flash_simt.cuh, shared with the forward). HuBERT's hd 80 (160- or
+// 320-byte rows) takes five single columns a thread (Cols<80>) and a partial
+// last group of 16-byte loads, as the forward's instance does: dK/dV 118.5
+// KiB of shared memory, dQ 101.0 KiB, one block an SM. A bf16 call at hd 80
+// runs these kernels too (its forward runs on the tensor cores and stores L
+// for them): no tensor-core backward at hd 80 yet.
 // All math is f32; only masked tiles (the diagonal, band and sink edges,
 // ragged Sq and Sk tails) take the mask test; tails are masked, never padded.
 
@@ -136,6 +141,18 @@ __host__ __device__ inline int n_slots_of(const Shape& sh) {
 
 // -- (a) D = rowsum(dO * O) ----------------------------------------------------
 
+// The lanes of a row: its 16-byte vectors rounded up to a power of two, so
+// that a row's lanes form one aligned group of a warp (the xor shuffle adds
+// within it) and the passes cover the tile's rows exactly. Lanes past the
+// row's vectors load nothing (hd 80: 10 vectors on 16 lanes in bf16, 20 on
+// 32 in f32); at hd 16/32/64/128 the lanes are the vectors. The twin is
+// ref.py::bwd_delta_reads.
+__host__ __device__ constexpr int pow2_ceil(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
 // A block takes kTile rows of one head; a row's 16-byte vectors spread over
 // kLanes lanes, and each thread loads its vectors of kTile * kLanes /
 // kThreads rows before adding any, so every load of the block is in flight
@@ -145,7 +162,9 @@ __global__ void __launch_bounds__(kThreads)
 fa_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
              Shape sh) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kLanes = HD / kVec;                    // lanes of a row
+  constexpr int kParts = HD / kVec;                    // 16-byte vectors of a row
+  constexpr int kLanes = pow2_ceil(kParts);            // lanes of a row
+  static_assert(HD % kVec == 0 && kLanes <= 32, "a row must be whole vectors of one warp");
   constexpr int kRowsPerPass = kThreads / kLanes;
   constexpr int kPasses = kRowsPerPass < kTile ? kTile / kRowsPerPass : 1;
   const int bh = blockIdx.x;
@@ -158,7 +177,7 @@ fa_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restr
     const int r = i * kRowsPerPass + threadIdx.x / kLanes;
     const int row = q0 + r;
     ov[i] = dv[i] = make_uint4(0, 0, 0, 0);
-    if (r < kTile && row < sh.Sq) {
+    if (part < kParts && r < kTile && row < sh.Sq) {
       const long long off =
           ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD / kVec + part;
       ov[i] = reinterpret_cast<const uint4*>(o)[off];
@@ -890,6 +909,7 @@ int dispatch(const Args& a, int hd, cudaStream_t s, int kind, int* attr) {
     case 16: return attr ? attrs<T, 16>(kind, attr) : run<T, 16>(a, s);
     case 32: return attr ? attrs<T, 32>(kind, attr) : run<T, 32>(a, s);
     case 64: return attr ? attrs<T, 64>(kind, attr) : run<T, 64>(a, s);
+    case 80: return attr ? attrs<T, 80>(kind, attr) : run<T, 80>(a, s);
     case 128: return attr ? attrs<T, 128>(kind, attr) : run<T, 128>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -910,7 +930,7 @@ extern "C" int repro_flash_attention_bwd_slots(int Sq, int Sk, int H, int KV, in
 // f32 from the forward (lse_stride = Sq rounded up to 64; exp2 domain);
 // delta: the same shape, scratch; part_k, part_v: [B*KV, n_slots, 64, hd]
 // f32 scratch, n_slots from repro_flash_attention_bwd_slots. hd in {16, 32,
-// 64, 128}; H % KV == 0; Sq, Sk >= 1; window >= 0 and n_sink >= 0 act only
+// 64, 80, 128}; H % KV == 0; Sq, Sk >= 1; window >= 0 and n_sink >= 0 act only
 // when causal; o and dout 16-byte aligned (D reads them as 16-byte vectors).
 // bf16 at hd 64/128 runs the tensor-core kernels, which need q, k and v
 // 16-byte aligned too. Returns cudaGetLastError() after the

@@ -377,9 +377,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
              cudaStream_t s, int* attr) {
   const bool windowed = causal && window > 0;
   if (lse != nullptr) {
-    // hd 80 has no backward yet, so no instance that stores L
-    if constexpr (HD == 80) return static_cast<int>(cudaErrorInvalidValue);
-    else if (windowed)
+    if (windowed)
       return launch_or_attrs<HD, true, true>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2, 1,
                                              window, n_sink, s, attr);
     else
@@ -399,8 +397,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 // dimension); H % KV == 0; q, k, v, o contiguous and 16-byte aligned; window
 // >= 0 and n_sink >= 0 act only when causal (0 = no window). lse: nullptr
 // (the serve path's instance), or [B*H, round_up(Sq, 64)] f32 that receives
-// each row's logsumexp in the exp2 domain (see the kernel; not at hd 80,
-// which has no backward yet: its instance that stores L is not built).
+// each row's logsumexp in the exp2 domain (see the kernel), for the
+// backward (flash_attention_bwd.cu; at hd 80 its CUDA-core kernels).
 // Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
                                            void* lse, int B, int Sq, int Sk, int H, int KV,

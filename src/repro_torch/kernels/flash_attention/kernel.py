@@ -14,8 +14,7 @@ so no transpose is materialised around them.
   ``WGMMA_HEAD_DIMS``, Sk > 0, 16-byte aligned tensors. hd 64 and 128 take
   64-column boxes under the 128-byte swizzle; HuBERT's hd 80 (160-byte
   rows) five 16-column boxes under the 32-byte swizzle
-  (``wgmma_smem_plan``), and only the serve instance (no L: hd 80 has no
-  backward).
+  (``wgmma_smem_plan``).
 
 Either forward, given ``lse``, launches its instance that also stores each
 row's logsumexp L for the backward ([B*H, lse_rows(Sq)] f32, in the exp2
@@ -27,8 +26,9 @@ domain: L = m·scale·log2(e) + log2(l)); without it, the serve path's.
   units cut into splits of at most ``BWD_SPLIT_UNITS``); dQ per query tile;
   the partials added in split order. bf16 at ``WGMMA_BWD_HEAD_DIMS`` on the
   tensor cores (wgmma + TMA, 16-byte aligned tensors), everything else as
-  register-tiled f32 products on the CUDA cores; head dims
-  ``BWD_HEAD_DIMS``, Sk > 0.
+  register-tiled f32 products on the CUDA cores (bf16 at hd 80 among them:
+  its forward runs on the tensor cores and stores L, its backward on the
+  CUDA cores); head dims ``HEAD_DIMS``, Sk > 0.
 """
 from __future__ import annotations
 
@@ -39,18 +39,17 @@ import torch
 
 from .. import _build
 
-__all__ = ["HEAD_DIMS", "BWD_HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BWD_HEAD_DIMS",
+__all__ = ["HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BWD_HEAD_DIMS",
            "WGMMA_BLOCK_Q", "WGMMA_BLOCK_K", "SMEM_PER_BLOCK", "wgmma_smem_plan", "SIMT_TILE",
            "flash_kernel_attrs", "BWD_SPLIT_UNITS", "BWD_KERNELS", "lse_rows",
            "flash_attention_cuda", "flash_attention_wgmma_cuda",
            "flash_attention_bwd_cuda", "bwd_slots", "wgmma_kernel_attrs",
            "bwd_kernel_attrs"]
 
-# head dims of the forward kernels, and of the backward's (no hd 80 yet)
+# head dims of the forward kernels and of the backward's
 HEAD_DIMS = (16, 32, 64, 80, 128)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
 # head dims where bf16 runs on the tensor cores: the forward's, and the
-# backward's (no hd-80 backward: no hd-80 call may reach a tensor-core one)
+# backward's (hd 80's backward runs on the CUDA cores)
 WGMMA_HEAD_DIMS = (64, 80, 128)
 WGMMA_BWD_HEAD_DIMS = (64, 128)
 # query rows per block and keys per K/V tile of the tensor-core kernel
@@ -125,7 +124,7 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Launch the tensor-core kernel into ``out`` [B,Sq,H,hd] with scale
     1/sqrt(hd) (and L into ``lse``, if given); the caller has checked
     device, bf16, shapes, contiguity, alignment, hd in ``WGMMA_HEAD_DIMS``
-    (and not 80 with ``lse``) and Sk > 0."""
+    and Sk > 0."""
     lib = _build.load()
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -198,8 +197,7 @@ def wgmma_kernel_attrs(hd: int, windowed: bool, lse: bool = False) -> dict:
     """Registers per thread at launch (setmaxnreg then moves them to the
     consumer warpgroups), spill bytes per thread and shared memory per block
     of the tensor-core forward for ``hd`` (cudaFuncGetAttributes); ``lse``:
-    the instance that stores L (autograd; none at hd 80), else the serve
-    path's."""
+    the instance that stores L (autograd), else the serve path's."""
     return _attrs("repro_flash_attention_wgmma_attrs", hd, int(windowed), int(lse))
 
 

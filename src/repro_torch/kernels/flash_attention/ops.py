@@ -28,10 +28,10 @@ output and L; its backward launches ``csrc/flash_attention_bwd.cu`` (D, dK
 and dV over a balanced grid as ordered partial sums, dQ, the partials'
 sum: no atomics). bf16 at hd 64/128 (``WGMMA_BWD_HEAD_DIMS``) runs its
 tensor-core kernels (16-byte aligned q, k, v, else it raises), every other
-call its CUDA-core ones; out and dout must be 16-byte aligned in every
-call. A head dim with a forward kernel and no backward one (80) is refused
-with a ValueError when the forward is called under autograd, not inside
-the backward, so no hd-80 call reaches a backward kernel.
+call its CUDA-core ones: a bf16 call at HuBERT's hd 80 runs its forward on
+the tensor cores (the instance that stores L) and its backward on the CUDA
+cores. out and dout must be 16-byte aligned in every call. Every head dim
+of ``HEAD_DIMS`` has both a forward and a backward kernel.
 ``flash_mha.bwd_launches`` counts backward calls, each one such launch;
 ``flash_mha.wgmma_bwd_launches`` those that ran the tensor-core kernels. On
 the CPU the plain version's autograd is the backward.
@@ -41,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from .._build import DTYPE_CODES
-from .kernel import (BWD_HEAD_DIMS, HEAD_DIMS, WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS,
+from .kernel import (HEAD_DIMS, WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS,
                      flash_attention_bwd_cuda, flash_attention_cuda,
                      flash_attention_wgmma_cuda, lse_rows)
 from .ref import flash_mha_ref
@@ -75,10 +75,6 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = (causal, window, n_sink)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if hd not in BWD_HEAD_DIMS:
-            raise ValueError(f"flash_mha: head dim {hd} has a forward kernel but no backward "
-                             f"kernel (backward head dims {BWD_HEAD_DIMS}); call it without "
-                             f"grad")
         return _FlashFn.apply(q, k, v, mask)
     return _forward(q, k, v, mask)
 

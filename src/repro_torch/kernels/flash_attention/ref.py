@@ -45,6 +45,7 @@ kernel (``csrc/flash_attention.cu``). Nothing on the model path calls it.
 from __future__ import annotations
 
 import math
+from collections import Counter
 
 import torch
 
@@ -54,9 +55,13 @@ import torch.nn.functional as F
 
 from .kernel import BWD_SPLIT_UNITS, SIMT_TILE, WGMMA_BLOCK_K, WGMMA_BLOCK_Q, lse_rows
 
+# threads of a block of the backward's kernels (kThreads)
+_BLOCK_THREADS = 256
+
 __all__ = ["NEG", "flash_mha_ref", "flash_mha_bwd_ref", "tile_visited", "flash_mha_tiled",
            "visible", "bwd_key_tile_visited", "bwd_tile_needs_mask", "bwd_key_tile_rows",
-           "BwdItem", "bwd_split_plan", "flash_mha_bwd_tiled"]
+           "BwdItem", "bwd_split_plan", "bwd_delta_lanes", "bwd_delta_reads",
+           "flash_mha_bwd_tiled"]
 
 NEG = -1e30
 
@@ -251,6 +256,44 @@ def bwd_split_plan(Sq: int, Sk: int, G: int, *, causal: bool, window: int = 0,
             items.append(BwdItem(j, q_lo, n_qt, s * chunk, min(units, (s + 1) * chunk),
                                  len(items)))
     return items
+
+
+def bwd_delta_lanes(hd: int, itemsize: int) -> int:
+    """Lanes of one row in the D kernel (``fa_bwd_delta``): the row's
+    16-byte vectors rounded up to a power of two (``pow2_ceil``)."""
+    parts = hd * itemsize // 16
+    return 1 << (parts - 1).bit_length()
+
+
+def bwd_delta_reads(hd: int, itemsize: int, lanes: int | None = None) -> dict:
+    """The twin of ``fa_bwd_delta``'s lane map and row reduction over one
+    SIMT_TILE-row tile: for each row, the list of what the threads that
+    write its D summed, each a Counter of the (row, 16-byte vector) pairs
+    loaded by the lanes whose sums reached the writer through the kernel's
+    xor shuffles (lane ^ w for w = lanes // 2, halved down to 1). A sound map
+    writes every row once, each vector of it counted once. ``lanes``
+    overrides the kernel's choice (``bwd_delta_lanes``) to show another
+    map."""
+    parts = hd * itemsize // 16
+    lanes = lanes or bwd_delta_lanes(hd, itemsize)
+    rows_per_pass = _BLOCK_THREADS // lanes
+    passes = SIMT_TILE // rows_per_pass if rows_per_pass < SIMT_TILE else 1
+    writes: dict = {}
+    for i in range(passes):
+        acc = []
+        for t in range(_BLOCK_THREADS):
+            r, part = i * rows_per_pass + t // lanes, t % lanes
+            acc.append(Counter({(r, part): 1}) if part < parts and r < SIMT_TILE
+                       else Counter())
+        w = lanes // 2
+        while w > 0:                 # w < 32: lane t ^ w is in t's warp
+            acc = [acc[t] + acc[t ^ w] for t in range(_BLOCK_THREADS)]
+            w //= 2
+        for t in range(_BLOCK_THREADS):
+            r = i * rows_per_pass + t // lanes
+            if t % lanes == 0 and r < SIMT_TILE:
+                writes.setdefault(r, []).append(acc[t])
+    return writes
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:

@@ -6,15 +6,19 @@
       --reduced --device cpu --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
 
 Counterpart of the JAX package's ``launch/train.py``: the same options,
-plus ``--device`` (default the card; raises when no GPU is present) and
-``--seed``. Synthetic data with a checkpointed cursor: kill the process at
-any step and re-launch with the same ``--ckpt-dir`` to resume from the
-newest complete checkpoint with bit-identical batches. Parameters are
-drawn from the seed; no weights are downloaded.
+plus ``--device`` (default the card; raises when no GPU is present),
+``--seed`` and ``--layers`` (the arch at its full width with its depth cut
+to N layers, for a model whose train state does not fit the card at full
+depth: ``--arch qwen3-moe-30b-a3b --layers 4``). Synthetic data with a
+checkpointed cursor: kill the process at any step and re-launch with the
+same ``--ckpt-dir`` to resume from the newest complete checkpoint with
+bit-identical batches. Parameters are drawn from the seed; no weights are
+downloaded.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -31,19 +35,21 @@ __all__ = ["main", "train"]
 
 
 def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
-          reduced: bool = False, ckpt_dir: str = "", save_every: int = 25,
-          microbatches: int = 1, compress: bool = False,
+          reduced: bool = False, layers: int | None = None, ckpt_dir: str = "",
+          save_every: int = 25, microbatches: int = 1, compress: bool = False,
           dtype: torch.dtype = torch.float32, log_every: int = 10, peak_lr: float = 3e-4,
           seed: int = 0, device=None):
     """Run ``steps`` train steps (resuming from ``ckpt_dir`` when it holds a
     checkpoint). Returns the final state and one record per step run:
     loss, grad_norm and lr as floats, and the step's host wall time in
     seconds (``step_s``, after a device synchronize). The reference returns
-    the losses alone."""
+    the losses alone. ``layers`` cuts the depth to that many layers."""
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg, remat=True)
     shape = ShapeSpec("cli", seq, batch, "train")
     data = SyntheticData(cfg, shape, seed=seed, device=device)
@@ -98,6 +104,7 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--arch", default="smollm-135m")
     p.add_argument("--reduced", action="store_true")
+    p.add_argument("--layers", type=int, default=None, help="cut the depth to N layers")
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=128)
@@ -112,7 +119,7 @@ def main(argv=None):
                    "the plain versions")
     args = p.parse_args(argv)
     train(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
-          reduced=args.reduced, ckpt_dir=args.ckpt_dir, save_every=args.save_every,
+          reduced=args.reduced, layers=args.layers, ckpt_dir=args.ckpt_dir, save_every=args.save_every,
           microbatches=args.microbatches, compress=args.compress, peak_lr=args.lr,
           seed=args.seed, device=args.device,
           dtype=torch.bfloat16 if args.bf16 else torch.float32)

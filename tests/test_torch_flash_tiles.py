@@ -245,7 +245,8 @@ def test_hd80_bf16_share_rule_at_hubert_length(fault):
 def test_tensor_core_route_by_dtype_and_head_dim(hd, dt):
     """The wrapper's route: a bf16 forward at hd 64, 80 or 128 runs on the
     tensor cores, f32 never does; the backward's tensor-core head dims lack
-    80 (hd 80 has no backward kernel)."""
+    80 (hd 80's backward runs on the CUDA cores, from the L its tensor-core
+    forward stores)."""
     q = torch.empty((1, 1, 1, hd), dtype=_TDT[dt])
     assert flash_ops._tensor_cores(q) == (dt == "bf16" and hd in (64, 80, 128))
     assert flash_ops._tensor_cores(q, WGMMA_BWD_HEAD_DIMS) == (dt == "bf16"

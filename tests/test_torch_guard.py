@@ -72,6 +72,21 @@ def test_port_imports_without_jax_or_repro():
         assert mod in names
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "step_rounding.py"])
+def test_card_scripts_import_no_jax_or_repro(script):
+    """The scripts run on the card import neither JAX nor ``repro``, at the
+    top or inside any function."""
+    import ast
+
+    with open(os.path.join(os.path.dirname(SRC), script)) as f:
+        tree = ast.parse(f.read())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    names |= {n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module and not n.level}
+    assert names and "torch" in names
+    assert not [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "repro")], names
+
+
 @pytest.mark.parametrize("arch", sorted(REGISTRY))
 def test_configs_equal_reference_records(arch):
     mine, ref = REGISTRY[arch], JAX_REGISTRY[arch]

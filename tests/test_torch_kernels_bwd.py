@@ -15,7 +15,8 @@ gradient:
   and the emulation of the backward kernels (``flash_mha_bwd_tiled``: L
   from the forward's tile loop, the balanced dK/dV splits and their ordered
   sum, dQ) against ``repro/kernels/flash_attention/ref.py::attention_ref``
-  (GQA, ragged S, hd 16 and 32) and, under a window with sinks,
+  (GQA, ragged S, hd 16, 32 and HuBERT's 80, Sq != Sk non-causal at hd
+  80) and, under a window with sinks,
   ``repro/models/attention.py::attention``; f32 1e-4. With
   ``tensor_cores`` (P and dS rounded to bf16, as the wgmma kernels feed
   them) within 2e-2 of each gradient's max, the rule the card holds the
@@ -36,6 +37,7 @@ The kernels themselves against these plain versions run on the card
 """
 import itertools
 import math
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -132,6 +134,8 @@ def _check(q, k, v, do, want, **mask):
     (2, 100, 4, 2, 16),       # G 2, ragged S: neither 64 nor 32 divides it
     (1, 150, 4, 1, 32),       # G 4 (MQA), ragged, several tiles
     (1, 96, 6, 3, 32),        # G 2, hd 32
+    (2, 100, 4, 4, 80),       # HuBERT's hd 80, MHA, ragged S
+    (1, 150, 4, 2, 80),       # hd 80, G 2, ragged, several tiles
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_backward_matches_jax_grad(B, S, H, KV, hd, causal):
@@ -162,6 +166,53 @@ def test_flash_backward_tiled_sq_ne_sk_matches_autograd(Sq, Sk, causal):
     for got, want in zip(flash_mha_bwd_tiled(q, k, v, o, do, causal=causal),
                          flash_mha_bwd_ref(q, k, v, do, causal=causal)):
         torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("Sq,Sk,KV", [(77, 150, 2), (150, 77, 1)])
+def test_flash_backward_hd80_sq_ne_sk_matches_jax_grad(Sq, Sk, KV):
+    """HuBERT's head dim with Sq != Sk both ways (the VLM's cross shape),
+    non-causal, where no mask alignment is in play: the plain backward and
+    the emulation against jax.vjp of attention_ref, f32."""
+    H, hd = 4, 80
+    q, k, v, do = (randn(70 + i, shape) for i, shape in enumerate(
+        ((2, Sq, H, hd), (2, Sk, KV, hd), (2, Sk, KV, hd), (2, Sq, H, hd))))
+
+    def flat(a):
+        return jnp.asarray(a).transpose(0, 2, 1, 3).reshape(-1, a.shape[1], hd)
+
+    _, vjp = jax.vjp(lambda a, b, c: attention_ref(a, b, c, n_q_heads_per_kv=H // KV,
+                                                   causal=False), flat(q), flat(k), flat(v))
+    want = [np.asarray(g).reshape(2, heads, S, hd).transpose(0, 2, 1, 3)
+            for g, heads, S in zip(vjp(flat(do)), (H, KV, KV), (Sq, Sk, Sk))]
+    _check(q, k, v, do, want, causal=False)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_delta_lane_map_reads_each_vector_once(hd, itemsize):
+    """The D kernel's lanes (``bwd_delta_reads``, the twin of
+    ``fa_bwd_delta``): every row of a 64-row tile gets one D, summed over
+    each of its 16-byte vectors exactly once. A row's vectors spread over
+    lanes rounded up to a power of two; the map before it (a lane per
+    vector) covers hd 16/32/64/128 the same way but breaks at hd 80, where
+    10 or 20 lanes a row straddle warps, the xor shuffle adds neighbouring
+    rows and the passes leave the tile's last rows without a D."""
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    from repro_torch.kernels.flash_attention.ref import bwd_delta_lanes, bwd_delta_reads
+
+    assert hd in HEAD_DIMS
+    parts = hd * itemsize // 16
+
+    def sound(writes):
+        return sorted(writes) == list(range(SIMT_TILE)) and all(
+            len(w) == 1 and w[0] == Counter({(r, p): 1 for p in range(parts)})
+            for r, w in writes.items())
+
+    assert sound(bwd_delta_reads(hd, itemsize))
+    lanes = bwd_delta_lanes(hd, itemsize)
+    assert lanes & (lanes - 1) == 0 and parts <= lanes <= 32
+    # the map before: one lane per vector
+    assert sound(bwd_delta_reads(hd, itemsize, lanes=parts)) == (hd != 80)
 
 
 def test_flash_wrapper_cpu_path_differentiates_the_plain_version():

@@ -201,20 +201,34 @@ def test_flash_cuda_rejects_unsupported_head_dim():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_flash_hd80_under_grad_refuses_before_the_forward(dt):
-    """hd 80 has a forward kernel and no backward one: under autograd the
-    wrapper raises when the forward is called, naming the backward, and
-    launches nothing; without grad the same call runs."""
+def test_flash_hd80_backward_vs_plain_and_twin(dt, monkeypatch):
+    """HuBERT's attention at full shape (B 4, T 1500, 16 heads of 80,
+    non-causal) under autograd: one forward (bf16: the tensor-core instance
+    that stores L) and one backward on the CUDA cores, against the plain
+    backward (f32 1e-4; bf16 within the share of each gradient's max of the
+    f32 backward) and the kernels' twin ``flash_mha_bwd_tiled`` on the same
+    output; a second backward gives the same bits."""
     require_sm90()
-    q = torch.from_numpy(randn(40, (1, 100, 4, 80))).to("cuda", _TDT[dt])
-    k = torch.from_numpy(randn(41, (1, 100, 4, 80))).to("cuda", _TDT[dt])
-    before = flash_mha.launches
-    with pytest.raises(ValueError, match="no backward"):
-        flash_mha(q.requires_grad_(), k, k, causal=False)
-    assert flash_mha.launches == before
-    with torch.no_grad():
-        close(flash_mha(q, k, k, causal=False), flash_mha_ref(q, k, k, causal=False),
-              1e-4 if dt == "f32" else TOL["flash_bf16"])
+    shape = (4, 1500, 16, 80)
+    q, k, v, do = (torch.from_numpy(randn(40 + i, shape)).to("cuda", _TDT[dt])
+                   for i in range(4))
+    kw = dict(causal=False)
+    want = flash_mha_bwd_ref(q.float(), k.float(), v.float(), do.float(), **kw)
+    _no_plain(monkeypatch)
+    out, grads = _flash_bwd_launched(q, k, v, do, kw)
+    twin = flash_mha_bwd_tiled(q, k, v, out.detach(), do, tensor_cores=False, **kw)
+    for got, w, t in zip(grads, want, twin):
+        if dt == "f32":
+            close(got, w, _BWD_TOL[("flash", dt)])
+            close(got, t, _BWD_TOL[("flash", dt)])
+        else:
+            assert bool(torch.isfinite(got).all())
+            for ref in (w, t.float()):
+                err = float((got.float() - ref).abs().max())
+                assert err <= _FLASH_BWD_BF16 * float(ref.abs().max()), err
+    _, again = _flash_bwd_launched(q, k, v, do, kw)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -287,16 +301,29 @@ def test_flash_wgmma_c_plan_is_the_python_plan(hd):
 
 @pytest.mark.gpu
 def test_flash_wgmma_hd80_attrs():
-    """The hd-80 serve instances (32-byte swizzle, 3 stages): no spill,
-    and shared memory within the 227 KiB a block may use; the instance that
-    stores L is not built (hd 80 has no backward), so asking for it raises."""
+    """The hd-80 instances (32-byte swizzle, 3 stages), serve and the one
+    that stores L for the backward: no spill, shared memory within the 227
+    KiB a block may use, and the L instance's output equal to the serve
+    instance's bit for bit (HuBERT's heads, non-causal; causal with a
+    window)."""
     require_sm90()
     for windowed in (False, True):
-        a = wgmma_kernel_attrs(80, windowed)
-        assert a["spill_bytes"] == 0 and 0 < a["registers"] <= 255, a
-        assert 140 * 1024 <= a["smem_bytes"] <= SMEM_PER_BLOCK, a
-        with pytest.raises(RuntimeError):
-            wgmma_kernel_attrs(80, windowed, lse=True)
+        for lse in (False, True):
+            a = wgmma_kernel_attrs(80, windowed, lse=lse)
+            assert a["spill_bytes"] == 0 and 0 < a["registers"] <= 255, a
+            assert 140 * 1024 <= a["smem_bytes"] <= SMEM_PER_BLOCK, a
+    for B, S, H, KV, kw in ((2, 1500, 16, 16, dict(causal=False)),
+                            (1, 300, 4, 2, dict(causal=True, window=100, n_sink=7))):
+        q = torch.from_numpy(randn(14, (B, S, H, 80))).to("cuda", torch.bfloat16)
+        k = torch.from_numpy(randn(15, (B, S, KV, 80))).to("cuda", torch.bfloat16)
+        v = torch.from_numpy(randn(16, (B, S, KV, 80))).to("cuda", torch.bfloat16)
+        serve, with_l = torch.empty_like(q), torch.empty_like(q)
+        lse = torch.full((B * H, lse_rows(S)), float("nan"), device="cuda")
+        flash_attention_wgmma_cuda(q, k, v, serve, **kw)
+        flash_attention_wgmma_cuda(q, k, v, with_l, lse=lse, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(serve, with_l)
+        assert bool(torch.isfinite(lse[:, :S]).all())
 
 
 @pytest.mark.gpu
@@ -645,13 +672,17 @@ _FLASH_BWD_CASES = [
     (1, 700, 25, 5, 64, True, 256, 128),      # window and sinks, skipped tiles
     (2, 300, 4, 2, 64, True, 100, 7),         # ragged window and sinks
     (1, 1152, 25, 5, 64, True, 1024, 128),    # hymba train heads
+    (2, 300, 16, 16, 80, False, 0, 0),        # HuBERT's heads (hd 80), ragged
+    (2, 333, 6, 2, 80, True, 0, 0),           # hd 80, causal, GQA
+    (1, 300, 4, 2, 80, True, 100, 7),         # hd 80, window and sinks
 ]
 
 
 def _flash_bwd_launched(q, k, v, do, kw):
     """Forward and backward through the wrapper; the rise of the counts
     (launches, wgmma_launches, bwd_launches, wgmma_bwd_launches) must be one
-    forward and one backward, on the tensor cores for bf16 at hd 64/128
+    forward and one backward, the forward on the tensor cores for bf16 at
+    hd 64/80/128 (``WGMMA_HEAD_DIMS``), the backward for bf16 at hd 64/128
     (``WGMMA_BWD_HEAD_DIMS``)."""
     qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
     names = ("launches", "wgmma_launches", "bwd_launches", "wgmma_bwd_launches")
@@ -660,8 +691,9 @@ def _flash_bwd_launched(q, k, v, do, kw):
     assert out.grad_fn is not None
     out.backward(do)
     torch.cuda.synchronize()
-    tc = int(q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_BWD_HEAD_DIMS)
-    assert [getattr(flash_mha, n) - b for n, b in zip(names, before)] == [1, tc, 1, tc]
+    bf16, hd = q.dtype == torch.bfloat16, q.shape[-1]
+    tc_fwd, tc_bwd = int(bf16 and hd in WGMMA_HEAD_DIMS), int(bf16 and hd in WGMMA_BWD_HEAD_DIMS)
+    assert [getattr(flash_mha, n) - b for n, b in zip(names, before)] == [1, tc_fwd, 1, tc_bwd]
     return out, (qr.grad, kr.grad, vr.grad)
 
 
@@ -708,7 +740,8 @@ def test_flash_backward_cuda_vs_plain(B, S, H, KV, hd, causal, window, n_sink, d
 @pytest.mark.gpu
 @pytest.mark.parametrize("Sq,Sk,hd,causal", [(200, 500, 128, True), (500, 200, 128, True),
                                              (77, 300, 64, False), (333, 140, 64, True),
-                                             (130, 60, 32, True)])
+                                             (130, 60, 32, True), (77, 300, 80, False),
+                                             (333, 140, 80, True)])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_backward_sq_ne_sk_cuda_vs_plain(Sq, Sk, hd, causal, dt, monkeypatch):
     """Sq != Sk both ways (the top-left causal mask), tails of neither tile,
@@ -745,7 +778,7 @@ def test_flash_forward_lse_instance(B, S, H, KV, hd, causal, window, n_sink, dt)
     k = torch.from_numpy(randn(7, (B, S, KV, hd))).to("cuda", _TDT[dt])
     v = torch.from_numpy(randn(8, (B, S, KV, hd))).to("cuda", _TDT[dt])
     kw = dict(causal=causal, window=window, n_sink=n_sink)
-    tc = dt == "bf16" and hd in WGMMA_BWD_HEAD_DIMS
+    tc = dt == "bf16" and hd in WGMMA_HEAD_DIMS
     launch = flash_attention_wgmma_cuda if tc else flash_attention_cuda
     plain, with_l = torch.empty_like(q), torch.empty_like(q)
     lse = torch.full((B * H, lse_rows(S)), float("nan"), device="cuda")
@@ -769,20 +802,33 @@ def test_flash_backward_split_plan_c_is_python():
                                                                          **kw))
 
 
+# shared memory per block of the CUDA-core dQ and dK/dV kernels
+# (simt_smem<HD> in csrc/flash_attention_bwd.cu): staged f32 rows padded by 4
+# floats, the [64][68] P / dS tiles, and L and D of the dK/dV kernel
+def _simt_bwd_smem(kernel, hd):
+    rows = 4 * 64 * (hd + 4)
+    return 4 * (rows + (2 * 64 * 68 + 128 if kernel == "dkdv" else 64 * 68))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 80])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_backward_kernel_attrs(hd, dt):
     """Registers, spill and shared memory of every backward instance a call
     launches, and of the forward instances that store L; the tensor-core
-    ones must not spill."""
+    ones must not spill; the CUDA-core ones ask for their plan's shared
+    memory (hd 80: 118.5 KiB for dK/dV, 101.0 KiB for dQ)."""
     require_sm90()
     for kernel in ("dq", "dkdv", "delta", "finalize"):
         a = flash_bwd_attrs(kernel, hd, _TDT[dt])
         assert a["registers"] > 0
-        if dt == "bf16" and hd in WGMMA_BWD_HEAD_DIMS and kernel in ("dq", "dkdv"):
+        if kernel not in ("dq", "dkdv"):
+            continue
+        if dt == "bf16" and hd in WGMMA_BWD_HEAD_DIMS:
             assert a["spill_bytes"] == 0 and a["smem_bytes"] > 48 * 1024, a
-    if dt == "bf16" and hd in WGMMA_BWD_HEAD_DIMS:
+        else:
+            assert a["smem_bytes"] == _simt_bwd_smem(kernel, hd), a
+    if dt == "bf16" and hd in WGMMA_HEAD_DIMS:
         for windowed in (False, True):
             assert (wgmma_kernel_attrs(hd, windowed, lse=True)["spill_bytes"]
                     == wgmma_kernel_attrs(hd, windowed)["spill_bytes"] == 0)

@@ -10,7 +10,8 @@ ssm_scan backward, meta tokens, window and sinks), also under "save-attn";
 qwen3-moe-30b-a3b (the MoE backward through the router's gates); xlstm-125m
 (mLSTM and sLSTM cells); llama-3.2-vision-90b with its cross-attention
 gates opened (the nested groups, remat of each self layer and of each
-group); and hubert-xlarge (frames, non-causal attention, the untied head).
+group); and hubert-xlarge (frames, non-causal attention, the untied head),
+also at its own head dim 80.
 Then the optimizer, schedules,
 int8 quantization, data and checkpoints, each against the JAX package, and
 the training CLI.
@@ -21,6 +22,7 @@ moves an element by about +-lr * sign(g), so an element whose gradient sits
 at rounding level may flip: new parameters at atol 2 lr, and their mean
 absolute difference at most 1e-3 lr.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -121,8 +123,18 @@ def test_save_attn_hybrid_step_matches_jax():
     _step_matches_jax("hymba-1.5b", 1, False, remat_policy="save-attn")
 
 
-def _step_matches_jax(arch, microbatches, compress_on, remat_policy="full"):
-    cfg, jcfg = REGISTRY[arch].reduced(), JAX_REGISTRY[arch].reduced()
+def test_hubert_hd80_step_matches_jax():
+    """hubert-xlarge narrowed to 4 heads of its own head dim 80 (d 320): the
+    flash backward at hd 80 (the wrapper's plain path here; the kernel's
+    algorithm is held in test_torch_kernels_bwd.py)."""
+    assert dataclasses.replace(REGISTRY["hubert-xlarge"].reduced(), d_model=320).hd == 80
+    _step_matches_jax("hubert-xlarge", 1, False, d_model=320)
+
+
+def _step_matches_jax(arch, microbatches, compress_on, remat_policy="full", **changes):
+    cfg = dataclasses.replace(REGISTRY[arch].reduced(), **changes)
+    jcfg = dataclasses.replace(JAX_REGISTRY[arch].reduced(), **changes)
+    assert cfg.hd == jcfg.hd
     model = build_model(cfg, remat_policy=remat_policy)
     jmodel = jax_build_model(jcfg, remat_policy=remat_policy)
     tree = _numpy_params(model, 0)
@@ -426,3 +438,21 @@ def test_train_cli_runs_and_resumes(tmp_path):
     assert "[resume] restored step 2, data cursor 2" in r.stdout
     assert "steps 2->5" in r.stdout and "step     4" in r.stdout
     assert sorted(os.listdir(tmp_path)) == ["step_00000002", "step_00000004"]
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-30b-a3b"])
+def test_train_layers_cuts_the_depth(arch):
+    """``train(..., layers=N)`` trains the arch at its width with N layers:
+    every stacked layer leaf has N rows and the same shape otherwise."""
+    from repro_torch.launch.train import train
+
+    full, _ = train(arch, steps=1, batch=2, seq=16, reduced=True, device="cpu", log_every=1)
+    cut, history = train(arch, steps=1, batch=2, seq=16, reduced=True, layers=2,
+                         device="cpu", log_every=1)
+    assert np.isfinite(history[0]["loss"])
+    for seg_full, seg_cut in zip(full["params"]["segments"], cut["params"]["segments"]):
+        assert sorted(seg_full) == sorted(seg_cut)
+        for name in seg_full:
+            assert seg_full[name].shape[0] == 4, name
+            assert seg_cut[name].shape == (2,) + seg_full[name].shape[1:], name
+    assert cut["params"]["embed"].shape == full["params"]["embed"].shape
