@@ -83,8 +83,10 @@ run (non-zero exit, no result line):
      encode of hubert-xlarge, with the top kernels and flash attention's
      share of the device time (torch.profiler);
   7. train  — the backward kernels (rmsnorm: dx, dw; flash attention: dQ,
-     dK, dV; bf16 at hd 64/128 on the tensor cores; HuBERT's hd 80 and the
-     VLM's self and cross heads among the shapes) at the train shapes
+     dK, dV; bf16 at hd 64/80/128 on the tensor cores, with each launch's
+     waves; HuBERT's hd 80 also against its tile twin, with its own L and
+     with the kernel's, held to 1e-2, the same logged at hd 64/128; HuBERT's and
+     the VLM's self and cross heads among the shapes) at the train shapes
      through the wrappers' autograd, against the plain versions' autograd
      on the card (bf16 flash against the plain backward in f32 of the same
      inputs, each gradient within a share of its max, beside the readings
@@ -104,6 +106,10 @@ run (non-zero exit, no result line):
      with the plain versions patched in, from the same state: loss, grad
      norm, each leaf's gradient (its first AdamW moment) and new parameters
      must agree, and a step with a wrong dK must fail the gradient check;
+     the same with 2 microbatches and EF int8 compression (the gradient
+     read as the moment plus the residual; besides, the int8 codes that the
+     moments hold: each within one code of the plain step's, the share that
+     differ under a cap, and the wrong backward must fail that);
      the ssm_scan backward kernel at hymba's train shape [4, 1152, 51200]
      and ragged ones, f32 and bf16, against the plain reverse scan and a
      second call's bits, timed beside its bound, the plain reverse scan and
@@ -116,8 +122,8 @@ run (non-zero exit, no result line):
      backward with da x 1.1 in the scan must fail;
   7c. audio train — launch/train.py::train for hubert-xlarge at full width
      and depth, B 4 x T 1500, remat "full": 4 f32 steps and 3 bf16 steps
-     with exact counts (bf16: every flash forward on the tensor cores, every
-     backward on the CUDA cores), one profiled step of each; the step at 4
+     with exact counts (bf16: every flash forward and backward on the tensor
+     cores, 48 backwards a step), one profiled step of each; the step at 4
      layers kernels vs plain, whose check dK x 1.1 must fail;
   7d. xLSTM train — xlstm-125m at full width and depth, f32, B 4, S 1024,
      4 steps with exact rmsnorm counts, one profiled step; kernels vs plain
@@ -178,6 +184,12 @@ BWD_FLASH_BF16 = 2e-2
 # (0.1 x its clipped gradient) within this share of the leaf's max; the
 # step's peak learning rate
 STEP_GRAD_TOL = 1e-4
+# the same step under EF int8 compression: the share of the codes the
+# moments hold that may differ from the plain step's (each by one at most),
+# and how far a recovered code may sit from an integer (and |e'| beyond
+# half a code step, as a share of it)
+EF_FLIP_SHARE = 1e-3
+EF_CODE_OFF = 1e-2
 STEP_LR = 3e-4
 DENSE, HYBRID, MOE, CAMPAIGN = "qwen2-1.5b", "hymba-1.5b", "qwen3-moe-30b-a3b", "lm_full_pod"
 XLSTM, VLM, AUDIO = "xlstm-125m", "llama-3.2-vision-90b", "hubert-xlarge"
@@ -1582,10 +1594,11 @@ def _flash_bf16_check(torch, name, inputs, kw, grads) -> float:
 
 
 # the previous design's readings of the backward kernels (scalar, one warp a
-# row), of the forward under autograd (then the serve instance) and of the
-# f32 forward's serve instance (the scalar kernel, four threads a row, before
-# the CUDA-core kernel's register tiles), as PERF.md §6 records them (NVIDIA
-# H100 80GB HBM3, 700.00 W), printed beside this run's
+# row; at HuBERT's hd 80 in bf16, the CUDA-core kernels that the tensor-core
+# ones replaced), of the forward under autograd (then the serve instance) and
+# of the f32 forward's serve instance (the scalar kernel, four threads a row,
+# before the CUDA-core kernel's register tiles), as PERF.md §6 records them
+# (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
 BEFORE_MS = {("rmsnorm_bwd", (4096, 1536), "float32"): 0.07658,
            ("rmsnorm_bwd", (4096, 1536), "bfloat16"): 0.05462,
            ("rmsnorm_bwd", (49152, 128), "float32"): 0.05875,
@@ -1594,6 +1607,7 @@ BEFORE_MS = {("rmsnorm_bwd", (4096, 1536), "float32"): 0.07658,
            ("flash_attention_bwd", (4, 1024, 12, 2, 128, 0, 0), "bfloat16"): 6.075,
            ("flash_attention_bwd", (4, 1152, 25, 5, 64, 1024, 128), "float32"): 5.417,
            ("flash_attention_bwd", (4, 1152, 25, 5, 64, 1024, 128), "bfloat16"): 5.421,
+           ("flash_attention_bwd", (4, 1500, 16, 16, 80, 0, 0), "bfloat16"): 5.995,
            ("flash_attention_fwd", (4, 1024, 12, 2, 128, 0, 0), "float32"): 1.577,
            ("flash_attention_fwd", (4, 1024, 12, 2, 128, 0, 0), "bfloat16"): 0.056,
            ("flash_attention_fwd", (4, 1152, 25, 5, 64, 1024, 128), "float32"): 1.576,
@@ -1622,9 +1636,9 @@ def train_kernels(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
-        WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS, bwd_kernel_attrs, flash_attention_bwd_cuda,
-        flash_attention_cuda, flash_attention_wgmma_cuda, flash_kernel_attrs, lse_rows,
-        wgmma_kernel_attrs)
+        SIMT_TILE, WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS, bwd_kernel_attrs, bwd_slots,
+        flash_attention_bwd_cuda, flash_attention_cuda,
+        flash_attention_wgmma_cuda, flash_kernel_attrs, lse_rows, wgmma_kernel_attrs)
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.flash_attention.ref import (flash_mha_bwd_ref, flash_mha_bwd_tiled,
                                                          flash_mha_ref)
@@ -1703,9 +1717,9 @@ def train_kernels(torch):
 
     log("[train] flash attention backward vs plain (dQ, dK, dV)")
     # (B, S, H, KV, hd, window, n_sink), causal: qwen2; hymba's window and
-    # sinks; HuBERT's non-causal hd 80 (the CUDA-core backward in both
-    # dtypes, its bf16 forward on the tensor cores); the VLM's self and cross
-    # attention at full width (text queries over its 1024 image tokens)
+    # sinks; HuBERT's non-causal hd 80 (bf16: forward and backward on the
+    # tensor cores; f32 on the CUDA cores); the VLM's self and cross attention at full width (text
+    # queries over its 1024 image tokens)
     names = ("launches", "wgmma_launches", "bwd_launches", "wgmma_bwd_launches")
     for case, causal in FLASH_BWD_CASES:
         B, S, H, KV, hd, win, ns = case
@@ -1733,20 +1747,6 @@ def train_kernels(torch):
                 del want
             else:
                 err = _flash_bf16_check(torch, name, (q, k, v, do), kw, grads)
-            if hd == 80:
-                # the new hd-80 kernels against their twin on the same output
-                # (P and dS in f32, as on the CUDA cores)
-                twin = flash_mha_bwd_tiled(q, k, v, out.detach(), do, tensor_cores=False, **kw)
-                for g, got, w in zip(("dQ", "dK", "dV"), grads, twin):
-                    if dt == torch.float32:
-                        compare(f"{name} {g} vs its tile twin", got, w, BWD_TOL[("flash", dn)])
-                        continue
-                    share = float((got.float() - w.float()).abs().max() / w.float().abs().max())
-                    log(f"  {name} {g} vs its tile twin: max|err| / max|want| {share:.3e} "
-                        f"(limit {BWD_FLASH_BF16:g}) {'ok' if share <= BWD_FLASH_BF16 else 'FAIL'}")
-                    if share > BWD_FLASH_BF16:
-                        raise AssertionError(f"{name} {g}: kernel disagrees with its tile twin")
-                del twin
             first = tuple(t.clone() for t in grads)
             qr.grad = kr.grad = vr.grad = None
             flash_mha(qr, kr, vr, **kw).backward(do)
@@ -1760,6 +1760,36 @@ def train_kernels(torch):
             serve_ms = timer(lambda: fwd(q, k, v, o2, **kw))
             if not torch.equal(o, o2):
                 raise AssertionError(f"{name}: the forward that stores L changed the output")
+            if hd == 80 or tc:
+                # the kernels against their twin on the same output (bf16: P
+                # and dS rounded as the tensor cores take them; f32: kept in
+                # f32, as on the CUDA cores), the twin with its own L and
+                # with the kernel's: what rounding of L moves (held at hd 80,
+                # logged at hd 64/128)
+                own = flash_mha_bwd_tiled(q, k, v, out.detach(), do, tensor_cores=tc, **kw)
+                kl = (flash_mha_bwd_tiled(q, k, v, out.detach(), do, tensor_cores=tc,
+                                          lse=lse.view(B, H, -1)[:, :, :S], **kw) if tc
+                      else own)
+                # at hd 80 in bf16, the twin itself against the f32 plain
+                # backward: how far P's bf16 rounding alone moves each gradient
+                exact = (flash_mha_bwd_ref(q.float(), k.float(), v.float(), do.float(), **kw)
+                         if tc and hd == 80 else own)
+                for g, got, w, w_kl, w_x in zip(("dQ", "dK", "dV"), grads, own, kl, exact):
+                    if dt == torch.float32:
+                        compare(f"{name} {g} vs its tile twin", got, w, BWD_TOL[("flash", dn)])
+                        continue
+                    share, share_kl = (float((got.float() - t.float()).abs().max()
+                                             / t.float().abs().max()) for t in (w, w_kl))
+                    ok = max(share, share_kl) <= TWIN_TOL or hd != 80
+                    log(f"  {name} {g} vs its tile twin: max|err| / max|want| {share:.3e}, "
+                        f"the twin on the kernel's L {share_kl:.3e}"
+                        + (f" (limit {TWIN_TOL:g}) {'ok' if ok else 'FAIL'}; the twin vs the "
+                           f"f32 plain backward "
+                           f"{float((w.float() - w_x).abs().max() / w_x.abs().max()):.3e}"
+                           if hd == 80 else " (logged)"))
+                    if not ok:
+                        raise AssertionError(f"{name} {g}: kernel disagrees with its tile twin")
+                del own, kl, exact
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
             def bwd():
@@ -1792,11 +1822,19 @@ def train_kernels(torch):
             prev = BEFORE_MS.get(("flash_attention_bwd", case, dn))
             prev_fwd = BEFORE_MS.get(("flash_attention_fwd", case, dn))
             attrs = {kn: bwd_kernel_attrs(kn, hd, dt) for kn in ("dkdv", "dq")}
+            # waves: the blocks of a launch over the blocks the card holds at once
+            blocks = {"dkdv": bwd_slots(S, S, H, KV, **kw) * B * KV,
+                      "dq": B * H * -(-S // SIMT_TILE)}
+            waves = {kn: blocks[kn] / (attrs[kn]["blocks_per_sm"] * n_sm) for kn in blocks}
             log(f"    {'tensor-core (wgmma)' if tc else 'CUDA-core (SIMT)'} kernels: dK/dV "
                 f"{_attrs_str(attrs['dkdv'])}; dQ {_attrs_str(attrs['dq'])}"
                 + "; forward that stores L "
                 + ("(wgmma) " + _attrs_str(wgmma_kernel_attrs(hd, win > 0, True)) if tc_fwd
                    else "(SIMT) " + _attrs_str(flash_kernel_attrs(hd, dt, True))))
+            log("    waves: " + "; ".join(
+                f"{'dK/dV' if kn == 'dkdv' else 'dQ'} {blocks[kn]} blocks at "
+                f"{attrs[kn]['blocks_per_sm']} an SM over {n_sm} SMs, {waves[kn]:.2f}"
+                for kn in blocks))
             log(f"    backward {ms:.3f} ms"
                 + (f" (before: {prev:.3f} ms, {prev / ms:.1f}x)" if prev else "") + " | bound "
                 f"{bound * 1e3:.2f} us ({by}: the function's 5 products, {byts / 1e6:.2f} MB, "
@@ -1815,6 +1853,7 @@ def train_kernels(torch):
             rows[("flash_attention_bwd", case + (causal,), dn)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=lib, forward_autograd_ms=fwd_ms, forward_serve_ms=serve_ms,
+                **{f"{kn}_waves": w for kn, w in waves.items()},
                 **{f"{kn}_{key}": val for kn, a in attrs.items() for key, val in a.items()})
             del q, k, v, do, qr, kr, vr, out, o, o2, lse, dq, dk, dv, qp, kp, vp, qt, kt, vt
             del yl, grads, first
@@ -2062,9 +2101,8 @@ def phase_train_audio(torch):
     """7c: launch/train.py::train for hubert-xlarge at full width and depth
     (1.26 B parameters), remat "full", B 4 x T 1500 (30 s of audio a row):
     4 f32 steps and 3 bf16 steps, each with exact counts (bf16: every flash
-    forward on the tensor cores, every backward on the CUDA cores: no
-    tensor-core backward at hd 80), and one profiled step of each. Returns
-    the two runs' launches and numbers."""
+    forward and every backward on the tensor cores, L of each), and one
+    profiled step of each. Returns the two runs' launches and numbers."""
     from repro_torch.configs import get_config
 
     cfg = get_config(AUDIO)
@@ -2079,8 +2117,8 @@ def phase_train_audio(torch):
     runs = []
     for dtype, steps, extra, note in (
             (torch.float32, a["steps"], {}, ""),
-            (torch.bfloat16, a["bf16_steps"], dict(wgmma=2 * L),
-             ", every flash forward on the tensor cores, every backward on the CUDA cores")):
+            (torch.bfloat16, a["bf16_steps"], dict(wgmma=2 * L, wgmma_bwd=L),
+             ", every flash forward and backward on the tensor cores")):
         state, run = _train_full(torch, AUDIO, dict(per_step, **extra), steps, a["batch"],
                                  a["seq"], dtype, rule + note)
         _profile_train_step(torch, cfg, state, a["batch"], a["seq"],
@@ -2207,10 +2245,11 @@ def patched(fns):
             setattr(m, n, f)
 
 
-def step_setup(torch, arch, cut, B, S, reduced=False):
+def step_setup(torch, arch, cut, B, S, reduced=False, microbatches=1, compress=False):
     """The config (``reduced``: its reduced() one, then the fields ``cut``
-    replaced), the f32 step function, a function that draws the train state
-    anew from one seed (the VLM's gates opened) and one batch."""
+    replaced), the f32 step function (``microbatches``, EF ``compress``), a
+    function that draws the train state anew from one seed (the VLM's gates
+    opened) and one batch."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2221,11 +2260,12 @@ def step_setup(torch, arch, cut, B, S, reduced=False):
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg.reduced() if reduced else cfg, **cut)
     model = build_model(cfg)
-    step_fn = make_train_step(model, lr_schedule=schedule_for(cfg, STEP_LR, 0, 100))
+    step_fn = make_train_step(model, lr_schedule=schedule_for(cfg, STEP_LR, 0, 100),
+                              microbatches=microbatches, compress=compress)
 
     def fresh():
         state = init_state(model, torch.Generator(device="cuda").manual_seed(2),
-                           dtype=torch.float32, device="cuda")
+                           dtype=torch.float32, compress=compress, device="cuda")
         if cfg.family == "vlm":
             _open_gates(state["params"])
         return state
@@ -2251,20 +2291,75 @@ def one_step(torch, step_fn, fresh, batch, fns=None):
     return state, metrics, launches, drawn
 
 
-def moment_shares(want, got) -> dict:
+def moment_shares(want, got, ef=False) -> dict:
     """Each leaf's max |m - m_want| over want's max |m| (m: the first AdamW
-    moment, 0.1 x the clipped gradient after one step from zero)."""
+    moment, 0.1 x the clipped gradient after one step from zero). ``ef``:
+    the step compressed that gradient to int8 with error feedback, so m is
+    0.1 x its quantized form and the state's residual e' holds the rest; m +
+    0.1 e' is then 0.1 x the clipped gradient again, the quantity compared."""
     from repro_torch.train.optim import tree_leaves
 
+    def moments(state):
+        m = tree_leaves(state["opt"]["m"])
+        return [a + 0.1 * e for a, e in zip(m, tree_leaves(state["ef"]))] if ef else m
+
     return {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-            for n, a, b in zip(_leaf_names(want["opt"]["m"]), tree_leaves(got["opt"]["m"]),
-                               tree_leaves(want["opt"]["m"]))}
+            for n, a, b in zip(_leaf_names(want["opt"]["m"]), moments(got), moments(want))}
+
+
+def ef_codes(torch, state):
+    """The int8 codes that EF compression gave each gradient element, read
+    back from one step's first AdamW moments (m = 0.1 x code x the block's
+    scale, the block's largest |code| 127), by leaf, with the largest
+    distance of a recovered code from an integer and the largest |e'| in
+    half code steps (e' is what rounding to the nearest code left: at most
+    one half step when the quantizer is sound)."""
+    import torch.nn.functional as F
+
+    from repro_torch.train.compress import BLOCK
+    from repro_torch.train.optim import tree_leaves
+
+    codes, off, resid = [], 0.0, 0.0
+    for m, e in zip(tree_leaves(state["opt"]["m"]), tree_leaves(state["ef"])):
+        n = m.numel()
+
+        def blocks(t):
+            return F.pad(t.reshape(-1), (0, -n % BLOCK)).view(-1, BLOCK)
+
+        step = blocks(m).abs().amax(-1, keepdim=True) / 127      # 0.1 x the block's scale
+        x = torch.where(step > 0, blocks(m) / step, torch.zeros((), device=m.device))
+        c = x.round()
+        off = max(off, float((x - c).abs().max()))
+        half = torch.where(step > 0, 0.2 / step, torch.zeros((), device=m.device))
+        resid = max(resid, float((blocks(e).abs() * half).max()))
+        codes.append((c.reshape(-1)[:n], (step > 0).expand(-1, BLOCK).reshape(-1)[:n]))
+    return codes, off, resid
+
+
+def ef_code_diffs(torch, want, got) -> dict:
+    """The codes of ``got``'s step against ``want``'s (``ef_codes``): the
+    codes held (elements of blocks that are not all zero in ``want``), how
+    many differ, how many by more than one, the largest distance, and each
+    state's checks of its own quantization."""
+    cw, off_w, res_w = ef_codes(torch, want)
+    cg, off_g, res_g = ef_codes(torch, got)
+    held = flips = far = 0
+    most = 0.0
+    for (a, _), (b, live) in zip(cg, cw):
+        d = (a - b).abs()[live]
+        held += int(live.sum())
+        flips += int((d > 0).sum())
+        far += int((d > 1).sum())
+        most = max(most, float(d.max()) if d.numel() else 0.0)
+    return dict(held=held, flips=flips, far=far, most=most, off=max(off_w, off_g),
+                resid=max(res_w, res_g))
 
 
 def train_step_vs_plain(torch, arch, cut, B=TRAIN["batch"], S=TRAIN["seq"], reduced=False,
-                        grad_tol=STEP_GRAD_TOL, norm_tol=1e-4):
+                        grad_tol=STEP_GRAD_TOL, norm_tol=1e-4, microbatches=1, compress=False):
     """One f32 train step of ``arch`` at full width (``reduced``: its
-    reduced() config), cut by the config fields ``cut``, with the kernels,
+    reduced() config), cut by the config fields ``cut`` (``microbatches``
+    and EF ``compress`` as make_train_step takes them), with the kernels,
     then the same step from the same state with the plain versions patched
     in: loss at rel 1e-4 and grad norm at rel ``norm_tol``; each leaf's
     gradient, read from its first AdamW moment, within ``grad_tol`` of the
@@ -2274,10 +2369,14 @@ def train_step_vs_plain(torch, arch, cut, B=TRAIN["batch"], S=TRAIN["seq"], redu
     backward (dK x 1.1 in attention; in a hybrid model da x 1.1 in the scan;
     in xLSTM, which has no attention, dx x 1.1 in rmsnorm), must fail the
     moment check by 10x. Each step starts from a state drawn anew from one
-    seed, so at most two states are held at once."""
+    seed, so at most two states are held at once. Under ``compress`` the
+    gradient is read as the moment plus 0.1 x the EF residual
+    (``moment_shares``); beside it the moments alone, which hold the int8
+    codes, and the count of codes that differ are logged."""
     from repro_torch.train.optim import tree_leaves
 
-    cfg, step_fn, fresh, batch = step_setup(torch, arch, cut, B, S, reduced)
+    cfg, step_fn, fresh, batch = step_setup(torch, arch, cut, B, S, reduced, microbatches,
+                                            compress)
     hybrid, attention = cfg.family == "hybrid", cfg.family != "ssm"
     lr = STEP_LR
     state, mk, ran, drawn = one_step(torch, step_fn, fresh, batch)
@@ -2297,7 +2396,21 @@ def train_step_vs_plain(torch, arch, cut, B=TRAIN["batch"], S=TRAIN["seq"], redu
     worst = max(float(d.max()) for d in diffs)
     mean = float(sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs))
     del diffs
-    grads_k = moment_shares(twin, state)
+    grads_k = moment_shares(twin, state, compress)
+    if compress:
+        codes = moment_shares(twin, state)
+        leaf_c = max(codes, key=codes.get)
+        # elements whose moment moved by more than the limit: an int8 code
+        # that flipped, where the block's scaled gradient sat within
+        # rounding of a half-step
+        beyond = sum(int(((a - b).abs() > grad_tol * b.abs().max()).sum())
+                     for a, b in zip(tree_leaves(state["opt"]["m"]),
+                                     tree_leaves(twin["opt"]["m"])))
+        cd_k = ef_code_diffs(torch, twin, state)
+        log(f"[train] EF int8 compression, microbatches {microbatches}: the moments alone "
+            f"(0.1 x the quantized gradient) differ by up to {codes[leaf_c]:.3e} of a leaf's "
+            f"max (worst leaf {leaf_c}; {beyond:,} elements beyond {grad_tol:.0e} of their "
+            f"leaf's max); read with the residual, below")
     del state
     torch.cuda.empty_cache()
     if hybrid:
@@ -2307,12 +2420,15 @@ def train_step_vs_plain(torch, arch, cut, B=TRAIN["batch"], S=TRAIN["seq"], redu
     else:
         wrong_what, wrong_fns = "dx x 1.1 in rmsnorm", plain_versions(torch, dx=1.1)
     wrong = one_step(torch, step_fn, fresh, batch, wrong_fns)[0]
-    grads_w = moment_shares(twin, wrong)
+    grads_w = moment_shares(twin, wrong, compress)
+    if compress:
+        cd_w = ef_code_diffs(torch, twin, wrong)
     del wrong
     leaf_k, leaf_w = max(grads_k, key=grads_k.get), max(grads_w, key=grads_w.get)
     n_params = sum(t.numel() for t in tree_leaves(twin["params"]))
     log(f"[train] {cfg.name} at {cfg.n_layers} layers ({n_params / 1e6:.1f} M parameters), "
-        f"B={B} S={S}, one f32 step, kernels vs plain on the "
+        f"B={B} S={S}" + (f", {microbatches} microbatches" if microbatches > 1 else "")
+        + (", EF int8 compression" if compress else "") + ", one f32 step, kernels vs plain on the "
         f"card: loss {float(mk['loss']):.6f} / {float(mp['loss']):.6f} (rel {rel['loss']:.2e}), "
         f"grad_norm {float(mk['grad_norm']):.6f} / {float(mp['grad_norm']):.6f} (rel "
         f"{rel['grad_norm']:.2e}, limit {norm_tol:.1e}); new params max |diff| {worst:.3e} "
@@ -2324,6 +2440,26 @@ def train_step_vs_plain(torch, arch, cut, B=TRAIN["batch"], S=TRAIN["seq"], redu
         f"(worst leaf {leaf_w})")
     del twin
     torch.cuda.empty_cache()
+    if compress:
+        def codes_ok(cd):
+            return cd["most"] <= 1 and cd["flips"] <= EF_FLIP_SHARE * cd["held"]
+
+        for who, cd in (("kernels", cd_k), (f"a wrong backward ({wrong_what})", cd_w)):
+            log(f"[train] EF int8 codes, {who} vs plain: {cd['held']:,} codes held, "
+                f"{cd['flips']:,} differ ({cd['flips'] / cd['held']:.3e} of them; cap "
+                f"{EF_FLIP_SHARE:g}), {cd['far']:,} by more than one (largest {cd['most']:g}); "
+                f"limits: every code within one of the plain step's and the share under the "
+                f"cap | quantization of each state: recovered codes off an integer by "
+                f"{cd['off']:.1e} (limit {EF_CODE_OFF:g}), |e'| up to {cd['resid']:.4f} of a "
+                f"half step (limit {1 + EF_CODE_OFF:g})")
+        for cd in (cd_k, cd_w):
+            if cd["off"] > EF_CODE_OFF or cd["resid"] > 1 + EF_CODE_OFF:
+                raise AssertionError("a step's moments and residuals are not one per-block "
+                                     "int8 rounding of its gradient")
+        if not codes_ok(cd_k):
+            raise AssertionError("the kernel step's int8 codes disagree with the plain step's")
+        if codes_ok(cd_w):
+            raise AssertionError(f"the int8 code check would pass a backward with {wrong_what}")
     if (rel["loss"] > 1e-4 or rel["grad_norm"] > norm_tol or worst > 2 * lr
             or mean > 1e-3 * lr):
         raise AssertionError("the kernel step and the plain step disagree")
@@ -2410,6 +2546,8 @@ def main() -> int:
         rows.update(train_kernels(torch))
         dense_runs = phase_train(torch)
         train_step_vs_plain(torch, DENSE, dict(n_layers=TRAIN["check_layers"]))
+        train_step_vs_plain(torch, DENSE, dict(n_layers=TRAIN["check_layers"]),
+                            microbatches=2, compress=True)
         hybrid_run = phase_train_hybrid(torch)
         train_step_vs_plain(torch, HYBRID, HYBRID_TRAIN["check"])
         t0 = time.perf_counter()
@@ -2515,9 +2653,8 @@ def main() -> int:
         kernels[-1].update(stats)
 
     # the train paths, f32 (the launcher's default) and bf16 (f32 flash runs
-    # the CUDA-core kernel, bf16 at hd 64/80/128 the tensor-core one; the
-    # backward on the tensor cores for bf16 at hd 64/128, else on the CUDA
-    # cores); launches from the full-width runs of phases 7 to 7d
+    # the CUDA-core kernel, bf16 at hd 64/80/128 the tensor-core one, both
+    # ways); launches from the full-width runs of phases 7 to 7d
     qwen = ((4, 1024, 1024, 12, 2, 128, True, 0, 0), QWEN_BWD, True)
     f32, b16 = dense_runs
     train_path(DENSE, "float32", f32["launches"], (4096, 1536), qwen,

@@ -61,7 +61,7 @@ _SIGNATURES = {
                                   _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                                   _INT, _INT, _F32, _INT, _VP),
     "repro_flash_attention_bwd_slots": (_INT, _INT, _INT, _INT, _INT, _INT, _INT),
-    "repro_flash_attention_bwd_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP),
+    "repro_flash_attention_bwd_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP, _INTP),
     "repro_ssm_scan": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "repro_ssm_scan_bwd": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "repro_ssm_scan_attrs": (_INT, _INT, _INTP, _INTP, _INTP),

@@ -47,8 +47,8 @@
 //     added in split order, dK scaled, both cast to the output dtype (a key
 //     tile no row sees gets zeros).
 //
-// bf16 at hd 64 and 128 (every bf16 train step of qwen2 and hymba) runs (b)
-// and (c) on the tensor cores, with the forward's machinery
+// bf16 at hd 64, 80 and 128 (every bf16 train step of qwen2, hymba and
+// HuBERT) runs (b) and (c) on the tensor cores, with the forward's machinery
 // (flash_wgmma.cuh): a producer warpgroup (one thread issues every TMA load;
 // setmaxnreg 24) and one consumer warpgroup (setmaxnreg 232), two blocks an
 // SM (__launch_bounds__(256, 2)).
@@ -63,17 +63,24 @@
 // * dQ: the consumer owns 64 query rows (Q, dO loaded once; L and D in
 //   registers); K/V tiles of 64 keys stream in: S = Q K^T, dP = dO V^T, dS
 //   rounded to bf16, dQ += dS K (K MN-major).
+// * Layout (WCfg<HD>, as the forward's Cfg<HD>): a 64-row tile is TMA boxes
+//   side by side. hd 64 and 128 take 64-column boxes under the 128-byte
+//   swizzle. HuBERT's hd 80 (160-byte rows: a multiple of 32 bytes, not of
+//   64) takes five 16-column boxes under the 32-byte swizzle: each box is one
+//   k-step of S^T, dP^T (S, dP) and one 16-column atom of the MN-major B
+//   operand, which reads the boxes one box (2,048 B) apart; dK, dV and dQ by
+//   m64n80k16; 3 stages, 82.6 KiB a block. TMA zero-fills rows past Sq and
+//   Sk, so the last tiles of a ragged length (HuBERT's T 1500 = 23 x 64 +
+//   28) take the mask test on every fragment.
 // Every other call (f32, kept true f32 as on the rest of the port, and bf16
-// at hd 16/32/80) runs (b) and (c) on the CUDA cores as register-tiled
-// products from shared memory (a SIMT GEMM): 256 threads as 16 x 16, each
-// owning a 4 x 4 block of S^T/dP^T (S/dP in dQ), then 4 rows x hd/16 columns
-// of dK and dV (dQ); tiles staged as f32 rows padded by 4 floats, read as
-// float4 (flash_simt.cuh, shared with the forward). HuBERT's hd 80 (160- or
-// 320-byte rows) takes five single columns a thread (Cols<80>) and a partial
-// last group of 16-byte loads, as the forward's instance does: dK/dV 118.5
-// KiB of shared memory, dQ 101.0 KiB, one block an SM. A bf16 call at hd 80
-// runs these kernels too (its forward runs on the tensor cores and stores L
-// for them): no tensor-core backward at hd 80 yet.
+// at hd 16/32) runs (b) and (c) on the CUDA cores as register-tiled products
+// from shared memory (a SIMT GEMM): 256 threads as 16 x 16, each owning a
+// 4 x 4 block of S^T/dP^T (S/dP in dQ), then 4 rows x hd/16 columns of dK
+// and dV (dQ); tiles staged as f32 rows padded by 4 floats, read as float4
+// (flash_simt.cuh, shared with the forward). f32 at HuBERT's hd 80 (320-byte
+// rows) takes five single columns a thread (Cols<80>) and a partial last
+// group of 16-byte loads, as the forward's instance does: dK/dV 118.5 KiB of
+// shared memory, dQ 101.0 KiB, one block an SM.
 // All math is f32; only masked tiles (the diagonal, band and sink edges,
 // ragged Sq and Sk tails) take the mask test; tails are masked, never padded.
 
@@ -463,50 +470,79 @@ constexpr int simt_smem(bool dkdv) {
               (dkdv ? 2 * SimtSmem<HD>::kPTile + 2 * kTile : SimtSmem<HD>::kPTile));
 }
 
-// -- tensor-core (wgmma) dQ and dK/dV, bf16 at hd 64 and 128 ----------------------
+// -- tensor-core (wgmma) dQ and dK/dV, bf16 at hd 64, 80 and 128 -----------------
 
-// Two blocks an SM (two consumer warpgroups) take precedence over a deeper
-// ring: at hd 128 a third stage no longer fits two blocks in shared memory.
+// The shared-memory plan of the instance at HD (Python twin:
+// kernel.py::wgmma_bwd_smem_plan). A 64-row tile is kBoxes TMA boxes side by
+// side, each kTile rows of kRowBytes: 128 bytes (64 columns, 128-byte
+// swizzle) where hd is a multiple of 64, else 32 bytes (16 columns, 32-byte
+// swizzle: hd 80's 160-byte rows), as in the forward's Cfg<HD>. Two blocks an
+// SM (two consumer warpgroups) take precedence over a deeper ring: at hd 128
+// a third stage no longer fits two blocks in shared memory.
 template <int HD>
 struct WCfg {
-  static constexpr int kStages = HD == 64 ? 3 : 2;
-  static constexpr int kTileBytes = kTile * HD * 2;          // one 64-row bf16 tile
+  static constexpr bool kSw32 = HD % kBox != 0;
+  static constexpr int kBoxCols = kSw32 ? 16 : kBox;
+  static constexpr int kRowBytes = kBoxCols * 2;
+  static constexpr int kAtomBytes = 8 * kRowBytes;      // 8 box rows: one swizzle atom
+  static constexpr int kSteps = kRowBytes / 32;         // k-steps of 16 columns a box row
+  static constexpr int kBoxes = HD / kBoxCols;
+  static constexpr int kBoxBytes = kTile * kRowBytes;   // one box of a 64-row tile
+  static constexpr int kStages = HD == 128 ? 2 : 3;
+  static constexpr int kTileBytes = kTile * HD * 2;     // one 64-row bf16 tile
   // two fixed tiles (K, V in dK/dV; Q, dO in dQ), the ring of tile pairs,
   // L and D of each stage (dK/dV), the barriers
   static constexpr int kRingOff = 2 * kTileBytes;
   static constexpr int kLdOff = kRingOff + kStages * 2 * kTileBytes;
   static constexpr int kBarOff = kLdOff + kStages * 2 * kTile * 4;
   static constexpr int kSmem = 1024 + kBarOff + 8 * (1 + 2 * kStages);
+  // two blocks in the SM's 228 KiB, 1 KiB of it reserved per block
+  static_assert(HD % kBoxCols == 0 && kTileBytes % 1024 == 0 &&
+                    2 * (kSmem + 1024) <= 228 * 1024,
+                "no two-blocks-an-SM shared-memory plan for HD");
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kSw32 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B;
+
+  // descriptor of a tile of box rows: 8-row atoms kAtomBytes apart, `lbo`
+  // between boxes (an MN-major B operand) or unused (K-major operands)
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+    return kSw32 ? desc_sw32(addr, lbo, kAtomBytes) : desc_sw128(addr, lbo, kAtomBytes);
+  }
 };
 
 // S (+)= A B^T over HD in k-steps of 16: A and B two 64-row tiles, both
-// K-major in 128-byte-swizzled boxes of 64 columns
+// K-major; a k-step is 32 bytes of a box row (a quarter of a 128-byte row,
+// or the whole of a 32-byte one)
 template <int HD>
 __device__ __forceinline__ void wgmma_tile_nt(float (&d)[32], uint32_t a, uint32_t b) {
+  using C = WCfg<HD>;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kTile * 128 + (kk % 4) * 32;
-    wgmma_ss_n64(d, desc_sw128(a + off, 16, 1024), desc_sw128(b + off, 16, 1024), kk > 0);
+    const uint32_t off = (kk / C::kSteps) * C::kBoxBytes + (kk % C::kSteps) * 32;
+    wgmma_ss_n64(d, C::desc(a + off, 16), C::desc(b + off, 16), kk > 0);
   }
 }
 
 // acc[64 x HD] += P[64 x 64] B[64 x HD], P from registers (the S fragment
-// layout, rounded to bf16), B a 64-row tile read MN-major
+// layout, rounded to bf16), B a 64-row tile read MN-major: 8-row groups one
+// atom apart, the boxes' column atoms one box apart (LBO)
 template <int HD>
 __device__ __forceinline__ void wgmma_tile_pv(float (&acc)[HD / 2], const uint32_t (&p)[4][4],
                                               uint32_t b) {
+  using C = WCfg<HD>;
 #pragma unroll
   for (int kk = 0; kk < kTile / 16; ++kk)
-    wgmma_rs<HD>(acc, p[kk], desc_sw128(b + kk * 16 * 128, kTile * 128, 1024), 1);
+    wgmma_rs<HD>(acc, p[kk], C::desc(b + kk * 16 * C::kRowBytes, C::kBoxBytes), 1);
 }
 
-// one 64-row box column set of a tensor map into a tile at `dst`
+// the kBoxes boxes of 64 rows of a tensor map into a tile at `dst`
 template <int HD>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int head, int row, int b) {
+  using C = WCfg<HD>;
 #pragma unroll
-  for (int bx = 0; bx < HD / kBox; ++bx)
-    tma_load_4d(dst + bx * kTile * 128, map, bar, bx * kBox, head, row, b);
+  for (int bx = 0; bx < C::kBoxes; ++bx)
+    tma_load_4d(dst + bx * C::kBoxBytes, map, bar, bx * C::kBoxCols, head, row, b);
 }
 
 template <int HD>
@@ -808,26 +844,32 @@ struct Args {
 // The kernels of one call, by the `kind` of repro_flash_attention_bwd_attrs.
 enum Kind { kDq = 0, kDkdv = 1, kDelta = 2, kFinal = 3 };
 
-// bf16 at hd 64 and 128 runs dQ and dK/dV on the tensor cores
+// bf16 at hd 64, 80 and 128 runs dQ and dK/dV on the tensor cores
 template <typename T, int HD>
-constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 128);
-
-template <typename K>
-int attrs_of(K kernel, int dyn_smem, int* attr) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attr[0] = a.numRegs;
-  attr[1] = static_cast<int>(a.localSizeBytes);
-  attr[2] = static_cast<int>(a.sharedSizeBytes) + dyn_smem;
-  return 0;
-}
+constexpr bool kTensorCores =
+    std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 80 || HD == 128);
 
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
   return bytes > 48 * 1024
              ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
              : cudaSuccess;
+}
+
+// registers, spill bytes, shared memory and the blocks an SM of the current
+// device holds (the occupancy calculator, at the launch's shared memory)
+template <typename K>
+int attrs_of(K kernel, int dyn_smem, int* attr) {
+  cudaFuncAttributes a;
+  cudaError_t err = allow_smem(kernel, dyn_smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&attr[3], kernel, kThreads, dyn_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attr[0] = a.numRegs;
+  attr[1] = static_cast<int>(a.localSizeBytes);
+  attr[2] = static_cast<int>(a.sharedSizeBytes) + dyn_smem;
+  return 0;
 }
 
 template <typename T, int HD>
@@ -855,10 +897,10 @@ template <int HD>
 int launch_wgmma(const Args& a, cudaStream_t s) {
   using C = WCfg<HD>;
   CUtensorMap qm, km, vm, dm;
-  if (!make_map(&qm, a.q, a.B, a.sh.Sq, a.sh.H, HD, kTile) ||
-      !make_map(&dm, a.dout, a.B, a.sh.Sq, a.sh.H, HD, kTile) ||
-      !make_map(&km, a.k, a.B, a.sh.Sk, a.sh.KV, HD, kTile) ||
-      !make_map(&vm, a.v, a.B, a.sh.Sk, a.sh.KV, HD, kTile))
+  if (!make_map(&qm, a.q, a.B, a.sh.Sq, a.sh.H, HD, kTile, C::kBoxCols, C::kSwizzle) ||
+      !make_map(&dm, a.dout, a.B, a.sh.Sq, a.sh.H, HD, kTile, C::kBoxCols, C::kSwizzle) ||
+      !make_map(&km, a.k, a.B, a.sh.Sk, a.sh.KV, HD, kTile, C::kBoxCols, C::kSwizzle) ||
+      !make_map(&vm, a.v, a.B, a.sh.Sk, a.sh.KV, HD, kTile, C::kBoxCols, C::kSwizzle))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = allow_smem(fa_bwd_dq_wgmma<HD>, C::kSmem);
   if (e == cudaSuccess) e = allow_smem(fa_bwd_dkdv_wgmma<HD>, C::kSmem);
@@ -932,7 +974,7 @@ extern "C" int repro_flash_attention_bwd_slots(int Sq, int Sk, int H, int KV, in
 // f32 scratch, n_slots from repro_flash_attention_bwd_slots. hd in {16, 32,
 // 64, 80, 128}; H % KV == 0; Sq, Sk >= 1; window >= 0 and n_sink >= 0 act only
 // when causal; o and dout 16-byte aligned (D reads them as 16-byte vectors).
-// bf16 at hd 64/128 runs the tensor-core kernels, which need q, k and v
+// bf16 at hd 64/80/128 runs the tensor-core kernels, which need q, k and v
 // 16-byte aligned too. Returns cudaGetLastError() after the
 // launches (or the first error).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -955,7 +997,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   if (!aligned(o) || !aligned(dout)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return dispatch<float>(a, hd, s, 0, nullptr);
   if (dtype == 1) {
-    if ((hd == 64 || hd == 128) && !(aligned(q) && aligned(k) && aligned(v)))
+    if ((hd == 64 || hd == 80 || hd == 128) && !(aligned(q) && aligned(k) && aligned(v)))
       return static_cast<int>(cudaErrorInvalidValue);
     return dispatch<__nv_bfloat16>(a, hd, s, 0, nullptr);
   }
@@ -963,13 +1005,14 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
 }
 
 // Registers per thread at launch (the tensor-core kernels then move them by
-// setmaxnreg), local (spill) bytes per thread and shared memory per block of
-// the kernel `kind` (0 dQ, 1 dK/dV, 2 D, 3 the partials' sum) that a call
-// with this dtype and hd launches.
-extern "C" int repro_flash_attention_bwd_attrs(int kind, int hd, int dtype, int* regs,
-                                               int* local_bytes, int* smem_bytes) {
+// setmaxnreg), local (spill) bytes per thread, shared memory per block and
+// the blocks an SM of the current device holds, of the kernel `kind` (0 dQ,
+// 1 dK/dV, 2 D, 3 the partials' sum) that a call with this dtype and hd
+// launches.
+extern "C" int repro_flash_attention_bwd_attrs(int kind, int hd, int dtype, int* blocks_per_sm,
+                                               int* regs, int* local_bytes, int* smem_bytes) {
   if (kind < 0 || kind > 3) return static_cast<int>(cudaErrorInvalidValue);
-  int attr[3] = {0, 0, 0};
+  int attr[4] = {0, 0, 0, 0};
   const Args a{};
   int err = static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) err = dispatch<float>(a, hd, nullptr, kind, attr);
@@ -977,5 +1020,6 @@ extern "C" int repro_flash_attention_bwd_attrs(int kind, int hd, int dtype, int*
   *regs = attr[0];
   *local_bytes = attr[1];
   *smem_bytes = attr[2];
+  *blocks_per_sm = attr[3];
   return err;
 }

@@ -398,7 +398,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 // >= 0 and n_sink >= 0 act only when causal (0 = no window). lse: nullptr
 // (the serve path's instance), or [B*H, round_up(Sq, 64)] f32 that receives
 // each row's logsumexp in the exp2 domain (see the kernel), for the
-// backward (flash_attention_bwd.cu; at hd 80 its CUDA-core kernels).
+// backward (flash_attention_bwd.cu).
 // Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
                                            void* lse, int B, int Sq, int Sk, int H, int KV,

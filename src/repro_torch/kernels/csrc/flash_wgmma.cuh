@@ -2,8 +2,8 @@
 // forward (flash_attention_wgmma.cu) and the backward's bf16 kernels
 // (flash_attention_bwd.cu). PTX wrappers for mbarriers, TMA (tensor and 1-D
 // bulk copies), 128-byte-swizzle shared-memory descriptors (hd 64 and 128:
-// 64-column boxes) and 32-byte-swizzle ones (hd 80: 16-column boxes, the
-// forward only) and wgmma; on the host, 4-D tensor maps of the model layout
+// 64-column boxes) and 32-byte-swizzle ones (hd 80: 16-column boxes) and
+// wgmma; on the host, 4-D tensor maps of the model layout
 // [batch, seq, heads, hd], encoded through cudaGetDriverEntryPoint (no
 // -lcuda).
 //
@@ -276,8 +276,7 @@ EncodeTiledFn encode_tiled() {
 // 64 columns under the 128-byte swizzle (hd 64, 128), 16 under the 32-byte
 // one (hd 80).
 bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int hd,
-              int rows, int box_cols = kBox,
-              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+              int rows, int box_cols, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),

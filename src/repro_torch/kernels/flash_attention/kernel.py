@@ -24,11 +24,12 @@ domain: L = m·scale·log2(e) + log2(l)); without it, the serve path's.
   dV from the forward's L in four launches: D = rowsum(dO·O); dK, dV as f32
   partial sums over a balanced grid (each key tile's (head, query tile)
   units cut into splits of at most ``BWD_SPLIT_UNITS``); dQ per query tile;
-  the partials added in split order. bf16 at ``WGMMA_BWD_HEAD_DIMS`` on the
-  tensor cores (wgmma + TMA, 16-byte aligned tensors), everything else as
-  register-tiled f32 products on the CUDA cores (bf16 at hd 80 among them:
-  its forward runs on the tensor cores and stores L, its backward on the
-  CUDA cores); head dims ``HEAD_DIMS``, Sk > 0.
+  the partials added in split order. bf16 at ``WGMMA_BWD_HEAD_DIMS`` (64,
+  80, 128) on the tensor cores (wgmma + TMA, 16-byte aligned tensors; hd 80
+  in five 16-column boxes under the 32-byte swizzle, as the forward:
+  ``wgmma_bwd_smem_plan``), everything else (f32, bf16 at hd 16/32) as
+  register-tiled f32 products on the CUDA cores; head dims ``HEAD_DIMS``,
+  Sk > 0.
 """
 from __future__ import annotations
 
@@ -41,17 +42,18 @@ from .. import _build
 
 __all__ = ["HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BWD_HEAD_DIMS",
            "WGMMA_BLOCK_Q", "WGMMA_BLOCK_K", "SMEM_PER_BLOCK", "wgmma_smem_plan", "SIMT_TILE",
-           "flash_kernel_attrs", "BWD_SPLIT_UNITS", "BWD_KERNELS", "lse_rows",
+           "SMEM_PER_SM", "SMEM_RESERVED_PER_BLOCK", "flash_kernel_attrs", "BWD_SPLIT_UNITS",
+           "BWD_KERNELS", "lse_rows",
            "flash_attention_cuda", "flash_attention_wgmma_cuda",
-           "flash_attention_bwd_cuda", "bwd_slots", "wgmma_kernel_attrs",
-           "bwd_kernel_attrs"]
+           "flash_attention_bwd_cuda", "bwd_slots",
+           "wgmma_kernel_attrs", "wgmma_bwd_smem_plan", "bwd_kernel_attrs"]
 
 # head dims of the forward kernels and of the backward's
 HEAD_DIMS = (16, 32, 64, 80, 128)
-# head dims where bf16 runs on the tensor cores: the forward's, and the
-# backward's (hd 80's backward runs on the CUDA cores)
+# head dims where bf16 runs on the tensor cores: the forward's and the
+# backward's
 WGMMA_HEAD_DIMS = (64, 80, 128)
-WGMMA_BWD_HEAD_DIMS = (64, 128)
+WGMMA_BWD_HEAD_DIMS = (64, 80, 128)
 # query rows per block and keys per K/V tile of the tensor-core kernel
 # (kRows, kKeys in csrc/flash_attention_wgmma.cu)
 WGMMA_BLOCK_Q = 128
@@ -86,6 +88,36 @@ def wgmma_smem_plan(hd: int) -> dict:
 # key tile and rows per query tile in every backward kernel and in the
 # CUDA-core forward; L and D rows are padded to it
 SIMT_TILE = 64
+# (Q, dO) or (K, V) stages of the tensor-core backward by head dim (WCfg::kStages)
+_WGMMA_BWD_STAGES = {64: 3, 80: 3, 128: 2}
+# shared memory of an SM of an H100, and what it reserves for each block
+SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK = 228 * 1024, 1024
+
+
+def wgmma_bwd_smem_plan(hd: int) -> dict:
+    """The shared-memory plan of the tensor-core backward's dQ and dK/dV
+    kernels at ``hd``, the twin of ``WCfg<HD>`` in
+    ``csrc/flash_attention_bwd.cu``: a 64-row tile is ``boxes`` TMA boxes of
+    ``box_cols`` columns, a box row ``row_bytes`` wide under a swizzle of
+    ``swizzle_bytes`` (128 where hd is a multiple of 64, else 32: hd 80's
+    160-byte rows); two fixed tiles (K, V or Q, dO), ``stages`` pairs of
+    streamed tiles, each stage's L and D (64 f32 each), the mbarriers, after
+    1 KiB of slack for the 1024-byte alignment of the base. ``smem_bytes``
+    is what a block asks for: two blocks an SM must fit ``SMEM_PER_SM``,
+    with ``SMEM_RESERVED_PER_BLOCK`` each."""
+    if hd not in WGMMA_BWD_HEAD_DIMS:
+        raise ValueError(f"wgmma_bwd_smem_plan: head dim {hd} not in {WGMMA_BWD_HEAD_DIMS}")
+    swizzle = 128 if hd % 64 == 0 else 32
+    box_cols = swizzle // 2
+    stages = _WGMMA_BWD_STAGES[hd]
+    tile_bytes = SIMT_TILE * hd * 2
+    smem = (1024 + 2 * tile_bytes + stages * 2 * tile_bytes + stages * 2 * SIMT_TILE * 4
+            + 8 * (1 + 2 * stages))
+    return dict(box_cols=box_cols, row_bytes=box_cols * 2, swizzle_bytes=swizzle,
+                boxes=hd // box_cols, box_bytes=SIMT_TILE * box_cols * 2, stages=stages,
+                tile_bytes=tile_bytes, smem_bytes=smem)
+
+
 # most (head, query tile) units one dK/dV block walks (kSplitUnits)
 BWD_SPLIT_UNITS = 32
 # the backward's kernels, by the `kind` of repro_flash_attention_bwd_attrs
@@ -204,6 +236,9 @@ def wgmma_kernel_attrs(hd: int, windowed: bool, lse: bool = False) -> dict:
 def bwd_kernel_attrs(kernel: str, hd: int, dtype: torch.dtype) -> dict:
     """The same for one kernel of the backward (``BWD_KERNELS``) that a call
     in ``dtype`` at ``hd`` launches (bf16 at ``WGMMA_BWD_HEAD_DIMS``: the
-    tensor-core dQ and dK/dV)."""
-    return _attrs("repro_flash_attention_bwd_attrs", BWD_KERNELS.index(kernel), hd,
-                  _build.DTYPE_CODES[dtype])
+    tensor-core dQ and dK/dV), with the blocks of it an SM of the current
+    card holds (the occupancy calculator)."""
+    n = ctypes.c_int()
+    a = _attrs("repro_flash_attention_bwd_attrs", BWD_KERNELS.index(kernel), hd,
+               _build.DTYPE_CODES[dtype], ctypes.byref(n))
+    return {"blocks_per_sm": n.value, **a}

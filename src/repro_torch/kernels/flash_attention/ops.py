@@ -26,11 +26,10 @@ kernel, in its instance that also stores each row's logsumexp L (the serve
 path, without grad, keeps the instance without it). It saves q, k, v, the
 output and L; its backward launches ``csrc/flash_attention_bwd.cu`` (D, dK
 and dV over a balanced grid as ordered partial sums, dQ, the partials'
-sum: no atomics). bf16 at hd 64/128 (``WGMMA_BWD_HEAD_DIMS``) runs its
-tensor-core kernels (16-byte aligned q, k, v, else it raises), every other
-call its CUDA-core ones: a bf16 call at HuBERT's hd 80 runs its forward on
-the tensor cores (the instance that stores L) and its backward on the CUDA
-cores. out and dout must be 16-byte aligned in every call. Every head dim
+sum: no atomics). bf16 at hd 64/80/128 (``WGMMA_BWD_HEAD_DIMS``, HuBERT's
+hd 80 among them) runs its tensor-core kernels (16-byte aligned q, k, v,
+else it raises), every other call (f32, bf16 at hd 16/32) its CUDA-core
+ones. out and dout must be 16-byte aligned in every call. Every head dim
 of ``HEAD_DIMS`` has both a forward and a backward kernel.
 ``flash_mha.bwd_launches`` counts backward calls, each one such launch;
 ``flash_mha.wgmma_bwd_launches`` those that ran the tensor-core kernels. On

@@ -6,8 +6,9 @@ and the CUDA-core kernel's (``csrc/flash_attention.cu``, ``SIMT_TILE`` x
 against JAX's ``attention_ref`` and ``models.attention.attention`` (window
 and sinks), against the plain version, L against ``torch.logsumexp``, and
 the tile-skip predicate against the mask itself; the dispatch of a call to
-the tensor cores by dtype and head dim, and the tensor-core forward's
-shared-memory plan (``wgmma_smem_plan``, the twin of ``Cfg<HD>``). The
+the tensor cores by dtype and head dim, and the shared-memory plans of the
+tensor-core forward (``wgmma_smem_plan``, the twin of ``Cfg<HD>``) and
+backward (``wgmma_bwd_smem_plan``, the twin of ``WCfg<HD>``). The
 kernels against the emulation on the card are in
 ``test_torch_kernels_cuda.py``.
 """
@@ -25,9 +26,10 @@ from repro.kernels.flash_attention.ref import attention_ref
 from repro.models.attention import attention as jax_attention
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, SIMT_TILE, SMEM_PER_BLOCK,
+                                                        SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK,
                                                         WGMMA_BLOCK_K, WGMMA_BLOCK_Q,
                                                         WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS,
-                                                        wgmma_smem_plan)
+                                                        wgmma_bwd_smem_plan, wgmma_smem_plan)
 from repro_torch.kernels.flash_attention.ref import (NEG, flash_mha_ref, flash_mha_tiled,
                                                      tile_visited, visible)
 
@@ -243,14 +245,13 @@ def test_hd80_bf16_share_rule_at_hubert_length(fault):
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_tensor_core_route_by_dtype_and_head_dim(hd, dt):
-    """The wrapper's route: a bf16 forward at hd 64, 80 or 128 runs on the
-    tensor cores, f32 never does; the backward's tensor-core head dims lack
-    80 (hd 80's backward runs on the CUDA cores, from the L its tensor-core
-    forward stores)."""
+    """The wrapper's route: a bf16 forward and a bf16 backward at hd 64, 80
+    (HuBERT's) or 128 run on the tensor cores, f32 never does, nor bf16 at
+    hd 16/32."""
     q = torch.empty((1, 1, 1, hd), dtype=_TDT[dt])
     assert flash_ops._tensor_cores(q) == (dt == "bf16" and hd in (64, 80, 128))
     assert flash_ops._tensor_cores(q, WGMMA_BWD_HEAD_DIMS) == (dt == "bf16"
-                                                               and hd in (64, 128))
+                                                               and hd in (64, 80, 128))
 
 
 @pytest.mark.parametrize("hd", WGMMA_HEAD_DIMS)
@@ -274,3 +275,28 @@ def test_wgmma_smem_plan_refuses_other_head_dims():
     for hd in (16, 32, 96):
         with pytest.raises(ValueError, match="head dim"):
             wgmma_smem_plan(hd)
+
+
+@pytest.mark.parametrize("hd", WGMMA_BWD_HEAD_DIMS)
+def test_wgmma_bwd_smem_plan_invariants(hd):
+    """The tensor-core backward's shared-memory plan (the twin of
+    ``WCfg<HD>``): the boxes tile hd exactly, a box row fits its swizzle
+    span, the 32-byte swizzle only at hd 80, every box starts on a swizzle
+    atom and every tile on 1024 bytes, and two blocks an SM fit the SM's
+    228 KiB with the 1 KiB it reserves per block (hd 64/128 keep their
+    sizes of 66.6 and 98.0 KiB)."""
+    p = wgmma_bwd_smem_plan(hd)
+    assert p["boxes"] * p["box_cols"] == hd
+    assert p["row_bytes"] == 2 * p["box_cols"] <= p["swizzle_bytes"]
+    assert (p["swizzle_bytes"] == 32) == (hd == 80)
+    assert p["box_bytes"] % (8 * p["row_bytes"]) == 0 and p["tile_bytes"] % 1024 == 0
+    assert p["boxes"] * p["box_bytes"] == p["tile_bytes"] == SIMT_TILE * hd * 2
+    assert 2 * (p["smem_bytes"] + SMEM_RESERVED_PER_BLOCK) <= SMEM_PER_SM
+    want = {64: (68152, 3, 1), 80: (84536, 3, 5), 128: (100392, 2, 2)}[hd]
+    assert (p["smem_bytes"], p["stages"], p["boxes"]) == want
+
+
+def test_wgmma_bwd_smem_plan_refuses_other_head_dims():
+    for hd in (16, 32, 96):
+        with pytest.raises(ValueError, match="head dim"):
+            wgmma_bwd_smem_plan(hd)

@@ -20,7 +20,9 @@ gradient:
   ``repro/models/attention.py::attention``; f32 1e-4. With
   ``tensor_cores`` (P and dS rounded to bf16, as the wgmma kernels feed
   them) within 2e-2 of each gradient's max, the rule the card holds the
-  bf16 kernel to. Sq = Sk, where the kernel's top-left causal mask and the
+  bf16 kernel to; at hd 80 also on bf16 inputs (HuBERT's pattern at a
+  ragged S, a causal GQA case), and at HuBERT's T 1500 beside two wrong
+  kernels (dK x 1.1, dS without D) that must fail it. Sq = Sk, where the kernel's top-left causal mask and the
   oracle's bottom-right one agree (ROADMAP §3). The tile predicates and the
   split plan are checked against the mask itself.
 
@@ -185,6 +187,63 @@ def test_flash_backward_hd80_sq_ne_sk_matches_jax_grad(Sq, Sk, KV):
     want = [np.asarray(g).reshape(2, heads, S, hd).transpose(0, 2, 1, 3)
             for g, heads, S in zip(vjp(flat(do)), (H, KV, KV), (Sq, Sk, Sk))]
     _check(q, k, v, do, want, causal=False)
+
+
+def _bf16_shares(q, k, v, do, want, causal, fault=None):
+    """max |got - want| / max |want| of dQ, dK, dV, got the tensor-core
+    kernels' twin (``flash_mha_bwd_tiled(..., tensor_cores=True)``) on bf16
+    inputs, its O the tensor-core forward's tile loop in bf16. ``fault``: a
+    wrong kernel, "dk_x1.1" (its dK x 1.1) or "ds_without_d" (dS = P·dP: O
+    zeroed, so D = rowsum(dO·O) is 0)."""
+    qb, kb, vb, db = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+    o = flash_mha_tiled(qb, kb, vb, causal=causal)
+    if fault == "ds_without_d":
+        o = torch.zeros_like(o)
+    got = list(flash_mha_bwd_tiled(qb, kb, vb, o, db, causal=causal, tensor_cores=True))
+    assert all(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()) for g in got)
+    if fault == "dk_x1.1":
+        got[1] = got[1].float() * 1.1
+    return [float(np.abs(g.float().numpy() - w).max() / np.abs(w).max())
+            for g, w in zip(got, want)]
+
+
+def _bf16_round(*arrays):
+    return [torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in arrays]
+
+
+@pytest.mark.parametrize("B,S,H,KV,causal", [
+    (2, 300, 4, 4, False),    # HuBERT's pattern: MHA, non-causal, ragged S
+    (1, 300, 6, 2, True),     # causal GQA, ragged S
+])
+def test_flash_backward_tensor_core_twin_hd80_bf16_matches_jax_grad(B, S, H, KV, causal):
+    """The tensor-core backward at hd 80 (five 16-column boxes; P and dS
+    rounded to bf16 before their products) on bf16 inputs, against jax.vjp
+    of ``attention_ref`` in f32 on the same rounded inputs: within 2e-2 of
+    each gradient's max (FLASH_BF16_SHARE, the card's rule)."""
+    arrs = _bf16_round(*_flash_inputs(B, S, H, KV, 80, seed=90))
+    want = _jax_grads_oracle(*arrs, causal)
+    shares = _bf16_shares(*arrs, want, causal)
+    assert max(shares) <= FLASH_BF16_SHARE, shares
+
+
+@pytest.fixture(scope="module")
+def hubert_length_case():
+    """HuBERT's length (T 1500, non-causal, MHA hd 80), two heads: bf16
+    inputs and jax.vjp of ``attention_ref`` on them in f32."""
+    arrs = _bf16_round(*_flash_inputs(1, 1500, 2, 2, 80, seed=95))
+    return arrs, _jax_grads_oracle(*arrs, False)
+
+
+@pytest.mark.parametrize("fault", [None, "dk_x1.1", "ds_without_d"])
+def test_hd80_bf16_backward_share_rule_at_hubert_length(fault, hubert_length_case):
+    """The card's rule for the bf16 backward (each gradient within 2e-2 of
+    its max) at T 1500: the tensor-core kernels' twin meets it on dQ, dK and
+    dV; a wrong kernel fails it where it is wrong: dK x 1.1 on dK, dS
+    without D on dQ and dK (dV = P^T dO does not read dS)."""
+    arrs, want = hubert_length_case
+    shares = _bf16_shares(*arrs, want, False, fault)
+    failed = [n for n, sh in zip(("dq", "dk", "dv"), shares) if sh > FLASH_BF16_SHARE]
+    assert failed == {None: [], "dk_x1.1": ["dk"], "ds_without_d": ["dq", "dk"]}[fault], shares
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])

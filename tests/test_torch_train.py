@@ -456,3 +456,54 @@ def test_train_layers_cuts_the_depth(arch):
             assert seg_full[name].shape[0] == 4, name
             assert seg_cut[name].shape == (2,) + seg_full[name].shape[1:], name
     assert cut["params"]["embed"].shape == full["params"]["embed"].shape
+
+
+def _ef_step_state(grads, quantize=compress.quantize_int8):
+    """The moments and EF residuals one AdamW step from zero leaves after
+    EF int8 compression of ``grads`` (``quantize``: the per-block coder)."""
+    ef = compress.ef_init(grads)
+    deq = optim.tree_map(lambda g: compress.dequantize_int8(*quantize(g), g.shape,
+                                                            torch.float32), grads)
+    params = optim.tree_map(torch.zeros_like, grads)
+    opt = optim.adamw_init(params)
+    optim.adamw_update(params, deq, opt, torch.tensor(1e-3))
+    return {"opt": opt, "ef": optim.tree_map(lambda g, d, e: g + e - d, grads, deq, ef)}
+
+
+def _coarse_int8(x):
+    """A wrong coder: the block's scale from 0.8 of its max, codes clipped."""
+    q, scale = compress.quantize_int8(x)
+    blocks = q.float() * scale[:, None]
+    scale = scale * 0.8
+    return torch.clamp(torch.round(blocks / scale[:, None]), -127, 127).to(torch.int8), scale
+
+
+@pytest.mark.parametrize("case", ["rounding", "wrong_gradient", "wrong_scale"])
+def test_ef_code_check_of_the_card_step(case):
+    """chip_smoke.py's check of the EF int8 codes in its kernels-vs-plain
+    step: a gradient moved by rounding alone keeps every code within one of
+    the plain step's and few of them different; a gradient 10% off on half
+    its columns moves codes by more than one; a coder with a wrong block
+    scale leaves residuals beyond half a code step."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(0)
+    grads = {"w": torch.randn(300, 17, generator=gen) * torch.rand(300, 1, generator=gen) ** 4,
+             "b": [torch.randn(1000, generator=gen) * 1e-3, torch.zeros(600)]}
+    plain = _ef_step_state(grads)
+    moved = {"rounding": lambda g: g * (1 + 1e-6 * torch.randn(g.shape, generator=gen)),
+             "wrong_gradient": lambda g: g * (1 + 0.1 * (torch.arange(17) % 2)),
+             "wrong_scale": lambda g: g}[case]
+    got = _ef_step_state({"w": moved(grads["w"]), "b": grads["b"]},
+                         _coarse_int8 if case == "wrong_scale" else compress.quantize_int8)
+    cd = chip_smoke.ef_code_diffs(torch, plain, got)
+    assert cd["held"] == 300 * 17 + 1000, cd
+    assert cd["off"] <= chip_smoke.EF_CODE_OFF, cd
+    if case == "rounding":
+        assert cd["most"] <= 1 and cd["flips"] <= chip_smoke.EF_FLIP_SHARE * cd["held"], cd
+        assert cd["resid"] <= 1 + chip_smoke.EF_CODE_OFF, cd
+    elif case == "wrong_gradient":
+        assert cd["most"] > 1, cd
+    else:
+        assert cd["resid"] > 1 + chip_smoke.EF_CODE_OFF, cd
