@@ -139,6 +139,25 @@ run (non-zero exit, no result line):
      full width holds ~102 GB of f32 train state, more than one card;
   8. cli    — python -m repro_torch.sweep run on a golden slice's spec on the
      card (a subprocess): its frozen records must equal the fixture.
+  9. program — launch/programs.py on a one-rank mesh (NCCL over a HashStore,
+     a 1x1 DeviceMesh ("data", "model"), destroyed after each part): 9a,
+     after qwen3-moe's profile and on its bf16 weights, the program's prefill
+     (B 4, prompt 1024, smax 2048) and 32 decode steps at full depth, every
+     MoE FFN through moe_ep, with the share of (token, expert) pairs dropped
+     at capacity factor 1.25, ms, peak memory and exact launch counts (every
+     flash on the tensor cores) beside the dense oracle at the same shapes,
+     and one full-width MoE layer, moe_ep at capacity factor E/k against
+     moe_dense (relative 2-norm 2e-2); 9c, the 4-layer f32 model of phase 4
+     at capacity factor E/k: the program's prefill logits against the dense
+     path (2e-3); 9b, qwen2-1.5b's f32 train step (B 4, S 1024, full depth)
+     through build_program, then through the plain make_train_step from the
+     same seed, one state at a time: loss, grad norm and new state bit for
+     bit (else each moment leaf at STEP_GRAD_TOL, the leaves that differ
+     named), phase 7's exact counts, ms per step and peak memory both ways;
+     9d, one dry-run cell (python -m repro_torch.launch.dryrun, fake process
+     group and fake tensors on the host; run beside phase 7's kernel
+     timings, which are CUDA events behind a device-side sleep): per-device
+     memory, FLOPs, time.
 
 The line before the last is a JSON object {"kernels": [...]} (list_schedule,
 which replaces the prescreen's XLA program and no Pallas kernel, the
@@ -2471,6 +2490,343 @@ def train_step_vs_plain(torch, arch, cut, B=TRAIN["batch"], S=TRAIN["seq"], redu
                              f"come within 10x of it")
 
 
+# -- the program over a DeviceMesh --------------------------------------------
+
+# phase 9: the program (launch/programs.py) on a one-rank mesh. qwen2-1.5b's
+# train step at phase 7's shape; qwen3-moe-30b-a3b served at full depth in
+# bf16 through moe_ep (phase 6's prefill shape, then decode steps), one
+# full-width MoE layer and the 4-layer f32 model (phase 4's) at a capacity
+# factor of E/k, where no (token, expert) pair drops; one dry-run cell
+PROGRAM = dict(train_batch=4, train_seq=1024, moe_batch=4, moe_prompt=1024, moe_smax=2048,
+               moe_steps=32, moe_layer_tol=2e-2, moe_model_tol=2e-3,
+               dryrun=("qwen3-moe-30b-a3b", "train_4k", "single"), dryrun_timeout=600)
+
+
+@contextlib.contextmanager
+def one_rank_mesh(torch):
+    """A one-rank NCCL process group (a HashStore: no port, no environment
+    variables) and its 1x1 DeviceMesh ("data", "model"), destroyed on exit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import single_device_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield single_device_mesh("cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _host_leaves(state):
+    from repro_torch.train.optim import tree_leaves
+
+    return [(t.to_local() if hasattr(t, "to_local") else t).cpu() for t in tree_leaves(state)]
+
+
+def phase_program_train(torch):
+    """9b. qwen2-1.5b at full width and depth, f32, B 4 x S 1024: one train
+    step through build_program on a one-rank mesh, then one through the
+    plain make_train_step from the same seed (each state drawn, stepped and
+    freed in turn; the program's copied to the host), with phase 7's exact
+    counts each. Loss, grad norm and the new state (parameters and AdamW
+    moments) must be equal bit for bit; where they are not, every moment
+    leaf is held to STEP_GRAD_TOL of its max and the loss and grad norm to
+    1e-4, and the leaves that differ are named. ms per step both ways (the
+    host cost of DTensor dispatch) and each run's peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.programs import build_program
+    from repro_torch.train import SyntheticData, init_state, make_train_step
+    from repro_torch.train.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(DENSE)
+    L, B, S = cfg.n_layers, PROGRAM["train_batch"], PROGRAM["train_seq"]
+    want = {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1, "flash_attention": 2 * L,
+            "flash_attention_bwd": L}
+    batch = SyntheticData(cfg, ShapeSpec("cli", S, B, "train"), seed=1,
+                          device="cuda").batch_at(0)
+
+    def fresh(model):
+        return init_state(model, torch.Generator(device="cuda").manual_seed(2),
+                          dtype=torch.float32, device="cuda")
+
+    def run(step, state, batch):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in _read_counts().items() if v}
+        if counts != want:
+            raise AssertionError(f"train step launches {counts}, want {want}")
+        m = {k: float(v.full_tensor() if hasattr(v, "full_tensor") else v)
+             for k, v in m.items()}
+        return state, m, ms, torch.cuda.max_memory_allocated() / 2**30
+
+    with one_rank_mesh(torch) as mesh:
+        prog = build_program(cfg, ShapeSpec("train_4k", S, B, "train"), mesh)
+        state, placed = prog.place(fresh(prog.model), batch, src_data_rank=None)
+        state, mp, ms_p, peak_p = run(prog.fn, state, placed)
+        host = _host_leaves(state)
+        del state, placed
+        torch.cuda.empty_cache()
+    model = prog.model
+    state, mq, ms_q, peak_q = run(make_train_step(model), fresh(model), batch)
+    names = ([f"params{n}" for n in _leaf_names(state["params"])]
+             + [f"m{n}" for n in _leaf_names(state["opt"]["m"])]
+             + [f"v{n}" for n in _leaf_names(state["opt"]["v"])] + ["step"])
+    leaves = (tree_leaves(state["params"]) + tree_leaves(state["opt"]["m"])
+              + tree_leaves(state["opt"]["v"]) + [state["opt"]["step"]])
+    # the program's host leaves are in tree order of the whole state: opt
+    # (m, step, v) before params
+    host_by = dict(zip(
+        [f"m{n}" for n in _leaf_names(state["opt"]["m"])] + ["step"]
+        + [f"v{n}" for n in _leaf_names(state["opt"]["v"])]
+        + [f"params{n}" for n in _leaf_names(state["params"])], host))
+    differ, shares = [], {}
+    for name, leaf in zip(names, leaves):
+        h = host_by[name].to("cuda")
+        if not torch.equal(h, leaf):
+            differ.append(name)
+            if name.startswith("m"):
+                shares[name] = float((h - leaf).abs().max()) / max(float(leaf.abs().max()), 1e-30)
+        del h
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    del state, host, leaves
+    torch.cuda.empty_cache()
+    same = not differ and mp["loss"] == mq["loss"] and mp["grad_norm"] == mq["grad_norm"]
+    log(f"[program] {cfg.name} f32 L={L} ({n_params / 1e6:.1f} M parameters) B={B} S={S}, one "
+        f"train step through build_program on a 1x1 mesh (NCCL, one rank) vs the plain "
+        f"make_train_step: loss {mp['loss']!r} / {mq['loss']!r}, grad_norm "
+        f"{mp['grad_norm']!r} / {mq['grad_norm']!r}; new state (params, m, v, step: "
+        f"{len(names)} leaves) {'equal bit for bit' if same else f'{len(differ)} leaves differ'}"
+        f"; launches {want} each")
+    log(f"[program] ms per step: program {ms_p:.1f}, plain {ms_q:.1f} (DTensor dispatch on "
+        f"the host: {ms_p - ms_q:+.1f} ms); max_memory_allocated program {peak_p:.2f} GiB, plain "
+        f"{peak_q:.2f} GiB [{time.perf_counter() - t_phase:.1f}s]")
+    if not same:
+        worst = max(shares, key=shares.get) if shares else None
+        log(f"[program] leaves that differ: {', '.join(differ[:12])}"
+            + (" ..." if len(differ) > 12 else "")
+            + (f"; worst moment {worst} at {shares[worst]:.3e} of its max (limit "
+               f"{STEP_GRAD_TOL:.0e})" if worst else ""))
+        rel = {k: abs(mp[k] - mq[k]) / abs(mq[k]) for k in ("loss", "grad_norm")}
+        if max(rel.values()) > 1e-4 or (worst and shares[worst] > STEP_GRAD_TOL):
+            raise AssertionError("the program's train step disagrees with the plain step")
+    return dict(ms_program=ms_p, ms_plain=ms_q, peak_program=peak_p, peak_plain=peak_q,
+                bitwise=same)
+
+
+def _serve_run(torch, prefill, decode, steps):
+    """One prefill, then ``steps`` greedy decode steps: ms of each, the
+    launches, the peak memory and the logits of the prefill and the last
+    step."""
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    torch.cuda.synchronize()
+    pf_ms = (time.perf_counter() - t0) * 1e3
+    first = whole(logits).float()
+    dc_ms = []
+    for _ in range(steps):
+        nxt = whole(logits).argmax(-1, keepdim=True)
+        t0 = time.perf_counter()
+        logits, cache = decode(cache, nxt)
+        torch.cuda.synchronize()
+        dc_ms.append((time.perf_counter() - t0) * 1e3)
+    last = whole(logits).float()
+    for t in (first, last):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("non-finite logits")
+    return dict(prefill_ms=pf_ms, decode_ms=statistics.median(dc_ms), counts=_read_counts(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, first=first, last=last)
+
+
+def phase_program_moe(torch, model, params):
+    """9a. qwen3-moe-30b-a3b at full depth in bf16 (phase 5's parameters)
+    through the program's prefill (B 4, prompt 1024, smax 2048) and 32
+    greedy decode steps on a one-rank mesh: every MoE FFN through moe_ep
+    (capacity factor 1.25), the share of (token, expert) pairs it drops,
+    ms, peak memory and exact launch counts (every flash on the tensor
+    cores), beside the dense oracle (the port's one-device path) at the
+    same shapes. Then one full-width MoE layer: moe_ep at capacity factor
+    16 = E/k (nothing drops) against moe_dense, within moe_layer_tol in
+    relative 2-norm."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import to_mesh, use_rules
+    from repro_torch.launch.programs import build_program
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import make_decode_fn, make_prefill_fn
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    B, S, smax, steps = (PROGRAM[k] for k in ("moe_batch", "moe_prompt", "moe_smax",
+                                               "moe_steps"))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S))).cuda()
+    (per_step, fa_pf), _ = path_counts(cfg)
+    want = {"rmsnorm": per_step * (1 + steps), "flash_attention": fa_pf, "wgmma": fa_pf}
+    with one_rank_mesh(torch) as mesh:
+        pp = build_program(cfg, ShapeSpec("prefill_2k", smax, B, "prefill"), mesh)
+        pd = build_program(cfg, ShapeSpec("decode_2k", smax, B, "decode"), mesh)
+        if (pp.rules.moe_impl, pp.rules.ep_axis) != ("ep", "model"):
+            raise AssertionError(f"rules {pp.rules.moe_impl} {pp.rules.ep_axis}: not EP")
+        dparams, dbatch = pp.place(params, {"tokens": toks}, src_data_rank=None)
+        moe_mod.DROP_STATS = []
+        try:
+            ep = _serve_run(torch, lambda: pp.fn(dparams, dbatch),
+                            lambda c, t: pd.fn(dparams, c, t), steps)
+            stats = [(p, int(k)) for p, k in moe_mod.DROP_STATS]
+        finally:
+            moe_mod.DROP_STATS = None
+        L = cfg.n_layers
+        if len(stats) != L * (1 + steps):
+            raise AssertionError(f"{len(stats)} moe_ep calls, want {L} x {1 + steps}")
+
+        def dropped(part):
+            return 1.0 - sum(k for _, k in part) / sum(p for p, _ in part)
+
+        # one full-width MoE layer (layer 0's experts), nothing dropped
+        p0 = {k: params["segments"][0][k][0] for k in ("router", "we_gate", "we_up", "we_down")}
+        x = torch.randn((B, S, cfg.d_model), generator=torch.Generator(device="cuda")
+                        .manual_seed(4), device="cuda").to(p0["router"].dtype)
+        w = (p0["router"], p0["we_gate"], p0["we_up"], p0["we_down"])
+        kw = dict(k=cfg.experts_per_token, n_experts=cfg.n_experts,
+                  capacity_factor=cfg.n_experts / cfg.experts_per_token)
+        with torch.no_grad():
+            with use_rules(pp.rules):
+                moe_mod.DROP_STATS = []
+                y_ep = moe_mod.moe_ffn(to_mesh(x, mesh), *w, **kw).full_tensor()
+                kept = sum(int(k) for _, k in moe_mod.DROP_STATS)
+                moe_mod.DROP_STATS = None
+            y_dense = moe_mod.moe_dense(x.reshape(-1, cfg.d_model), *w,
+                                        k=cfg.experts_per_token).reshape(x.shape)
+        err = float((y_ep.float() - y_dense.float()).norm() / y_dense.float().norm())
+        del dparams, dbatch, x, y_ep, y_dense
+    dense = _serve_run(torch, lambda: make_prefill_fn(model, smax)(params, {"tokens": toks}),
+                       lambda c, t: make_decode_fn(model)(params, c, t), steps)
+    got = {k: ep["counts"][k] for k in want}
+    log(f"[program] {cfg.name} bf16 L={L} B={B} prompt {S} smax {smax}, prefill + {steps} "
+        f"greedy decode steps through build_program (1x1 mesh, NCCL): every MoE FFN through "
+        f"moe_ep (capacity factor {cfg.capacity_factor}), {len(stats)} calls; (token, expert) "
+        f"pairs dropped: prefill {dropped(stats[:L]):.4%} (layers 0, 1, {L // 2}, {L - 1}: "
+        + ", ".join(f"{dropped(stats[i:i + 1]):.2%}" for i in (0, 1, L // 2, L - 1))
+        + f"), decode {dropped(stats[L:]):.4%}")
+    log(f"[program] moe_ep: prefill {ep['prefill_ms']:.1f} ms, decode {ep['decode_ms']:.2f} ms "
+        f"per step (median of {steps}), max_memory_allocated {ep['peak_gib']:.2f} GiB | dense "
+        f"oracle (plain path, same shapes): prefill {dense['prefill_ms']:.1f} ms, decode "
+        f"{dense['decode_ms']:.2f} ms per step, max_memory_allocated {dense['peak_gib']:.2f} GiB")
+    log(f"[program] launches: rmsnorm {got['rmsnorm']} (want {per_step} x {1 + steps}), "
+        f"flash_attention {got['flash_attention']} (want {fa_pf} x 1), tensor-core "
+        f"{got['wgmma']}; argmax of the prefill logits equal to the oracle's in "
+        f"{float((ep['first'].argmax(-1) == dense['first'].argmax(-1)).float().mean()):.0%} "
+        f"of the rows")
+    log(f"[program] one full-width MoE layer, x [{B}, {S}, {cfg.d_model}] {str(w[0].dtype)[6:]}, "
+        f"capacity "
+        f"factor {kw['capacity_factor']:g} = E/k: moe_ep vs moe_dense rel 2-norm {err:.3e} "
+        f"(limit {PROGRAM['moe_layer_tol']:g}); pairs kept {kept} of "
+        f"{B * S * cfg.experts_per_token} [{time.perf_counter() - t_phase:.1f}s]")
+    if got != want:
+        raise AssertionError(f"program serve launches {got}, want {want}")
+    if kept != B * S * cfg.experts_per_token:
+        raise AssertionError("moe_ep dropped a pair at capacity factor E/k")
+    if not err <= PROGRAM["moe_layer_tol"]:
+        raise AssertionError("moe_ep disagrees with moe_dense on a full-width layer")
+    return dict(ep=ep, dense=dense, dropped_prefill=dropped(stats[:L]),
+                dropped_decode=dropped(stats[L:]), layer_err=err)
+
+
+def phase_program_moe_model(torch):
+    """9c. qwen3-moe-30b-a3b at full width and 4 of 48 layers in f32 (phase
+    4's model, 12.5 GB), capacity factor E/k: the program's prefill logits
+    against the dense path's (plain model.prefill), within moe_model_tol."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.programs import build_program
+
+    t_phase = time.perf_counter()
+    base = get_config(MOE)
+    cfg = dataclasses.replace(_cut(base, "model_layers"),
+                              capacity_factor=base.n_experts / base.experts_per_token)
+    B, S, smax = (PATHS[MOE][k] for k in ("model_B", "model_S", "model_smax"))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))).cuda()
+    tol = PROGRAM["moe_model_tol"]
+    with one_rank_mesh(torch) as mesh:
+        pp = build_program(cfg, ShapeSpec("prefill", smax, B, "prefill"), mesh)
+        params = pp.model.init(torch.Generator(device="cuda").manual_seed(0), torch.float32,
+                               "cuda")
+        with torch.inference_mode():
+            want, _ = pp.model.prefill(params, {"tokens": toks}, smax)
+        dparams, dbatch = pp.place(params, {"tokens": toks}, src_data_rank=None)
+        got = pp.fn(dparams, dbatch)[0].full_tensor()
+        del dparams, dbatch
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and bool(torch.allclose(got, want, rtol=tol, atol=tol))
+    log(f"[program] {cfg.name} f32 L={cfg.n_layers} B={B} prompt {S}, capacity factor "
+        f"{cfg.capacity_factor:g}: the program's prefill logits (moe_ep) vs the dense path's, "
+        f"max_abs_err={err:.3e} (tol {tol:g}) [{time.perf_counter() - t_phase:.1f}s]")
+    del params, got, want
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the program's MoE prefill disagrees with the dense path")
+
+
+def start_dryrun():
+    """9d, started at phase 7's kernel timings: one dry-run cell on the card
+    machine's host (python -m repro_torch.launch.dryrun: a fake process
+    group and fake tensors, no device), a process beside them."""
+    import tempfile
+
+    arch, shape, mesh = PROGRAM["dryrun"]
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                             "--shape", shape, "--mesh", mesh, "--out", out],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE,
+                            env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    return proc, out, time.perf_counter()
+
+
+def program_dryrun(started):
+    """9d: the dry-run cell's per-device memory, product FLOPs and time."""
+    import shutil
+
+    proc, out, t0 = started
+    stdout, stderr = proc.communicate(timeout=PROGRAM["dryrun_timeout"])
+    wall = time.perf_counter() - t0
+    cell = {}
+    for name in os.listdir(out):
+        with open(os.path.join(out, name)) as f:
+            cell = json.load(f)
+    shutil.rmtree(out, ignore_errors=True)
+    if proc.returncode != 0 or cell.get("status") != "ok":
+        raise AssertionError(f"dry-run cell failed: {stdout[-2000:]} {stderr[-2000:]} "
+                             f"{cell.get('error', '')}")
+    mem = cell["memory_analysis"]
+    log(f"[program] dry-run {cell['arch']} x {cell['shape']} x {cell['mesh']} ({cell['devices']} "
+        f"devices, fake tensors on the host): per device argument "
+        f"{mem['argument_size_in_bytes'] / 2**30:.2f} GiB, output "
+        f"{mem['output_size_in_bytes'] / 2**30:.2f} GiB, peak of live tensors "
+        f"{mem['peak_memory_in_bytes'] / 2**30:.2f} GiB; product FLOPs per device "
+        f"{cell['cost_analysis']['flops']:.4e}; build {cell['build_s']}s, run {cell['run_s']}s, "
+        f"{wall:.1f}s from its start to here (phase 7's kernel timings ran beside it)")
+    return cell
+
+
 def cli_on_the_card():
     """python -m repro_torch.sweep run on a golden slice's spec, on the card
     (the default device), in a subprocess: its frozen records must equal the
@@ -2523,6 +2879,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    dryrun = None
     try:
         repro_torch.device.resolve_device(None)
         log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -2541,9 +2898,17 @@ def main() -> int:
             t0 = time.perf_counter()
             phase_profile(torch, model, params)
             log(f"[profile] {arch}: {time.perf_counter() - t0:.1f}s")
+            if arch == MOE:           # phase 9a on phase 5's weights
+                phase_program_moe(torch, model, params)
             del model, params
             torch.cuda.empty_cache()
+            if arch == MOE:
+                phase_program_moe_model(torch)
+        # 9d beside phase 7's kernel timings: CUDA events behind a device-side
+        # sleep, which a busy host core does not enter
+        dryrun = start_dryrun()
         rows.update(train_kernels(torch))
+        program_dryrun(dryrun)
         dense_runs = phase_train(torch)
         train_step_vs_plain(torch, DENSE, dict(n_layers=TRAIN["check_layers"]))
         train_step_vs_plain(torch, DENSE, dict(n_layers=TRAIN["check_layers"]),
@@ -2568,9 +2933,16 @@ def main() -> int:
         train_step_vs_plain(torch, VLM, {}, reduced=True)
         log(f"[train] phase 7f (llama-3.2-vision-90b, reduced): {time.perf_counter() - t0:.1f}s")
         cli_on_the_card()
+        t0 = time.perf_counter()
+        phase_program_train(torch)
+        log(f"[program] phase 9b: {time.perf_counter() - t0:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        if dryrun is not None and dryrun[0].poll() is None:
+            dryrun[0].kill()
+            dryrun[0].wait()
 
     from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS
 

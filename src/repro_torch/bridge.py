@@ -8,19 +8,26 @@ port's parameters, path for path along ``model.template()``. It imports no
 JAX: the caller does the conversion to numpy. ``params_to_numpy`` goes the
 other way, for any tree of dicts and lists of tensors (the JAX package's
 pytree of the same paths, once each leaf is read with ``jnp.asarray`` and
-bf16 ``uint16`` views are taken back as bf16).
+bf16 ``uint16`` views are taken back as bf16; a DTensor leaf is read
+whole). ``place(tree, specs, mesh)`` lays a concrete tree of tensors (a
+state, a batch, parameters from ``params_from_numpy``) out on a
+``DeviceMesh`` by a tree of partition specs of the same paths
+(``distribute_tensor``), so JAX parameters carry across into a sharded
+state.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from .distributed.sharding import placements
 from .models.layers import PT
 
 __all__ = ["tensor_from_numpy", "tensor_to_numpy", "params_from_numpy",
-           "params_to_numpy"]
+           "params_to_numpy", "place"]
 
 
 def tensor_from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:
@@ -35,6 +42,8 @@ def tensor_from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     """tensor -> numpy; bf16 comes out as its ``uint16`` bits."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -72,3 +81,19 @@ def params_to_numpy(tree: Any):
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
     return tensor_to_numpy(tree)
+
+
+def place(tree: Any, specs: Any, mesh, *, src_data_rank: Optional[int] = 0):
+    """``tree`` (dicts and lists of tensors; ints pass through) as DTensors
+    on ``mesh``, each leaf laid out by the spec at its path. With the
+    default ``src_data_rank`` rank 0's values are scattered to every rank;
+    ``None`` takes each rank's own copy (every rank holds the same values)."""
+    if isinstance(tree, dict):
+        return {k: place(v, specs[k], mesh, src_data_rank=src_data_rank)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(v, s, mesh, src_data_rank=src_data_rank)
+                          for v, s in zip(tree, specs))
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return distribute_tensor(tree, mesh, placements(specs, mesh), src_data_rank=src_data_rank)

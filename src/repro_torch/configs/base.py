@@ -127,13 +127,37 @@ class ArchConfig:
         )
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense family."""
+        """Analytic parameter count (the reference's formula: the serving
+        memory planner and the dry-run read it)."""
         d, hd = self.d_model, self.hd
         H, KV, L = self.n_heads, self.n_kv_heads, self.n_layers
         emb = self.vocab_size * d
         head = 0 if self.tie_embeddings else self.vocab_size * d
         per_attn = d * H * hd + 2 * d * KV * hd + H * hd * d
-        return emb + head + L * (per_attn + 3 * d * self.d_ff)
+        if self.family == "ssm":
+            # xLSTM blocks replace attention+FFN; rough analytic count.
+            di = self.ssm_expand * d
+            per_layer = 2 * d * di + di * d + 4 * di * hd  # projections + gates
+            return emb + head + L * per_layer
+        if self.is_moe:
+            per_ffn = self.n_experts * 3 * d * self.d_ff + d * self.n_experts
+        else:
+            per_ffn = 3 * d * self.d_ff
+        total = emb + head + self.n_self_layers * (per_attn + per_ffn)
+        if self.n_cross_layers:
+            total += self.n_cross_layers * (per_attn + 3 * d * self.d_ff)
+        if self.family == "hybrid":
+            di = self.ssm_expand * d
+            total += L * (2 * d * di + di * d)  # mamba in/out projections
+        return total
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only routed experts count)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        dense = self.param_count() - self.n_self_layers * (self.n_experts * 3 * d * self.d_ff)
+        return dense + self.n_self_layers * (self.experts_per_token * 3 * d * self.d_ff)
 
 
 @dataclass(frozen=True)

@@ -34,11 +34,17 @@ of ``HEAD_DIMS`` has both a forward and a backward kernel.
 ``flash_mha.bwd_launches`` counts backward calls, each one such launch;
 ``flash_mha.wgmma_bwd_launches`` those that ran the tensor-core kernels. On
 the CPU the plain version's autograd is the backward.
+
+DTensors (under sharding rules) run on each rank's local batch rows and
+heads, the sequence whole (``_flash_on_shards``): the kernel only ever sees
+plain local tensors.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Shard
 
+from ...distributed.sharding import kernel_placements, mesh_of, on_shards, to_mesh
 from .._build import DTYPE_CODES
 from .kernel import (HEAD_DIMS, WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS,
                      flash_attention_bwd_cuda, flash_attention_cuda,
@@ -50,6 +56,9 @@ __all__ = ["flash_mha"]
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, n_sink: int = 0) -> torch.Tensor:
+    mesh = mesh_of(q, k, v)
+    if mesh is not None:
+        return _flash_on_shards(mesh, q, k, v, causal=causal, window=window, n_sink=n_sink)
     if q.device.type == "cpu":
         return flash_mha_ref(q, k, v, causal=causal, window=window, n_sink=n_sink)
     if q.device.type != "cuda":
@@ -76,6 +85,26 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashFn.apply(q, k, v, mask)
     return _forward(q, k, v, mask)
+
+
+def _flash_on_shards(mesh, q, k, v, **mask) -> torch.Tensor:
+    """DTensors: each rank runs the kernel on its batch rows and heads, the
+    sequence whole. A query split over the sequence (sequence-parallel
+    attention) is gathered first, since the kernel's causal mask counts rows
+    from the shard's first row. Where the heads are split over more ranks
+    than there are K/V heads, K and V are repeated to one head per query
+    head (GQA group 1), so every rank holds the K/V heads of its queries."""
+    q = to_mesh(q, mesh)
+    pl = kernel_placements(q, (0, 2))
+    n_head_split = 1
+    for i, p in enumerate(pl):
+        if p == Shard(2):
+            n_head_split *= mesh.size(i)
+    if k.shape[2] % n_head_split:
+        g = q.shape[2] // k.shape[2]
+        k, v = (to_mesh(t, mesh).repeat_interleave(g, dim=2) for t in (k, v))
+    return on_shards(lambda a, b, c: flash_mha(a, b, c, **mask), mesh, (q, k, v),
+                     (pl, pl, pl), pl)
 
 
 def _tensor_cores(q, head_dims=WGMMA_HEAD_DIMS) -> bool:

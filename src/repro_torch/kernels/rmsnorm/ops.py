@@ -12,11 +12,17 @@ w (not r: the backward recomputes it) and whose backward launches the
 backward kernel (``csrc/rmsnorm_bwd.cu``: dx, and dw without atomics).
 ``rmsnorm.bwd_launches`` counts backward calls, each one such launch (two
 kernels: dx with the dw partials, then their fixed-order sum).
+
+A DTensor (under sharding rules) runs on each rank's local rows: its last
+dim whole, w replicated (``distributed.sharding.on_shards``), so the kernel
+only ever sees plain local tensors.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Replicate
 
+from ...distributed.sharding import kernel_placements, mesh_of, on_shards, to_mesh
 from .._build import DTYPE_CODES
 from .kernel import rmsnorm_bwd_cuda, rmsnorm_cuda
 from .ref import rmsnorm_ref
@@ -27,6 +33,11 @@ MAX_D = 8192
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    mesh = mesh_of(x, w)
+    if mesh is not None:
+        pl = kernel_placements(to_mesh(x, mesh), range(x.ndim - 1))
+        return on_shards(lambda a, b: rmsnorm(a, b, eps), mesh, (x, w),
+                         (pl, [Replicate()] * mesh.ndim), pl)
     if not x.is_cuda:
         if x.device.type == "cpu":
             return rmsnorm_ref(x, w, eps)

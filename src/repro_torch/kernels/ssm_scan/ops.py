@@ -13,12 +13,14 @@ and its own output ``h`` (both of which the Mamba chain holds anyway: h
 feeds the C contraction) and whose backward is the reverse scan: the
 backward kernel (``csrc/ssm_scan.cu``, ``repro_ssm_scan_bwd``) on the card,
 ``ssm_scan_bwd_ref`` on the CPU. ``ssm_scan_batched.bwd_launches`` counts
-backward kernel launches and nothing else.
+backward kernel launches and nothing else. DTensors (under sharding
+rules) run on each rank's local shards with the scanned dim whole.
 """
 from __future__ import annotations
 
 import torch
 
+from ...distributed.sharding import kernel_placements, mesh_of, on_shards, to_mesh
 from .._build import DTYPE_CODES
 from .kernel import ssm_scan_bwd_cuda, ssm_scan_cuda
 from .ref import ssm_scan_bwd_ref, ssm_scan_ref
@@ -29,6 +31,10 @@ MAX_BATCH = 65535   # grid.y of the launch
 
 
 def ssm_scan_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    mesh = mesh_of(a, b)
+    if mesh is not None:          # DTensors: local shards, the scanned dim whole
+        pl = kernel_placements(to_mesh(a, mesh), [d for d in range(a.ndim) if d != a.ndim - 2])
+        return on_shards(ssm_scan_batched, mesh, (a, b), (pl, pl), pl)
     if a.device.type == "cuda":
         _check(a, b)
     elif a.device.type != "cpu":

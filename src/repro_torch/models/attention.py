@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from ..distributed.sharding import constrain
 from ..kernels.flash_attention.ops import flash_mha
 
 __all__ = ["attention", "sink_banded_attention", "cross_attention", "decode_attention"]
@@ -40,7 +41,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``repro/models/attention.py:102-104``); no caller reaches that case, and
     here sinks are always attended.
     """
-    return flash_mha(q, k, v, causal=causal, window=window, n_sink=n_sink)
+    out = flash_mha(q, k, v, causal=causal, window=window, n_sink=n_sink)
+    return constrain(out, "batch", "act_seq", "heads", None)
 
 
 def sink_banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

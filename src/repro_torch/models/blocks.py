@@ -21,6 +21,9 @@ slice it is given, and ``decode`` writes the new token's K/V (and state)
 at its slot; both return that same slice. (The JAX package returns a new cache and donates the old one.)
 A sliding-window layer keeps a ring: ``n_sink`` sink slots, then
 ``window`` slots that the positions after the sinks cycle through.
+Under sharding rules the tensors are DTensors, the ``constrain`` calls sit
+at the reference's sites, and each cache write lands in the local shard of
+every rank that holds part of its slots (``write_along_``, ``store_``).
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import constrain, mesh_of, store_, to_mesh, write_along_
 from .attention import attention, cross_attention, decode_attention
-from .layers import PT, apply_rope, map_templates, rms_norm, swiglu
+from .layers import PT, apply_rope, column_parallel, dense, map_templates, rms_norm, swiglu
 from .mamba import MambaState, mamba_decode_mix, mamba_mix
 from .moe import moe_ffn
 from .ssm import mlstm_chunked, mlstm_decode_step, slstm_decode_step, slstm_scan
@@ -94,7 +98,7 @@ def rope_at(pos: int, head_dim: int, theta: float, device=None):
 def _store(cache, **state):
     """Copy each named state into its preallocated cache leaf; the cache."""
     for key, t in state.items():
-        cache[key].copy_(t)
+        store_(cache[key], t)
     return cache
 
 
@@ -143,15 +147,20 @@ def _attn_template(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def _proj_heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """'bsd,dhk->bshk' as one matrix product."""
+    """'bsd,dhk->bshk' as one matrix product; on DTensors a column-parallel
+    one over the heads each rank holds (``column_parallel``)."""
     d, n, k = w.shape
-    return (h @ w.reshape(d, n * k)).unflatten(-1, (n, k))
+    mesh = mesh_of(h, w)
+    if mesh is None:
+        return (h @ w.reshape(d, n * k)).unflatten(-1, (n, k))
+    return column_parallel(lambda x, wl: (x @ wl.reshape(d, -1)).unflatten(-1, (wl.shape[1], k)),
+                           to_mesh(h, mesh), w)
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """'bshk,hkd->bsd' as one matrix product."""
     n, k, d = wo.shape
-    return o.flatten(-2) @ wo.reshape(n * k, d)
+    return dense(o.flatten(-2), wo.reshape(n * k, d))
 
 
 def _qkv(cfg: ArchConfig, p, h, rope):
@@ -167,18 +176,20 @@ def _qkv(cfg: ArchConfig, p, h, rope):
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = constrain(q, "batch", "act_seq", "heads", None)
     return q, k, v
 
 
 def _ffn(cfg: ArchConfig, p, x, res):
     """ln2, then the dense SwiGLU or the MoE FFN, and the residual."""
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h2 = constrain(rms_norm(x, p["ln2"], cfg.norm_eps), "batch", "act_seq", None)
     if cfg.is_moe:
         f = moe_ffn(h2, p["router"], p["we_gate"], p["we_up"], p["we_down"],
-                    k=cfg.experts_per_token)
+                    k=cfg.experts_per_token, n_experts=cfg.n_experts,
+                    capacity_factor=cfg.capacity_factor)
     else:
         f = swiglu(h2, p["wg"], p["wi"], p["wo2"])
-    return _residual(x, f, res)
+    return constrain(_residual(x, f, res), "batch", "act_seq", None)
 
 
 # decode runs the same FFN (dense or MoE) on one token
@@ -187,7 +198,8 @@ _ffn_decode = _ffn
 
 def _attn_in(cfg: ArchConfig, p, x, ctx: BlockCtx):
     """ln1 and the projections: the part of the block before attention."""
-    return _qkv(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps), ctx.rope)
+    h = constrain(rms_norm(x, p["ln1"], cfg.norm_eps), "batch", "act_seq", None)
+    return _qkv(cfg, p, h, ctx.rope)
 
 
 def _attn_mix(q, k, v, ctx: BlockCtx):
@@ -234,17 +246,17 @@ def _pack_attn_cache(k, v, cache, ctx: BlockCtx):
     S = k.shape[1]
     if ctx.window == 0:
         n = min(S, cache["k"].shape[1])
-        cache["k"][:, :n] = k[:, :n]
-        cache["v"][:, :n] = v[:, :n]
+        write_along_(cache["k"], k[:, :n], 1, 0)
+        write_along_(cache["v"], v[:, :n], 1, 0)
         return cache
     ns, w = ctx.n_sink, ctx.window            # S >= ns: the sinks lead every prompt
-    cache["k"][:, :ns] = k[:, :ns]
-    cache["v"][:, :ns] = v[:, :ns]
+    write_along_(cache["k"], k[:, :ns], 1, 0)
+    write_along_(cache["v"], v[:, :ns], 1, 0)
     tail = min(w, S - ns)
     start = (S - tail - ns) % w
     idx = ns + (start + torch.arange(tail, device=k.device)) % w
-    cache["k"][:, idx] = k[:, S - tail:]
-    cache["v"][:, idx] = v[:, S - tail:]
+    write_along_(cache["k"], k[:, S - tail:], 1, index=idx)
+    write_along_(cache["v"], v[:, S - tail:], 1, index=idx)
     return cache
 
 
@@ -259,6 +271,9 @@ def _decode_attn_out(cfg: ArchConfig, p, h, cache, ctx: BlockCtx):
     h [B,1,d] (normed) -> out-projected attention [B,1,d]."""
     pos = ctx.pos
     q, k, v = _qkv(cfg, p, h, ctx.rope)
+    # decode shards the CACHE over 'model' (flash-decoding); q keeps its
+    # heads whole
+    q = constrain(q, "batch", None, None, None)
     W = cache["k"].shape[1]
     if ctx.window == 0:
         slot = pos
@@ -267,8 +282,8 @@ def _decode_attn_out(cfg: ArchConfig, p, h, cache, ctx: BlockCtx):
         slot = pos if pos < ns else ns + (pos - ns) % ctx.window
     # the reference's dynamic_update_slice clamps the slot into the cache
     slot = min(slot, W - 1)
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
+    write_along_(cache["k"], k, 1, slot)
+    write_along_(cache["v"], v, 1, slot)
     # the reference's ring mask (arange(W) <= pos) | (pos >= W) is this
     # one: once pos >= W every slot is <= pos
     valid = torch.arange(W, device=h.device) <= pos
@@ -328,10 +343,12 @@ def _img_kv(p, img, eps):
 def _cross_core(cfg: ArchConfig, p, x, k_img, v_img):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q = rms_norm(_proj_heads(h, p["wq"]), p["q_norm"], cfg.norm_eps)
+    q = constrain(q, "batch", "act_seq", "heads", None)
     o = _out_proj(cross_attention(q, k_img, v_img), p["wo"])
     x = x + torch.tanh(p["gate_attn"]) * o
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + torch.tanh(p["gate_ffn"]) * swiglu(h2, p["wg"], p["wi"], p["wo2"])
+    x = x + torch.tanh(p["gate_ffn"]) * swiglu(h2, p["wg"], p["wi"], p["wo2"])
+    return constrain(x, "batch", "act_seq", None)
 
 
 def _cross_apply(cfg: ArchConfig, p, x, ctx: BlockCtx) -> torch.Tensor:
@@ -407,7 +424,7 @@ def _hybrid_template(cfg: ArchConfig) -> Dict[str, Any]:
 def _hybrid_mamba(cfg: ArchConfig, p, h, state: Optional[MambaState] = None,
                   decode: bool = False):
     """Mamba heads on the normed input h [B,S,d] -> (out [B,S,d], state)."""
-    x_in, z = (h @ p["w_in"]).chunk(2, dim=-1)
+    x_in, z = constrain(dense(h, p["w_in"]), "batch", None, "ssm_inner").chunk(2, dim=-1)
     args = (x_in, z, p["conv_w"], p["w_x"], p["w_dt"], p["b_dt"], p["a_log"],
             p["d_skip"])
     kw = dict(n_state=cfg.ssm_state, dt_rank=_dt_rank(cfg), state=state)
@@ -415,19 +432,19 @@ def _hybrid_mamba(cfg: ArchConfig, p, h, state: Optional[MambaState] = None,
         y, st = mamba_decode_mix(*args, **kw)
     else:
         y, st = mamba_mix(*args, return_state=True, **kw)
-    return y @ p["wo_m"], st
+    return dense(y, p["wo_m"]), st
 
 
 def _hybrid_fuse(cfg: ArchConfig, p, x, o_attn, o_ssm):
     fused = 0.5 * (rms_norm(o_attn, p["norm_attn"], cfg.norm_eps)
                    + rms_norm(o_ssm, p["norm_ssm"], cfg.norm_eps))
-    x = x + fused
+    x = constrain(x + fused, "batch", "act_seq", None)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(h2, p["wg"], p["wi"], p["wo2"])
+    return constrain(x + swiglu(h2, p["wg"], p["wi"], p["wo2"]), "batch", "act_seq", None)
 
 
 def _hybrid_core(cfg: ArchConfig, p, x, ctx: BlockCtx):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = constrain(rms_norm(x, p["ln1"], cfg.norm_eps), "batch", "act_seq", None)
     q, k, v = _qkv(cfg, p, h, ctx.rope)
     o = attention(q, k, v, causal=True, window=ctx.window, n_sink=ctx.n_sink)
     o_attn = _out_proj(o, p["wo"])
@@ -496,17 +513,17 @@ def _mlstm_template(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def _mlstm_io(cfg: ArchConfig, p, x):
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = constrain(rms_norm(x, p["ln"], cfg.norm_eps), "batch", "act_seq", None)
     q, k, v = (_proj_heads(h, p[w]) for w in ("wq", "wk", "wv"))
     gates = _proj_heads(h, p["w_if"]) + p["b_if"]            # [B,S,H,2]
-    return q, k, v, gates[..., 0], gates[..., 1], h @ p["wz"]
+    return q, k, v, gates[..., 0], gates[..., 1], dense(h, p["wz"])
 
 
 def _mlstm_out(cfg: ArchConfig, p, x, hc, z):
     B, S = z.shape[0], z.shape[1]
     hc = rms_norm(hc.reshape(B, S, cfg.d_model), p["norm_cell"], cfg.norm_eps)
     out = hc * F.silu(z.float()).to(hc.dtype)
-    return x + out @ p["wo"]
+    return constrain(x + dense(out, p["wo"]), "batch", "act_seq", None)
 
 
 def _mlstm_apply(cfg: ArchConfig, p, x, ctx: BlockCtx) -> torch.Tensor:
@@ -571,16 +588,16 @@ def _slstm_gates(cfg: ArchConfig, p, x):
     """'bsd,dhgk->bshgk' + bias: the gates' input part [B,S,H,4,hd]."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     d = p["w_gates"].shape[0]
-    gx = (h @ p["w_gates"].reshape(d, -1)).unflatten(-1, p["w_gates"].shape[1:])
+    gx = dense(h, p["w_gates"].reshape(d, -1)).unflatten(-1, p["w_gates"].shape[1:])
     return gx + p["b_gates"]
 
 
 def _slstm_post(cfg: ArchConfig, p, x, hs):
     B, S = x.shape[0], x.shape[1]
     hc = rms_norm(hs.reshape(B, S, cfg.d_model), p["norm_cell"], cfg.norm_eps)
-    x = x + hc @ p["wo"]
+    x = x + dense(hc, p["wo"])
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(h2, p["wg"], p["wi"], p["wo2"])
+    return constrain(x + swiglu(h2, p["wg"], p["wi"], p["wo2"]), "batch", "act_seq", None)
 
 
 def _slstm_apply(cfg: ArchConfig, p, x, ctx: BlockCtx) -> torch.Tensor:

@@ -2,12 +2,20 @@
 
 Counterpart of ``repro/models/layers.py``. Every model family declares its
 parameters as a tree (dicts and lists) of ``PT`` records — the port's own
-copy of the JAX package's template — from which ``init_params`` draws the
-tensors with the same init laws. Parameters and caches are plain trees of
-tensors with the same paths as the JAX package's pytrees.
+copy of the JAX package's template — from which we derive:
+
+  * ``init_params``      — the tensors, drawn with the same init laws
+  * ``abstract_params``  — tensors with no storage (``meta``, or fake ones
+    under a ``FakeTensorMode``) for the dry-run
+  * ``param_pspecs``     — partition specs from the logical axes, and
+    ``param_placements``, the same as DTensor placements over the mesh
+
+Parameters and caches are plain trees of tensors (DTensors over a mesh under
+sharding rules) with the same paths as the JAX package's pytrees.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
@@ -16,21 +24,32 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..distributed.sharding import (ShardingRules, active_rules, bind_rules, constrain,
+                                    kernel_placements, local_offset, on_shards, placements,
+                                    spec_of, to_mesh)
 from ..kernels.rmsnorm.ops import rmsnorm
 
 __all__ = [
     "PT",
     "map_templates",
     "init_params",
+    "abstract_params",
+    "param_pspecs",
+    "param_placements",
     "const_leaf",
     "rms_norm",
     "rope_table",
     "apply_rope",
     "swiglu",
     "cross_entropy_chunked",
+    "remat_call",
+    "dense",
+    "column_parallel",
 ]
 
-_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32}
 
 
 @dataclass(frozen=True)
@@ -116,6 +135,27 @@ def init_params(template, generator: torch.Generator,
     return map_templates(make, template)
 
 
+def abstract_params(template, dtype: torch.dtype = torch.bfloat16, device="meta"):
+    """Every leaf as an empty tensor of its shape and dtype on ``device``:
+    no storage on ``meta``; a fake tensor when a ``FakeTensorMode`` is
+    active."""
+    return map_templates(
+        lambda t: torch.empty(t.shape, dtype=t.resolve_dtype(dtype), device=device), template)
+
+
+def param_pspecs(template, rules: ShardingRules):
+    """PT -> partition spec, leaving any non-divisible dim unsharded (the
+    same guard ``constrain`` applies to activations)."""
+    return map_templates(lambda t: spec_of(t.shape, t.axes, rules), template)
+
+
+def param_placements(template, rules: ShardingRules):
+    """PT -> DTensor placements over ``rules.mesh`` (``param_pspecs`` by mesh
+    dim)."""
+    return map_templates(lambda t: placements(spec_of(t.shape, t.axes, rules), rules.mesh),
+                         template)
+
+
 # ---------------------------------------------------------------------------
 # numerics
 # ---------------------------------------------------------------------------
@@ -147,13 +187,81 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+def column_parallel(fn, x: DTensor, w: torch.Tensor) -> DTensor:
+    """``fn(x_local, w_local)`` for ``x [..., d] @ w [d, f, ...]`` on each
+    rank's shards: x's leading dims as they are split (d whole), w's dim 1
+    split where x does not use that mesh dim and whole elsewhere; the
+    output [..., f, ...] split as x's rows and w's dim 1. A DTensor product
+    may choose to split the columns over more ranks than heads, or flatten
+    rows split over two mesh dims, which no rule takes."""
+    mesh = x.device_mesh
+    w = to_mesh(w, mesh)
+    xp = kernel_placements(x, range(x.ndim - 1))
+    wp = [Replicate() if isinstance(a, Shard) or b != Shard(1) else b
+          for a, b in zip(xp, w.placements)]
+    op = [a if isinstance(a, Shard) else Shard(x.ndim - 1) if b == Shard(1) else Replicate()
+          for a, b in zip(xp, wp)]
+    return on_shards(fn, mesh, (x, w), (xp, wp), op)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., d] @ w [d, f]``. Under rules of the sequence-parallel
+    regime (``act_seq`` mapped), or on a DTensor split on more than one
+    leading dim, a column-parallel product on local shards
+    (``column_parallel``), in the forward and so in the backward:
+    flattening a batch split over 'data' and a sequence split over 'model'
+    into one matrix row dim is a layout DTensor's matrix product has no
+    rule for. Otherwise it is DTensor's product (or the plain one)."""
+    if isinstance(x, DTensor) and x.ndim >= 3:
+        rules = active_rules()
+        split = {p.dim % x.ndim for p in x.placements if isinstance(p, Shard)} - {x.ndim - 1}
+        if len(split) > 1 or (rules is not None and rules.table.get("act_seq") is not None):
+            return column_parallel(torch.matmul, x, w)
+    return x @ w
+
+
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
            wo: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: (silu(x@wg) * (x@wi)) @ wo."""
-    g = x @ wg
-    u = x @ wi
+    """SwiGLU MLP: (silu(x@wg) * (x@wi)) @ wo, TP-sharded on the hidden dim."""
+    g = dense(x, wg)
+    u = dense(x, wi)
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ wo
+    if h.ndim == 3:
+        h = constrain(h, "batch", "act_seq", "ff")
+    return dense(h, wo)
+
+
+def remat_call(fn, *args):
+    """``torch.utils.checkpoint`` (non-reentrant) of ``fn(*args)``; under
+    sharding rules the recomputation, which may run on the autograd
+    engine's own thread, sees the same rules."""
+    rules = active_rules()
+    if rules is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), bind_rules(rules)))
+
+
+def _target_logit(logits: DTensor, labels: torch.Tensor) -> DTensor:
+    """The label's logit of DTensor logits [B,S,V] split over the vocabulary:
+    each rank gathers it from its own vocabulary slice and reads 0 where
+    the label lies outside it, a pending sum over the vocabulary's mesh dims
+    (the value of the reference's one-hot contraction, with no [B,S,V]
+    one-hot; a gather along a split dim has no working DTensor rule)."""
+    mesh, nd = logits.device_mesh, logits.ndim
+    out = [Partial() if isinstance(p, Shard) and p.dim % nd == nd - 1 else
+           p if isinstance(p, Shard) else Replicate() for p in logits.placements]
+    lab = [p if isinstance(p, Shard) else Replicate() for p in out]
+    off = local_offset(logits, nd - 1)
+
+    def gather(lg, lx):
+        rel = lx.long() - off
+        inside = (rel >= 0) & (rel < lg.shape[-1])
+        got = lg.gather(-1, rel.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return torch.where(inside, got, torch.zeros((), dtype=got.dtype, device=got.device))
+
+    return on_shards(gather, mesh, (logits, labels),
+                     (kernel_placements(logits, range(nd)), lab), out)
 
 
 def _ce_chunk(hx: torch.Tensor, lm_head: torch.Tensor, lx: torch.Tensor,
@@ -161,9 +269,12 @@ def _ce_chunk(hx: torch.Tensor, lm_head: torch.Tensor, lx: torch.Tensor,
     """Summed masked NLL of one chunk: f32 logits, logsumexp over the
     (padded) vocabulary, the target logit by ``gather`` (the value of the
     reference's one-hot contraction)."""
-    logits = (hx @ lm_head).float() * logit_scale
+    logits = constrain(dense(hx, lm_head), "batch", None, "vocab").float() * logit_scale
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, lx.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        tgt = _target_logit(logits, lx)
+    else:
+        tgt = logits.gather(-1, lx.long()[..., None])[..., 0]
     return ((lse - tgt) * mx).sum()
 
 
@@ -184,13 +295,14 @@ def cross_entropy_chunked(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
     remat = torch.is_grad_enabled()
+    lm_head = constrain(lm_head, None, "vocab")      # vocab-parallel logits (the tied embed.T)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_chunks):
         sl = slice(i * Sc, (i + 1) * Sc)
         mx = mask[:, sl].float()
         args = (h[:, sl], lm_head, labels[:, sl], mx, logit_scale)
-        nll = checkpoint(_ce_chunk, *args, use_reentrant=False) if remat else _ce_chunk(*args)
+        nll = remat_call(_ce_chunk, *args) if remat else _ce_chunk(*args)
         tot = tot + nll
         cnt = cnt + mx.sum()
     return tot / cnt.clamp_min(1.0)

@@ -16,7 +16,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import constrain
 from ..kernels.ssm_scan.ops import ssm_scan_batched
+from .layers import dense
 
 __all__ = ["selective_scan", "mamba_mix", "mamba_decode_mix", "MambaState"]
 
@@ -69,9 +71,9 @@ def _ssm_inner(x_conv, dt, Bm, Cm, A, D, state: Optional[torch.Tensor]):
 def _dt_and_bc(xc: torch.Tensor, x_dtype, w_x, w_dt, b_dt, n_state, dt_rank):
     """Input-dependent step and B/C: proj = xc @ W_x (in the activation
     dtype), dt = softplus(dt_in @ W_dt + b_dt) in f32."""
-    proj = (xc.to(x_dtype) @ w_x).float()
+    proj = dense(xc.to(x_dtype), w_x).float()
     dt_in, Bm, Cm = torch.split(proj, [dt_rank, n_state, n_state], dim=-1)
-    dt = F.softplus(dt_in @ w_dt.float() + b_dt.float())
+    dt = F.softplus(dense(dt_in, w_dt.float()) + b_dt.float())
     return dt, Bm, Cm
 
 
@@ -94,13 +96,14 @@ def mamba_mix(
     conv + selective-scan + gate core that forward, prefill and decode share."""
     xc, conv_carry = _causal_depthwise_conv(
         x_in, conv_w, None if state is None else state.conv)
-    xc = F.silu(xc.float())
+    xc = constrain(F.silu(xc.float()), "batch", None, "ssm_inner")
     dt, Bm, Cm = _dt_and_bc(xc, x_in.dtype, w_x, w_dt, b_dt, n_state, dt_rank)
+    dt = constrain(dt, "batch", None, "ssm_inner")
     A = -torch.exp(a_log.float())                            # [di,n]
     y, ssm_final = _ssm_inner(
         xc, dt, Bm, Cm, A, d_skip.float(),
         None if state is None else state.ssm.float())
-    out = (y * F.silu(z.float())).to(x_in.dtype)
+    out = constrain((y * F.silu(z.float())).to(x_in.dtype), "batch", None, "ssm_inner")
     if return_state:
         return out, MambaState(conv=conv_carry, ssm=ssm_final)
     return out

@@ -43,9 +43,19 @@ block with no such cut (the hybrid block, whose reference names nothing)
 runs under "save-attn" as under "full", which is what the reference's
 policy computes for it. A VLM group recomputes each self layer and the
 whole group, nested as in the reference. Prefill and decode ignore remat.
+
+Sharding: ``abstract``, ``pspecs``, ``batch_template``, ``abstract_cache``
+and ``cache_pspecs`` are the reference's, with specs from
+``distributed.sharding`` (``P``; ``layers.param_placements`` gives their
+DTensor placements). Under sharding rules the parameters and batch are
+DTensors, the ``constrain`` calls sit at the reference's sites, the cache
+is allocated shard by shard by its specs, and a recomputed layer runs under
+the rules of its forward (``layers.remat_call``: the backward of a CUDA
+tensor runs on another thread, which sees no thread-local rules).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
@@ -53,11 +63,12 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeSpec
+from ..distributed.sharding import P, active_rules, constrain, full_on_mesh, spec_of
 from .blocks import BLOCKS, BlockCtx, rope_at, stackify
-from .layers import (PT, const_leaf, cross_entropy_chunked, init_params, map_templates,
+from .layers import (CONST_INITS, PT, abstract_params, const_leaf, cross_entropy_chunked,
+                     init_params, map_templates, param_pspecs, remat_call,
                      rms_norm, rope_table)
 
 __all__ = ["Model", "Segment", "plan_segments", "build_model", "REMAT_POLICIES"]
@@ -182,6 +193,31 @@ class Model:
         """Random parameters from ``generator`` (drawn on its device)."""
         return init_params(self.template(), generator, dtype, device)
 
+    def abstract(self, dtype: torch.dtype = torch.bfloat16, device="meta"):
+        return abstract_params(self.template(), dtype, device)
+
+    def pspecs(self, rules):
+        return param_pspecs(self.template(), rules)
+
+    # ------------------------------------------------------------------
+    # batch templates (inputs)
+    # ------------------------------------------------------------------
+    def batch_template(self, shape: ShapeSpec) -> Dict[str, Any]:
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":             # one new token; the big inputs are the cache
+            return {"tokens": PT((B, 1), ("batch", None), init="zeros", dtype="int32")}
+        b: Dict[str, Any] = {}
+        if shape.kind == "train":
+            b["labels"] = PT((B, S), ("batch", None), init="zeros", dtype="int32")
+        if cfg.family == "audio":
+            b["frames"] = PT((B, S, cfg.d_model), ("batch", None, None))
+        else:
+            b["tokens"] = PT((B, S), ("batch", None), init="zeros", dtype="int32")
+        if cfg.family == "vlm":
+            b["images"] = PT((B, cfg.n_image_tokens, cfg.d_model), ("batch", None, None))
+        return b
+
     # ------------------------------------------------------------------
     # cache templates
     # ------------------------------------------------------------------
@@ -196,11 +232,32 @@ class Model:
                    device=None):
         """The cache at ``pos`` 0, each leaf filled by its template's init
         (zeros, ones or -1e30) in its own dtype (``dtype`` where the
-        template names none)."""
-        cache = map_templates(lambda t: const_leaf(t, dtype, device),
-                              self.cache_template(B, smax))
+        template names none). Under sharding rules each leaf is a DTensor
+        laid out by ``cache_pspecs``, and each rank allocates its shard."""
+        rules = active_rules()
+        if rules is None:
+            make = functools.partial(const_leaf, dtype=dtype, device=device)
+        else:
+            def make(t: PT):
+                return full_on_mesh(t.shape, CONST_INITS[t.init], t.resolve_dtype(dtype), device,
+                                    spec_of(t.shape, t.axes, rules), rules.mesh)
+        cache = map_templates(make, self.cache_template(B, smax))
         cache["pos"] = 0
         return cache
+
+    def abstract_cache(self, B: int, smax: int, dtype: torch.dtype = torch.bfloat16,
+                       device="meta"):
+        """The cache's leaves as empty tensors (``abstract``), at ``pos`` 0."""
+        cache = abstract_params(self.cache_template(B, smax), dtype, device)
+        cache["pos"] = 0
+        return cache
+
+    def cache_pspecs(self, B: int, smax: int, rules):
+        """The cache's specs; ``pos`` is replicated (the reference's int32
+        scalar; here a Python int)."""
+        specs = param_pspecs(self.cache_template(B, smax), rules)
+        specs["pos"] = P()
+        return specs
 
     # ------------------------------------------------------------------
     # forward paths
@@ -237,7 +294,7 @@ class Model:
         if self.cfg.n_meta_tokens:
             meta = params["meta"].to(x.dtype).expand(x.shape[0], -1, -1)
             x = torch.cat([meta, x], dim=1)
-        return x
+        return constrain(x, "batch", "act_seq", None)
 
     def _rope_for(self, S: int, device):
         if not _uses_rope(self.cfg):
@@ -260,7 +317,7 @@ class Model:
             ctx = self._ctx(seg, rope=rope, img=img)
             if seg.kind == "vlm_group":
                 for gp in _layers(seg, p):
-                    x = (checkpoint(self._group, seg, gp, x, ctx, remat, use_reentrant=False)
+                    x = (remat_call(self._group, seg, gp, x, ctx, remat)
                          if remat else self._group(seg, gp, x, ctx, remat))
                 continue
             blk = BLOCKS[seg.kind]
@@ -280,10 +337,10 @@ class Model:
         """One layer whose activations are recomputed in the backward."""
         cfg = self.cfg
         if self.remat_policy == "full" or blk.split is None:
-            return checkpoint(blk.apply, cfg, lp, x, ctx, use_reentrant=False)
+            return remat_call(blk.apply, cfg, lp, x, ctx)
         first, mix, last = blk.split                # "save-attn"
-        q, k, v = checkpoint(first, cfg, lp, x, ctx, use_reentrant=False)
-        return checkpoint(last, cfg, lp, x, mix(q, k, v, ctx), use_reentrant=False)
+        q, k, v = remat_call(first, cfg, lp, x, ctx)
+        return remat_call(last, cfg, lp, x, mix(q, k, v, ctx))
 
     # -- training loss --------------------------------------------------
     def loss(self, params, batch) -> torch.Tensor:
@@ -310,7 +367,8 @@ class Model:
             logits = F.linear(h_last, params["embed"])
         else:
             logits = h_last @ params["head"]
-        logits = logits.float()
+        # keep the logits vocab-sharded (the reference's constraint)
+        logits = constrain(logits.float(), "batch", "vocab")
         if cfg.dim_model_base:
             logits = logits * self._logit_scale()
         return logits
@@ -367,7 +425,7 @@ class Model:
             raise ValueError(f"{cfg.name}: the audio family is an encoder and has no decode "
                              f"step (use forward or prefill; the reference has no such path)")
         pos = cache["pos"] + cfg.n_meta_tokens    # absolute, meta included
-        x = self._embed(params, tokens)
+        x = constrain(self._embed(params, tokens), "batch", None, None)
         rope = rope_at(pos, cfg.hd, cfg.rope_theta, x.device) if _uses_rope(cfg) else None
         for seg, p, c in zip(self.segments, params["segments"], cache["segments"]):
             x = self._run_segment(seg, p, c, x, self._ctx(seg, rope=rope, pos=pos), "decode")

@@ -8,7 +8,9 @@ exceeds its decode deadline is evicted and re-queued (bounded retries), so
 one stuck stream cannot head-of-line-block the batch.
 
 The programs run eagerly on the parameters' device (there is no ``jit``);
-the decode cache is updated in place where the reference donates it.
+the decode cache is updated in place where the reference donates it. With
+sharding ``rules`` (keyword, as the reference's argument) they run under
+them: DTensor parameters, a cache laid out by ``Model.cache_pspecs``.
 """
 from __future__ import annotations
 
@@ -18,23 +20,33 @@ from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..distributed.sharding import ShardingRules, use_rules
 from ..models.model import Model
 
 __all__ = ["make_prefill_fn", "make_decode_fn", "ServeEngine", "Request"]
 
 
-def make_prefill_fn(model: Model, smax: int) -> Callable:
+def _no_grad(rules: Optional[ShardingRules]):
+    """Inference mode; ``no_grad`` under rules, since a DTensor view made in
+    inference mode of a tensor made outside it cannot take a version
+    counter."""
+    return torch.inference_mode() if rules is None else torch.no_grad()
+
+
+def make_prefill_fn(model: Model, smax: int, *, rules: Optional[ShardingRules] = None
+                    ) -> Callable:
     def prefill(params, batch):
-        with torch.inference_mode():
+        with _no_grad(rules), use_rules(rules):
             return model.prefill(params, batch, smax)
 
     return prefill
 
 
-def make_decode_fn(model: Model) -> Callable:
+def make_decode_fn(model: Model, *, rules: Optional[ShardingRules] = None) -> Callable:
     def decode(params, cache, tokens):
-        with torch.inference_mode():
+        with _no_grad(rules), use_rules(rules):
             return model.decode_step(params, cache, tokens)
 
     return decode
@@ -63,14 +75,16 @@ class ServeEngine:
     embedding table.
     """
 
-    def __init__(self, model: Model, params, *, smax: int, max_retries: int = 1):
+    def __init__(self, model: Model, params, *, smax: int,
+                 rules: Optional[ShardingRules] = None, max_retries: int = 1):
         self.model = model
         self.params = params
         self.smax = smax
+        self.rules = rules
         self.max_retries = max_retries
         self.device = params["embed"].device
-        self.prefill_fn = make_prefill_fn(model, smax)
-        self.decode_fn = make_decode_fn(model)
+        self.prefill_fn = make_prefill_fn(model, smax, rules=rules)
+        self.decode_fn = make_decode_fn(model, rules=rules)
         self.queue: Deque[Request] = deque()
         self.completed: Dict[int, Request] = {}
         self.evicted: List[int] = []
@@ -98,6 +112,8 @@ class ServeEngine:
 
     @staticmethod
     def _greedy(logits: torch.Tensor) -> np.ndarray:
+        if isinstance(logits, DTensor):
+            logits = logits.full_tensor()
         return logits.argmax(-1).cpu().numpy().astype(np.int32)
 
     def run(self, batch_size: int = 4) -> Dict[int, List[int]]:

@@ -1,12 +1,13 @@
 """Training substrate: optimizer, step factory, data, checkpointing.
 
-Counterpart of ``repro/train`` on the port's tensor trees. ``abstract_state``,
-``state_pspecs`` and ``batch_pspecs`` are not here yet: they belong to the
-distributed slice.
+Counterpart of ``repro/train`` on the port's tensor trees, with the
+sharded state's specs (``abstract_state``, ``state_pspecs``,
+``batch_pspecs``) over a DeviceMesh.
 """
 from .checkpoint import CheckpointManager, latest_step, restore_checkpoint, save_checkpoint
 from .data import SyntheticData
-from .loop import init_state, make_train_step, schedule_for
+from .loop import (abstract_state, batch_pspecs, init_state, make_train_step, schedule_for,
+                   state_pspecs)
 from .optim import adamw_init, adamw_update, cosine_schedule, wsd_schedule
 
 __all__ = [

@@ -43,6 +43,8 @@ for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
+import torch.distributed as dist
+assert not dist.is_initialized(), "importing the port started a process group"
 print(len(names), " ".join(sorted(names)))
 """
 
@@ -68,7 +70,9 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.graph.stackem", "repro_torch.sweep.__main__",
                 "repro_torch.train.optim", "repro_torch.train.loop",
                 "repro_torch.train.compress", "repro_torch.train.data",
-                "repro_torch.train.checkpoint", "repro_torch.launch.train"):
+                "repro_torch.train.checkpoint", "repro_torch.launch.train",
+                "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+                "repro_torch.launch.programs", "repro_torch.launch.dryrun"):
         assert mod in names
 
 
