@@ -60,6 +60,17 @@ run (non-zero exit, no result line):
      instance's blocks an SM from the card's occupancy calculator); in f32
      beside the previous (scalar) design's time; bf16 at hd 80 beside the
      CUDA-core bf16 instance (the earlier design), timed in this run;
+  3b. row offset — the query row offset (q_off) of the four flash kernels
+     at full width: qwen2's causal heads in f32 (CUDA cores) and bf16
+     (tensor cores), hymba's window and 128 sinks in f32 and bf16, HuBERT's
+     non-causal hd 80 in bf16, each call's rows cut into 4 shards, each
+     shard run against the whole K and V with its first row as q_off. The
+     serve and autograd instances' outputs and dQ must equal the unsplit
+     call's rows bit for bit where the shards' edges are multiples of the
+     kernel's query tile, else hold to phase 3's and phase 7's tolerances;
+     dK and dV summed over the shards must hold to phase 7's. q_off = 0 on
+     every shard must fail a causal case's check and change no bit of the
+     non-causal one. The unsplit serve call and its shards are timed;
   4. model  — each model in f32: prefill + 2 decode steps match forward
      logits (hymba's 1100-token prompt wraps its window ring; qwen3-moe at
      full width and 4 of its 48 layers; the VLM at 1 of its 20 groups, its
@@ -158,6 +169,11 @@ run (non-zero exit, no result line):
      group and fake tensors on the host; run beside phase 7's kernel
      timings, which are CUDA events behind a device-side sleep): per-device
      memory, FLOPs, time.
+  10. examples — examples/torch_quickstart.py, torch_serve_lm.py and
+     torch_train_lm.py on the card as subprocesses, each with exit 0; the
+     train example runs 24 steps, then again to 32, which must resume from
+     step 24's checkpoint and data cursor; wall time of each and the train
+     losses.
 
 The line before the last is a JSON object {"kernels": [...]} (list_schedule,
 which replaces the prescreen's XLA program and no Pallas kernel, the
@@ -310,6 +326,24 @@ QWEN_BWD, HYMBA_BWD = (4, 1024, 12, 2, 128, 0, 0), (4, 1152, 25, 5, 64, 1024, 12
 HUBERT_BWD, VLM_BWD = (4, 1500, 16, 16, 80, 0, 0), (4, 1024, 64, 8, 128, 0, 0)
 FLASH_BWD_CASES = [(QWEN_BWD, True), (HYMBA_BWD, True), (HUBERT_BWD, False), (VLM_BWD, True),
                    (VLM_BWD, False)]
+
+# phase 3b, the query row offset (sequence-parallel attention): each case's
+# rows cut into ROW_SHARDS shards, each run against the whole K and V with
+# its first row as q_off. (label, (B, S, H, KV, hd), causal, window, n_sink,
+# dtype): qwen2's causal heads in f32 (the CUDA-core kernels) and bf16 (the
+# tensor-core ones), hymba's window and 128 sinks in f32 and bf16, HuBERT's
+# non-causal hd 80 in bf16 (q_off must change nothing)
+ROW_SHARDS = 4
+ROW_OFFSET_CASES = [("qwen2", (4, 1024, 12, 2, 128), True, 0, 0, "float32"),
+                    ("qwen2", (4, 1024, 12, 2, 128), True, 0, 0, "bfloat16"),
+                    ("hymba", (4, 1152, 25, 5, 64), True, 1024, 128, "float32"),
+                    ("hymba", (4, 1152, 25, 5, 64), True, 1024, 128, "bfloat16"),
+                    ("hubert", (4, 1500, 16, 16, 80), False, 0, 0, "bfloat16")]
+# phase 10, the port's examples on the card (subprocesses): torch_train_lm.py
+# runs EXAMPLE_STEPS[0] steps, then resumes from its newest checkpoint to
+# EXAMPLE_STEPS[1]
+EXAMPLE_STEPS = (24, 32)
+EXAMPLE_TIMEOUT = 300
 
 
 def log(msg: str) -> None:
@@ -1027,6 +1061,164 @@ def phase_kernels(torch):
             del a, b
     torch.cuda.empty_cache()
     return rows
+
+
+def _flash_grads(torch, flash_mha, q, k, v, do, mask):
+    """The forward under autograd (the instance that stores L) and the
+    backward kernels: (out, dq, dk, dv) of fresh leaves."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = flash_mha(*leaves, **mask)
+    return (out.detach(),) + tuple(torch.autograd.grad(out, leaves, do))
+
+
+def _row_shards(torch, flash_mha, q, k, v, do, mask, offsets):
+    """The rows of q in ROW_SHARDS shards, shard i run with q_off =
+    offsets[i] against the whole K and V: the serve instance's rows, the
+    autograd instance's rows and dQ (each in q's dtype, concatenated), and
+    dK and dV summed over the shards in f32."""
+    n = q.shape[1] // ROW_SHARDS
+    serve, out, dq, dk, dv = [], [], [], 0.0, 0.0
+    for i, off in enumerate(offsets):
+        rows = slice(i * n, (i + 1) * n)
+        with torch.no_grad():
+            serve.append(flash_mha(q[:, rows], k, v, q_off=off, **mask))
+        o, gq, gk, gv = _flash_grads(torch, flash_mha, q[:, rows], k, v, do[:, rows],
+                                     dict(mask, q_off=off))
+        out.append(o)
+        dq.append(gq)
+        dk, dv = dk + gk.float(), dv + gv.float()
+    torch.cuda.synchronize()
+    return dict(serve=torch.cat(serve, 1), out=torch.cat(out, 1), dq=torch.cat(dq, 1),
+                dk=dk, dv=dv)
+
+
+def _shard_readings(torch, got, want, dt, bits):
+    """Each tensor of ``got`` against the unsplit call's: (max abs error,
+    passed). Where ``bits`` names a tensor it must be the same bits; else
+    the forward to phase 3's tolerance, the gradients to phase 7's (f32:
+    BWD_TOL; bf16: max |err| within BWD_FLASH_BF16 of max |want|)."""
+    res = {}
+    for key, g in got.items():
+        w = want[key]
+        err = float((g.float() - w.float()).abs().max())
+        if not bool(torch.isfinite(g).all()):
+            ok = False
+        elif key in bits:
+            ok = bool(torch.equal(g, w))
+        elif key in ("serve", "out"):
+            ok = bool(torch.allclose(g.float(), w.float(), rtol=TOL[("flash", dt)],
+                                     atol=TOL[("flash", dt)]))
+        elif dt == "float32":
+            ok = bool(torch.allclose(g.float(), w.float(), rtol=BWD_TOL[("flash", dt)],
+                                     atol=BWD_TOL[("flash", dt)]))
+        else:
+            ok = err <= BWD_FLASH_BF16 * float(w.float().abs().max())
+        res[key] = (err, ok)
+    return res
+
+
+def phase_row_offset(torch):
+    """3b: the query row offset of the four flash kernels at full width.
+    Each case's rows in ROW_SHARDS shards, each shard against the whole K
+    and V with its first row as q_off: the serve instance's and the autograd
+    instance's outputs and dQ must be the unsplit call's rows bit for bit
+    where the shards' edges are multiples of the kernel's query tile (128
+    rows on the tensor cores' forward, 64 on the CUDA cores' and in every
+    backward), else within phase 3's and phase 7's tolerances; dK and dV
+    summed over the shards within phase 7's. q_off = 0 on every shard must
+    fail the check of a causal case, and change no bit of a non-causal one.
+    The unsplit serve call and its shards are timed (CUDA events)."""
+    from repro_torch.kernels.flash_attention.kernel import (SIMT_TILE, WGMMA_BLOCK_Q,
+                                                            WGMMA_HEAD_DIMS)
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    t0 = time.perf_counter()
+    for label, (B, S, H, KV, hd), causal, window, n_sink, dt in ROW_OFFSET_CASES:
+        dtype = getattr(torch, dt)
+        tc = dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+        q, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        mask = dict(causal=causal, window=window, n_sink=n_sink)
+        with torch.no_grad():
+            serve = flash_mha(q, k, v, **mask)
+        out, dq, dk, dv = _flash_grads(torch, flash_mha, q, k, v, do, mask)
+        want = dict(serve=serve, out=out, dq=dq, dk=dk, dv=dv)
+        n = S // ROW_SHARDS
+        offsets = [i * n for i in range(ROW_SHARDS)]
+        bits = (("serve", "out") if n % (WGMMA_BLOCK_Q if tc else SIMT_TILE) == 0 else ()) + \
+            (("dq",) if n % SIMT_TILE == 0 else ())
+        name = (f"{label} {dt} {'wgmma' if tc else 'simt'} (B {B}, S {S} in {ROW_SHARDS} x {n} "
+                f"rows, H {H}/{KV}, hd {hd}, causal {causal}, window {window}, sinks {n_sink})")
+        got = _row_shards(torch, flash_mha, q, k, v, do, mask, offsets)
+        res = _shard_readings(torch, got, want, dt, bits)
+        log(f"[row_offset] {name}: " + ", ".join(
+            f"{key} {err:.3e}{' (bits)' if key in bits else ''} {'ok' if ok else 'FAIL'}"
+            for key, (err, ok) in res.items()))
+        if not all(ok for _, ok in res.values()):
+            raise AssertionError(f"row offset, {name}: a shard disagrees with the unsplit call")
+        zero = _row_shards(torch, flash_mha, q, k, v, do, mask, [0] * ROW_SHARDS)
+        if causal:
+            wrong = _shard_readings(torch, zero, want, dt, bits)
+            log(f"  q_off = 0 on every shard (must fail): " + ", ".join(
+                f"{key} {err:.3e} {'ok' if ok else 'FAIL'}" for key, (err, ok) in wrong.items()))
+            if wrong["out"][1] or wrong["dq"][1]:
+                raise AssertionError(f"row offset, {name}: a wrong offset passes the check")
+        else:
+            same = all(torch.equal(zero[key], got[key]) for key in got)
+            log(f"  non-causal: q_off = 0 on every shard gives the same bits: {same}")
+            if not same:
+                raise AssertionError(f"row offset, {name}: q_off changed a non-causal call")
+        whole_ms = timer(lambda: flash_mha(q, k, v, **mask))
+        shard_ms = [timer(lambda i=i: flash_mha(q[:, i * n:(i + 1) * n], k, v, q_off=i * n,
+                                                **mask)) for i in range(ROW_SHARDS)]
+        log(f"  serve instance, q_off 0, unsplit: {whole_ms:.4f} ms; shards at their q_off: "
+            f"{', '.join(f'{t:.4f}' for t in shard_ms)} ms (sum {sum(shard_ms):.4f})")
+        del q, k, v, do, serve, out, dq, dk, dv, want, got, zero
+        torch.cuda.empty_cache()
+    log(f"[row_offset] phase 3b: {time.perf_counter() - t0:.1f}s")
+
+
+def phase_examples(torch):
+    """10: the port's examples on the card, each a subprocess that must exit
+    0 (torch_quickstart.py, torch_serve_lm.py, torch_train_lm.py run to
+    EXAMPLE_STEPS[0] steps and then again to EXAMPLE_STEPS[1], which must
+    resume from the first run's last checkpoint and data cursor): wall time
+    of each, and the train losses."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="examples_", dir=os.path.join(HERE, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    first, last = EXAMPLE_STEPS
+    ckpt = os.path.join(tmp, "ckpt")
+    runs = [("torch_quickstart.py", []), ("torch_serve_lm.py", []),
+            ("torch_train_lm.py", ["--steps", str(first), "--ckpt-dir", ckpt]),
+            ("torch_train_lm.py", ["--steps", str(last), "--ckpt-dir", ckpt])]
+    try:
+        for script, extra in runs:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, os.path.join(HERE, "examples", script)] + extra,
+                               capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT,
+                               env=env, cwd=tmp)
+            wall = time.perf_counter() - t0
+            if r.returncode != 0:
+                raise AssertionError(f"examples/{script} {' '.join(extra)} exited "
+                                     f"{r.returncode}: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+            lines = r.stdout.splitlines()
+            losses = [float(m.group(1)) for m in
+                      (re.search(r"loss (\d+\.\d+)", ln) for ln in lines if "step" in ln) if m]
+            log(f"[examples] {script} {' '.join(extra)}: exit 0, {wall:.1f} s"
+                + (f"; losses {losses}" if losses else "") + f"; last line: {lines[-1]!r}")
+            if script == "torch_train_lm.py" and extra[1] == str(last):
+                want = f"[resume] restored step {first}, data cursor {first}"
+                if want not in r.stdout:
+                    raise AssertionError(f"examples/{script}: no '{want}' in {r.stdout[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _open_gates(params) -> None:
@@ -2889,6 +3081,7 @@ def main() -> int:
         phase_build()
         sched_row, sched_launches, sched_variants_launched = phase_prescreen(torch)
         rows = phase_kernels(torch)
+        phase_row_offset(torch)
         launches = {}
         for arch in (DENSE, HYBRID, MOE, XLSTM, VLM, AUDIO):
             phase_model(torch, arch)
@@ -2936,6 +3129,9 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_program_train(torch)
         log(f"[program] phase 9b: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase_examples(torch)
+        log(f"[examples] phase 10: {time.perf_counter() - t0:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1

@@ -60,6 +60,7 @@ __all__ = [
     "mesh_sizes",
     "to_mesh",
     "kernel_placements",
+    "moved_placements",
     "whole",
     "mesh_of",
     "on_shards",
@@ -273,20 +274,41 @@ def mesh_of(*xs):
 
 def on_shards(fn, mesh, args: Sequence[torch.Tensor],
               arg_placements: Sequence[Sequence[Placement]],
-              out_placements: Sequence[Placement]) -> DTensor:
+              out_placements) -> DTensor:
     """``fn`` on each rank's local shards (``shard_map``, or ``local_map``
     with its gradient layouts spelled out): each arg is redistributed to its
     placements and handed over as a plain tensor, the plain result is this
     rank's shard of the output. An arg replicated over a mesh dim that
     splits the output gets a gradient that is a partial sum there (each
-    rank saw its own tokens)."""
+    rank saw its own tokens). ``out_placements`` as a tuple of placement
+    lists: ``fn`` returns that many tensors, split over the same mesh dims
+    as the first, and so does the result."""
+    several = isinstance(out_placements, tuple)
+    first = out_placements[0] if several else out_placements
     local = []
     for a, pl in zip(args, arg_placements):
         d = to_mesh(a, mesh).redistribute(mesh, pl)
         grad_pl = [Partial() if isinstance(p, Replicate) and isinstance(o, Shard) else p
-                   for p, o in zip(pl, out_placements)]
+                   for p, o in zip(pl, first)]
         local.append(d.to_local(grad_placements=grad_pl))
-    return DTensor.from_local(fn(*local), mesh, list(out_placements), run_check=False)
+    out = fn(*local)
+    if several:
+        return tuple(DTensor.from_local(o, mesh, list(pl), run_check=False)
+                     for o, pl in zip(out, out_placements))
+    return DTensor.from_local(out, mesh, list(out_placements), run_check=False)
+
+
+def moved_placements(pl: Sequence[Placement], dims: Dict[int, Optional[int]]
+                     ) -> List[Placement]:
+    """Placements ``pl`` for a tensor whose dim ``dims[d]`` holds what dim
+    ``d`` holds in ``pl``'s tensor (None: a dim it has not, replicated
+    there): each ``Shard(d)`` becomes ``Shard(dims[d])``, anything else
+    ``Replicate()``."""
+    out: List[Placement] = []
+    for p in pl:
+        to = dims.get(p.dim) if isinstance(p, Shard) else None
+        out.append(Shard(to) if to is not None else Replicate())
+    return out
 
 
 def whole(x: torch.Tensor, *dims: int) -> torch.Tensor:

@@ -52,15 +52,15 @@ _SIGNATURES = {
     "repro_rmsnorm_bwd_plan": (_INT, _INT, _INT, _INT, _INT, _INTP),
     "repro_rmsnorm_bwd_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP),
     "repro_flash_attention": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                              _INT, _INT, _INT, _INT, _INT, _F32, _INT, _VP),
+                              _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _VP),
     "repro_flash_attention_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP, _INTP),
     "repro_flash_attention_wgmma": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                                    _INT, _INT, _INT, _INT, _F32, _VP),
+                                    _INT, _INT, _INT, _INT, _INT, _F32, _VP),
     "repro_flash_attention_wgmma_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP),
     "repro_flash_attention_bwd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                   _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                                  _INT, _INT, _F32, _INT, _VP),
-    "repro_flash_attention_bwd_slots": (_INT, _INT, _INT, _INT, _INT, _INT, _INT),
+                                  _INT, _INT, _INT, _F32, _INT, _VP),
+    "repro_flash_attention_bwd_slots": (_INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT),
     "repro_flash_attention_bwd_attrs": (_INT, _INT, _INT, _INTP, _INTP, _INTP, _INTP),
     "repro_ssm_scan": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "repro_ssm_scan_bwd": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),

@@ -14,6 +14,8 @@
 // with meta tokens, repro/models/attention.py::attention and
 // ::sink_banded_attention): key `col` is visible from query `row` when
 //   col <= row && (window == 0 || col > row - window || col < n_sink).
+// `row` is global: local row r of q is row q_off + r (a query shard against
+// the whole K and V), a runtime scalar of the mask and the tile predicates.
 // The mask and the tile predicates are the backward's (flash_simt.cuh).
 //
 // Bound on the H100: operations. At the prefill shape of qwen2-1.5b
@@ -114,21 +116,22 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int c = 0; c < CC::kCount; ++c) acc[i][c] = 0.f;
   }
 
-  const int k_end = sh.causal ? imin(sh.Sk, q0 + kTile) : sh.Sk;
+  const int k_end = key_end(q0, sh) + sh.q_off;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    if (!key_tile_visited(k0, q0, sh)) continue;   // uniform per block
+    const int kr0 = k0 - sh.q_off;
+    if (!key_tile_visited(kr0, q0, sh)) continue;  // uniform per block
     __syncthreads();                               // the previous tile is consumed
     stage_rows<T, HD, kLoadGroup<T>>(ks, k, b, sh.Sk, sh.KV, kvh, k0);
     stage_rows<T, HD, kLoadGroup<T>>(vs, v, b, sh.Sk, sh.KV, kvh, k0);
     __syncthreads();
     float s[4][4] = {};
     dot_4x4<HD>(s, qs, 4 * ty, 1, ks, tx, 16);
-    if (tile_needs_mask(q0, k0, sh)) {
+    if (tile_needs_mask(q0, kr0, sh)) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (!visible(q0 + 4 * ty + i, k0 + tx + 16 * c, sh)) s[i][c] = kNeg;
+          if (!visible(q0 + 4 * ty + i, kr0 + tx + 16 * c, sh)) s[i][c] = kNeg;
       }
     }
     float alpha[4];
@@ -275,19 +278,20 @@ int dispatch(const Args& a, int hd, cudaStream_t s, int* attr) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 80, 128}; H % KV == 0;
-// window >= 0 and n_sink >= 0 act only when causal (0 = no window). lse:
+// window >= 0, n_sink >= 0 and q_off >= 0 (the global index of q's first
+// row) act only when causal (0 = no window). lse:
 // nullptr (the serve path's instance), or [B*H, round_up(Sq, 64)] f32 that
 // receives each row's logsumexp in the exp2 domain (see the kernel).
 // Returns cudaGetLastError() after the launch (or the first error).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      void* lse, int B, int Sq, int Sk, int H, int KV, int hd,
-                                     int causal, int window, int n_sink, float scale,
-                                     int dtype, void* stream) {
+                                     int causal, int window, int n_sink, int q_off,
+                                     float scale, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk < 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
-      n_sink < 0)
+      n_sink < 0 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, static_cast<float*>(lse), B,
-               make_shape(Sq, Sk, H, KV, scale, causal, window, n_sink)};
+               make_shape(Sq, Sk, H, KV, scale, causal, window, n_sink, q_off)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(a, hd, s, nullptr);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a, hd, s, nullptr);

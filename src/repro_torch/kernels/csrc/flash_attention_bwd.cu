@@ -94,17 +94,20 @@ namespace {
 constexpr int kSplitUnits = 32;   // most units (head x query tile) one dK/dV block walks
 constexpr int kFinalParts = 4;    // blocks a key tile in the partials' sum
 
-// The 64-row query tiles that can see key tile j, from *q_lo (a multiple of
-// kTile when causal, else 0); the twin of ref.py::bwd_key_tile_rows.
+// The 64-row query tiles that can see key tile j, from *q_lo (local rows,
+// tiles counted from local row 0: a multiple of kTile); the twin of
+// ref.py::bwd_key_tile_rows. Global row q_off + r sees the tile from row k0
+// on, and under a window (k0 past the sinks) up to the row before its last
+// key + window.
 __host__ __device__ inline int key_tile_rows(int j, const Shape& sh, int* q_lo) {
   const int k0 = j * kTile;
   *q_lo = 0;
   if (k0 >= sh.Sk) return 0;
   int lo = 0, hi = sh.Sq;
   if (sh.causal) {
-    lo = k0;
+    lo = k0 > sh.q_off ? (k0 - sh.q_off) / kTile * kTile : 0;
     if (sh.window > 0 && k0 >= sh.n_sink)
-      hi = imin(sh.Sq, imin(sh.Sk, k0 + kTile) - 1 + sh.window);
+      hi = imin(sh.Sq, imin(sh.Sk, k0 + kTile) - 1 + sh.window - sh.q_off);
   }
   *q_lo = lo;
   return hi > lo ? cdiv(hi - lo, kTile) : 0;
@@ -302,9 +305,10 @@ fa_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     for (int c = 0; c < CC::kCount; ++c) acc[i][c] = 0.f;
   }
 
-  const int k_end = sh.causal ? imin(sh.Sk, q0 + kTile) : sh.Sk;
+  const int k_end = key_end(q0, sh) + sh.q_off;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    if (!key_tile_visited(k0, q0, sh)) continue;   // uniform per block
+    const int kr0 = k0 - sh.q_off;
+    if (!key_tile_visited(kr0, q0, sh)) continue;  // uniform per block
     __syncthreads();                               // the previous tile is consumed
     stage_rows<T, HD>(ks, k, b, sh.Sk, sh.KV, kvh, k0);
     stage_rows<T, HD>(vs, v, b, sh.Sk, sh.KV, kvh, k0);
@@ -312,13 +316,13 @@ fa_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     float s[4][4] = {}, dp[4][4] = {};
     dot_4x4<HD>(s, qs, 4 * ty, 1, ks, tx, 16);
     dot_4x4<HD>(dp, dos, 4 * ty, 1, vs, tx, 16);
-    const bool mask = tile_needs_mask(q0, k0, sh);
+    const bool mask = tile_needs_mask(q0, kr0, sh);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       float ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const bool seen = !mask || visible(q0 + 4 * ty + i, k0 + tx + 16 * c, sh);
+        const bool seen = !mask || visible(q0 + 4 * ty + i, kr0 + tx + 16 * c, sh);
         const float p = seen ? exp2f(fmaf(s[i][c], sh.scale_log2, -L[i])) : 0.f;
         ds[i] = p * (dp[i][c] - D[i]);
       }
@@ -382,6 +386,7 @@ fa_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int bkv = blockIdx.y;
   const int b = bkv / sh.KV, kvh = bkv % sh.KV, G = sh.H / sh.KV;
   const int k0 = it.j * kTile;
+  const int kr0 = k0 - sh.q_off;                   // the tile's first key, from the shard's row 0
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   stage_rows<T, HD>(ks, k, b, sh.Sk, sh.KV, kvh, k0);
@@ -409,7 +414,7 @@ fa_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     float s[4][4] = {}, dp[4][4] = {};
     dot_4x4<HD>(s, ks, 4 * ty, 1, qs, tx, 16);
     dot_4x4<HD>(dp, vs, 4 * ty, 1, dos, tx, 16);
-    const bool mask = tile_needs_mask(q0, k0, sh);
+    const bool mask = tile_needs_mask(q0, kr0, sh);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = tx + 16 * i;
@@ -417,7 +422,7 @@ fa_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       float p[4], ds[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool seen = !mask || visible(q0 + r, k0 + 4 * ty + j, sh);
+        const bool seen = !mask || visible(q0 + r, kr0 + 4 * ty + j, sh);
         p[j] = seen ? exp2f(fmaf(s[j][i], sh.scale_log2, -L)) : 0.f;
         ds[j] = p[j] * (dp[j][i] - D);
       }
@@ -571,6 +576,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int bkv = blockIdx.y;
   const int b = bkv / sh.KV, kvh = bkv % sh.KV, G = sh.H / sh.KV;
   const int k0 = it.j * kTile;
+  const int kr0 = k0 - sh.q_off;                   // the tile's first key, from the shard's row 0
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
@@ -634,14 +640,14 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
 
     const float* Ls = reinterpret_cast<const float*>(gbase + ld_off(st));
     const float* Ds = Ls + kTile;
-    const bool mask = tile_needs_mask(q0, k0, sh);
+    const bool mask = tile_needs_mask(q0, kr0, sh);
     uint32_t pa[4][4], sa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 L = *reinterpret_cast<const float2*>(&Ls[8 * j + cq]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const bool seen = !mask || visible(q0 + 8 * j + cq + (e & 1), k0 + kr + 8 * (e >> 1), sh);
+        const bool seen = !mask || visible(q0 + 8 * j + cq + (e & 1), kr0 + kr + 8 * (e >> 1), sh);
         s[4 * j + e] =
             seen ? exp2f(fmaf(s[4 * j + e], sh.scale_log2, (e & 1) ? -L.y : -L.x)) : 0.f;
       }
@@ -713,7 +719,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int n_q = cdiv(sh.Sq, kTile);
   const int q0 = (n_q - 1 - static_cast<int>(blockIdx.y)) * kTile;  // heaviest tiles first
   const int b = bh / sh.H, h = bh % sh.H, kvh = h / (sh.H / sh.KV);
-  const int k_end = sh.causal ? imin(sh.Sk, q0 + kTile) : sh.Sk;
+  const int kr_end = key_end(q0, sh);
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -732,13 +738,13 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
     tma_tile<HD>(s_q, &q_map, bar_q, h, q0, b);
     tma_tile<HD>(s_do, &do_map, bar_q, h, q0, b);
     int n = 0;
-    for (int k0 = 0; k0 < k_end; k0 += kTile) {
-      if (!key_tile_visited(k0, q0, sh)) continue;
+    for (int kr0 = -sh.q_off; kr0 < kr_end; kr0 += kTile) {
+      if (!key_tile_visited(kr0, q0, sh)) continue;
       const int st = n % C::kStages;
       mbar_wait(bar_empty(st), ((n / C::kStages) & 1) ^ 1);
       mbar_expect_tx(bar_full(st), 2 * C::kTileBytes);
-      tma_tile<HD>(s_k(st), &k_map, bar_full(st), kvh, k0, b);
-      tma_tile<HD>(s_v(st), &v_map, bar_full(st), kvh, k0, b);
+      tma_tile<HD>(s_k(st), &k_map, bar_full(st), kvh, kr0 + sh.q_off, b);
+      tma_tile<HD>(s_v(st), &v_map, bar_full(st), kvh, kr0 + sh.q_off, b);
       ++n;
     }
     return;
@@ -765,8 +771,8 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
 
   mbar_wait(bar_q, 0);
   int n = 0;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    if (!key_tile_visited(k0, q0, sh)) continue;
+  for (int kr0 = -sh.q_off; kr0 < kr_end; kr0 += kTile) {
+    if (!key_tile_visited(kr0, q0, sh)) continue;
     const int st = n % C::kStages;
     mbar_wait(bar_full(st), (n / C::kStages) & 1);
 
@@ -780,13 +786,13 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait<1>();
     fence_regs(s);
 
-    const bool mask = tile_needs_mask(q0, k0, sh);
+    const bool mask = tile_needs_mask(q0, kr0, sh);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        const bool seen = !mask || visible(q0 + qr + 8 * r, k0 + 8 * j + cq + (e & 1), sh);
+        const bool seen = !mask || visible(q0 + qr + 8 * r, kr0 + 8 * j + cq + (e & 1), sh);
         s[4 * j + e] = seen ? exp2f(fmaf(s[4 * j + e], sh.scale_log2, -L[r])) : 0.f;
       }
     }
@@ -962,9 +968,9 @@ int dispatch(const Args& a, int hd, cudaStream_t s, int kind, int* attr) {
 // Partial rows of dK and dV the backward needs per (b, kv head): the number
 // of dK/dV blocks of one (b, kv head), the twin of ref.py::bwd_split_plan.
 extern "C" int repro_flash_attention_bwd_slots(int Sq, int Sk, int H, int KV, int causal,
-                                               int window, int n_sink) {
-  if (Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0) return -1;
-  return n_slots_of(make_shape(Sq, Sk, H, KV, 1.f, causal, window, n_sink));
+                                               int window, int n_sink, int q_off) {
+  if (Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || q_off < 0) return -1;
+  return n_slots_of(make_shape(Sq, Sk, H, KV, 1.f, causal, window, n_sink, q_off));
 }
 
 // q, o, dout, dq: [B, Sq, H, hd]; k, v, dk, dv: [B, Sk, KV, hd]; all
@@ -972,8 +978,10 @@ extern "C" int repro_flash_attention_bwd_slots(int Sq, int Sk, int H, int KV, in
 // f32 from the forward (lse_stride = Sq rounded up to 64; exp2 domain);
 // delta: the same shape, scratch; part_k, part_v: [B*KV, n_slots, 64, hd]
 // f32 scratch, n_slots from repro_flash_attention_bwd_slots. hd in {16, 32,
-// 64, 80, 128}; H % KV == 0; Sq, Sk >= 1; window >= 0 and n_sink >= 0 act only
-// when causal; o and dout 16-byte aligned (D reads them as 16-byte vectors).
+// 64, 80, 128}; H % KV == 0; Sq, Sk >= 1; window >= 0, n_sink >= 0 and q_off
+// >= 0 (the global index of q's first row; n_slots must be counted with it)
+// act only when causal; o and dout 16-byte aligned (D reads them as 16-byte
+// vectors).
 // bf16 at hd 64/80/128 runs the tensor-core kernels, which need q, k and v
 // 16-byte aligned too. Returns cudaGetLastError() after the
 // launches (or the first error).
@@ -982,12 +990,12 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                                          void* dq, void* dk, void* dv, void* delta,
                                          void* part_k, void* part_v, int n_slots, int B,
                                          int Sq, int Sk, int H, int KV, int hd, int causal,
-                                         int window, int n_sink, float scale, int dtype,
-                                         void* stream) {
+                                         int window, int n_sink, int q_off, float scale,
+                                         int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
-      n_sink < 0)
+      n_sink < 0 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape sh = make_shape(Sq, Sk, H, KV, scale, causal, window, n_sink);
+  const Shape sh = make_shape(Sq, Sk, H, KV, scale, causal, window, n_sink, q_off);
   if (n_slots != n_slots_of(sh)) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, dout, dq, dk, dv, static_cast<const float*>(lse),
                static_cast<float*>(delta), static_cast<float*>(part_k),

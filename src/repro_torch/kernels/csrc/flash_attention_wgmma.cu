@@ -10,6 +10,11 @@
 // left, under a window `col > row - window || col < n_sink`, masked scores set
 // to NEG = -1e30, p = 0 where s <= NEG/2, the output divided by max(l, 1e-30)
 // (a row that sees no key comes out as 0), q head h reads kv head h / (H/KV).
+// `row` is global: local row r of q is row q_off + r (a query shard against
+// the whole K and V). The kernel compares local rows with key columns
+// counted from the shard's first row (kr = col - q_off, as in
+// flash_simt.cuh), against Sk and n_sink counted the same way: an unsplit
+// call's comparisons (q_off = 0 is one); K/V tiles load from kr0 + q_off.
 //
 // Bound on the H100: operations. At qwen2-1.5b's prefill (B 4, S 1024, H 12,
 // KV 2, hd 128, causal) the visible pairs need 12.9 GFLOP (13.0 us at 989
@@ -100,15 +105,16 @@ struct Cfg {
 
 // -- the kernel ---------------------------------------------------------------
 
-// The twin of ref.py::tile_visited: does key tile [k0, k0 + kKeys) hold a
+// The twin of ref.py::tile_visited: does key tile [kr0, kr0 + kKeys) hold a
 // visible (row, col) pair for some row of the query tile [q0, q0 + kRows)?
-__device__ __forceinline__ bool tile_visited(int k0, int q0, int Sk, int causal, int window,
-                                             int n_sink) {
-  if (k0 >= Sk) return false;
+// Columns, sk_rel and sink_rel counted from the shard's first row.
+__device__ __forceinline__ bool tile_visited(int kr0, int q0, int sk_rel, int causal, int window,
+                                             int sink_rel) {
+  if (kr0 >= sk_rel) return false;
   if (!causal) return true;
-  if (k0 >= q0 + kRows) return false;  // wholly past the tile's last row
+  if (kr0 >= q0 + kRows) return false;  // wholly past the tile's last row
   // under a window: not wholly between the sinks and the band of row q0
-  return window == 0 || k0 < n_sink || k0 + kKeys > q0 - window + 1;
+  return window == 0 || kr0 < sink_rel || kr0 + kKeys > q0 - window + 1;
 }
 
 // q, o: [B, Sq, H, HD]; k, v: [B, Sk, KV, HD], bf16, read through the tensor
@@ -117,15 +123,16 @@ __device__ __forceinline__ bool tile_visited(int k0, int q0, int Sk, int causal,
 // kLse: also store each row's logsumexp for the backward, in the exp2 domain
 // of the online softmax, lse[bh * lse_stride + row] = m * scale_log2 +
 // log2(l) (+inf for a row that sees no key); the serve path launches the
-// instance without it.
+// instance without it. sk_rel = Sk - q_off and sink_rel = n_sink - q_off:
+// Sk and the sinks counted from the shard's first row, global row q_off.
 template <int HD, bool kWindow, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
-                             __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KV,
-                             float scale_log2, int causal, int window, int n_sink,
-                             float* __restrict__ lse, int lse_stride) {
+                             __nv_bfloat16* __restrict__ o, int Sq, int sk_rel, int H, int KV,
+                             float scale_log2, int causal, int window, int sink_rel,
+                             int q_off, float* __restrict__ lse, int lse_stride) {
   using C = Cfg<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -135,7 +142,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   auto s_v = [&](int st) { return s_k(st) + C::kTileBytes; };
   auto bar_full = [&](int st) { return bar_q + 8 * (1 + st); };
   auto bar_empty = [&](int st) { return bar_q + 8 * (1 + C::kStages + st); };
-  if (!kWindow) window = n_sink = 0;
+  if (!kWindow) window = 0;
 
   const int bh = blockIdx.x;
   const int n_q = (Sq + kRows - 1) / kRows;
@@ -143,7 +150,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / KV);
-  const int k_end = causal ? min(Sk, q0 + kRows) : Sk;
+  const int kr_end = causal ? min(sk_rel, q0 + kRows) : sk_rel;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -164,16 +171,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int bx = 0; bx < C::kBoxes; ++bx)
       tma_load_4d(s_q + bx * kRows * C::kRowBytes, &q_map, bar_q, bx * C::kBoxCols, h, q0, b);
     int it = 0;
-    for (int k0 = 0; k0 < k_end; k0 += kKeys) {
-      if (!tile_visited(k0, q0, Sk, causal, window, n_sink)) continue;
+    for (int kr0 = -q_off; kr0 < kr_end; kr0 += kKeys) {
+      if (!tile_visited(kr0, q0, sk_rel, causal, window, sink_rel)) continue;
       const int st = it % C::kStages;
       mbar_wait(bar_empty(st), ((it / C::kStages) & 1) ^ 1);
       mbar_expect_tx(bar_full(st), 2 * C::kTileBytes);
 #pragma unroll
       for (int bx = 0; bx < C::kBoxes; ++bx) {
         const uint32_t off = bx * kKeys * C::kRowBytes;
-        tma_load_4d(s_k(st) + off, &k_map, bar_full(st), bx * C::kBoxCols, kvh, k0, b);
-        tma_load_4d(s_v(st) + off, &v_map, bar_full(st), bx * C::kBoxCols, kvh, k0, b);
+        tma_load_4d(s_k(st) + off, &k_map, bar_full(st), bx * C::kBoxCols, kvh, kr0 + q_off, b);
+        tma_load_4d(s_v(st) + off, &v_map, bar_full(st), bx * C::kBoxCols, kvh, kr0 + q_off, b);
       }
       ++it;
     }
@@ -200,8 +207,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   mbar_wait(bar_q, 0);
   const uint32_t q_wg = s_q + wg * 64 * C::kRowBytes;
   int it = 0;
-  for (int k0 = 0; k0 < k_end; k0 += kKeys) {
-    if (!tile_visited(k0, q0, Sk, causal, window, n_sink)) continue;
+  for (int kr0 = -q_off; kr0 < kr_end; kr0 += kKeys) {
+    if (!tile_visited(kr0, q0, sk_rel, causal, window, sink_rel)) continue;
     const int st = it % C::kStages;
     mbar_wait(bar_full(st), (it / C::kStages) & 1);
 
@@ -222,21 +229,21 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
     // mask only tiles that cross the Sk tail, the diagonal, the sink edge or
     // the band edge for some row of this warpgroup
-    const int k_last = k0 + kKeys - 1;
+    const int k_last = kr0 + kKeys - 1;
     const bool need_mask =
-        k_last >= Sk ||
+        k_last >= sk_rel ||
         (causal && (k_last > r_lo ||
-                    (kWindow && k_last >= n_sink && k0 <= r_lo + 63 - window)));
+                    (kWindow && k_last >= sink_rel && kr0 <= r_lo + 63 - window)));
     if (need_mask) {
 #pragma unroll
       for (int j = 0; j < kKeys / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * j + cq + (e & 1);
+          const int col = kr0 + 8 * j + cq + (e & 1);
           const int row = row0 + 8 * (e >> 1);
           const bool hidden =
-              col >= Sk ||
-              (causal && (col > row || (kWindow && col <= row - window && col >= n_sink)));
+              col >= sk_rel ||
+              (causal && (col > row || (kWindow && col <= row - window && col >= sink_rel)));
           if (hidden) s[4 * j + e] = kNeg;
         }
       }
@@ -336,7 +343,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 template <int HD, bool kWindow, bool kLse>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
            int Sk, int H, int KV, float scale_log2, int causal, int window, int n_sink,
-           cudaStream_t stream) {
+           int q_off, cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, B, Sq, H, HD, kRows, C::kBoxCols, C::kSwizzle) ||
@@ -349,8 +356,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
   flash_attention_wgmma_kernel<HD, kWindow, kLse><<<grid, kThreads, Cfg<HD>::kSmem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV, scale_log2, causal, window,
-      n_sink, lse, (Sq + kLseAlign - 1) / kLseAlign * kLseAlign);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), Sq, Sk - q_off, H, KV, scale_log2, causal,
+      window, n_sink - q_off, q_off, lse, (Sq + kLseAlign - 1) / kLseAlign * kLseAlign);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -358,10 +365,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 template <int HD, bool kWindow, bool kLse>
 int launch_or_attrs(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                     int Sq, int Sk, int H, int KV, float scale_log2, int causal, int window,
-                    int n_sink, cudaStream_t stream, int* attr) {
+                    int n_sink, int q_off, cudaStream_t stream, int* attr) {
   if (attr == nullptr)
     return launch<HD, kWindow, kLse>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2, causal,
-                                     window, n_sink, stream);
+                                     window, n_sink, q_off, stream);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, flash_attention_wgmma_kernel<HD, kWindow, kLse>);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -374,28 +381,30 @@ int launch_or_attrs(const void* q, const void* k, const void* v, void* o, float*
 template <int HD>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
              int Sk, int H, int KV, float scale_log2, int causal, int window, int n_sink,
-             cudaStream_t s, int* attr) {
+             int q_off, cudaStream_t s, int* attr) {
   const bool windowed = causal && window > 0;
+  if (!causal) q_off = 0;
   if (lse != nullptr) {
     if (windowed)
       return launch_or_attrs<HD, true, true>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2, 1,
-                                             window, n_sink, s, attr);
+                                             window, n_sink, q_off, s, attr);
     else
       return launch_or_attrs<HD, false, true>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2,
-                                              causal, 0, 0, s, attr);
+                                              causal, 0, 0, q_off, s, attr);
   }
   if (windowed)
     return launch_or_attrs<HD, true, false>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2, 1,
-                                            window, n_sink, s, attr);
+                                            window, n_sink, q_off, s, attr);
   return launch_or_attrs<HD, false, false>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale_log2,
-                                           causal, 0, 0, s, attr);
+                                           causal, 0, 0, q_off, s, attr);
 }
 
 }  // namespace
 
 // bf16 only; hd in {64, 80, 128}; Sq, Sk > 0 (a tensor map has no empty
 // dimension); H % KV == 0; q, k, v, o contiguous and 16-byte aligned; window
-// >= 0 and n_sink >= 0 act only when causal (0 = no window). lse: nullptr
+// >= 0, n_sink >= 0 and q_off >= 0 (the global index of q's first row) act
+// only when causal (0 = no window). lse: nullptr
 // (the serve path's instance), or [B*H, round_up(Sq, 64)] f32 that receives
 // each row's logsumexp in the exp2 domain (see the kernel), for the
 // backward (flash_attention_bwd.cu).
@@ -403,9 +412,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
                                            void* lse, int B, int Sq, int Sk, int H, int KV,
                                            int hd, int causal, int window, int n_sink,
-                                           float scale, void* stream) {
+                                           int q_off, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
-      n_sink < 0)
+      n_sink < 0 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16 != 0)
@@ -414,14 +423,14 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const v
   const float scale_log2 = scale * 1.4426950408889634f;
   float* l = static_cast<float*>(lse);
   if (hd == 64)
-    return dispatch<64>(q, k, v, o, l, B, Sq, Sk, H, KV, scale_log2, causal, window, n_sink, s,
-                        nullptr);
+    return dispatch<64>(q, k, v, o, l, B, Sq, Sk, H, KV, scale_log2, causal, window, n_sink,
+                        q_off, s, nullptr);
   if (hd == 80)
-    return dispatch<80>(q, k, v, o, l, B, Sq, Sk, H, KV, scale_log2, causal, window, n_sink, s,
-                        nullptr);
+    return dispatch<80>(q, k, v, o, l, B, Sq, Sk, H, KV, scale_log2, causal, window, n_sink,
+                        q_off, s, nullptr);
   if (hd == 128)
-    return dispatch<128>(q, k, v, o, l, B, Sq, Sk, H, KV, scale_log2, causal, window, n_sink, s,
-                         nullptr);
+    return dispatch<128>(q, k, v, o, l, B, Sq, Sk, H, KV, scale_log2, causal, window, n_sink,
+                         q_off, s, nullptr);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -437,13 +446,13 @@ extern "C" int repro_flash_attention_wgmma_attrs(int hd, int windowed, int lse, 
   int err = static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
     err = dispatch<64>(nullptr, nullptr, nullptr, nullptr, l, 1, 1, 1, 1, 1, 1.f, 1,
-                       windowed ? 1 : 0, 0, nullptr, attr);
+                       windowed ? 1 : 0, 0, 0, nullptr, attr);
   if (hd == 80)
     err = dispatch<80>(nullptr, nullptr, nullptr, nullptr, l, 1, 1, 1, 1, 1, 1.f, 1,
-                       windowed ? 1 : 0, 0, nullptr, attr);
+                       windowed ? 1 : 0, 0, 0, nullptr, attr);
   if (hd == 128)
     err = dispatch<128>(nullptr, nullptr, nullptr, nullptr, l, 1, 1, 1, 1, 1, 1.f, 1,
-                        windowed ? 1 : 0, 0, nullptr, attr);
+                        windowed ? 1 : 0, 0, 0, nullptr, attr);
   *regs = attr[0];
   *local_bytes = attr[1];
   *smem_bytes = attr[2];

@@ -1,7 +1,7 @@
 // Shared parts of the flash attention kernels on the CUDA cores (sm_90a): the
 // forward (flash_attention.cu) and the backward (flash_attention_bwd.cu). The
 // one definition of the mask (`visible`) and of the tile predicates built on
-// it, the 64-row tiles of both, and the register-tiled products from padded
+// it (the backward's tensor-core kernels use them too), the 64-row tiles of both, and the register-tiled products from padded
 // f32 shared tiles (a SIMT GEMM): 256 threads as 16 x 16, each owning a 4 x 4
 // block of S (`dot_4x4`), then 4 rows x hd/16 columns of an hd-wide
 // accumulator (`Cols`).
@@ -36,43 +36,62 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 __host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// Rows are local (0 .. Sq - 1 of the tensors the kernel reads): local row r
+// is global row q_off + r of the causal mask (a query shard against the
+// whole K and V: sequence-parallel attention; q_off = 0 is the unsplit
+// call). The mask and the tile predicates take key columns counted from
+// the shard's first row, kr = col - q_off (negative for keys before it),
+// and compare them with local rows, with Sk and n_sink counted the same way
+// (sk_rel, sink_rel): an unsplit call's comparisons, no add a pair. A key
+// tile loaded from key k0 goes to the predicates as kr0 = k0 - q_off.
 struct Shape {
   int Sq, Sk, H, KV, causal, window, n_sink;
   float scale_log2;   // scale * log2(e)
   int lse_stride;     // row stride of L and D: Sq rounded up to kTile
+  int q_off;          // global index of local row 0
+  int sk_rel;         // Sk - q_off
+  int sink_rel;       // n_sink - q_off
 };
 
-// window and n_sink act only under causal
+// window, n_sink and q_off act only under causal
 inline Shape make_shape(int Sq, int Sk, int H, int KV, float scale, int causal, int window,
-                        int n_sink) {
-  return Shape{Sq, Sk, H, KV, causal ? 1 : 0, causal ? window : 0, causal ? n_sink : 0,
-               scale * 1.4426950408889634f, cdiv(Sq, kTile) * kTile};
+                        int n_sink, int q_off) {
+  if (!causal) window = n_sink = q_off = 0;
+  return Shape{Sq, Sk, H, KV, causal ? 1 : 0, window, n_sink, scale * 1.4426950408889634f,
+               cdiv(Sq, kTile) * kTile, q_off, Sk - q_off, n_sink - q_off};
 }
 
-// The mask: key `col` is visible from query `row` (top-left causal, window
-// and sinks, ragged tails). The one predicate of every SIMT kernel.
-__device__ __forceinline__ bool visible(int row, int col, const Shape& sh) {
-  if (row >= sh.Sq || col >= sh.Sk) return false;
+// The mask: key column kr (counted from the shard's first row) is visible
+// from local query `row` (top-left causal, window and sinks, ragged tails).
+// The one predicate of every SIMT kernel.
+__device__ __forceinline__ bool visible(int row, int kr, const Shape& sh) {
+  if (row >= sh.Sq || kr >= sh.sk_rel) return false;
   if (!sh.causal) return true;
-  return col <= row && (sh.window == 0 || col > row - sh.window || col < sh.n_sink);
+  return kr <= row && (sh.window == 0 || kr > row - sh.window || kr < sh.sink_rel);
 }
 
-// Does the tile [q0, q0 + kTile) x [k0, k0 + kTile) need the mask test, i.e.
-// does it hold a hidden pair? (Otherwise every pair is visible.)
-__device__ __forceinline__ bool tile_needs_mask(int q0, int k0, const Shape& sh) {
-  if (q0 + kTile > sh.Sq || k0 + kTile > sh.Sk) return true;
+// Does the tile [q0, q0 + kTile) x [kr0, kr0 + kTile) need the mask test,
+// i.e. does it hold a hidden pair? (Otherwise every pair is visible.)
+__device__ __forceinline__ bool tile_needs_mask(int q0, int kr0, const Shape& sh) {
+  if (q0 + kTile > sh.Sq || kr0 + kTile > sh.sk_rel) return true;
   if (!sh.causal) return false;
-  if (k0 + kTile - 1 > q0) return true;   // crosses the diagonal
-  return sh.window > 0 && k0 <= q0 + kTile - 1 - sh.window && k0 + kTile > sh.n_sink;
+  if (kr0 + kTile - 1 > q0) return true;   // crosses the diagonal
+  return sh.window > 0 && kr0 <= q0 + kTile - 1 - sh.window && kr0 + kTile > sh.sink_rel;
 }
 
-// Does key tile [k0, k0 + kTile) hold a visible pair for some row of the
+// Does key tile [kr0, kr0 + kTile) hold a visible pair for some row of the
 // query tile [q0, q0 + kTile)? The twin of ref.py::tile_visited at 64 x 64.
-__device__ __forceinline__ bool key_tile_visited(int k0, int q0, const Shape& sh) {
-  if (k0 >= sh.Sk) return false;
+__device__ __forceinline__ bool key_tile_visited(int kr0, int q0, const Shape& sh) {
+  if (kr0 >= sh.sk_rel) return false;
   if (!sh.causal) return true;
-  if (k0 >= q0 + kTile) return false;
-  return sh.window == 0 || k0 < sh.n_sink || k0 + kTile > q0 - sh.window + 1;
+  if (kr0 >= q0 + kTile) return false;
+  return sh.window == 0 || kr0 < sh.sink_rel || kr0 + kTile > q0 - sh.window + 1;
+}
+
+// The end of query tile q0's key loop, in kr: under causal, past the tile's
+// last row (or Sk).
+__device__ __forceinline__ int key_end(int q0, const Shape& sh) {
+  return sh.causal ? imin(sh.sk_rel, q0 + kTile) : sh.sk_rel;
 }
 
 // The columns of an hd-wide accumulator row a thread of column tx owns:

@@ -16,6 +16,10 @@ so no transpose is materialised around them.
   rows) five 16-column boxes under the 32-byte swizzle
   (``wgmma_smem_plan``).
 
+Every entry point takes ``q_off``, the global index of q's first row (a
+query shard against the whole K and V): a runtime scalar of the causal
+mask and its tile predicates, no instance of its own.
+
 Either forward, given ``lse``, launches its instance that also stores each
 row's logsumexp L for the backward ([B*H, lse_rows(Sq)] f32, in the exp2
 domain: L = m·scale·log2(e) + log2(l)); without it, the serve path's.
@@ -135,7 +139,8 @@ def _ptr(t) -> int | None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, *, causal: bool, window: int = 0,
-                         n_sink: int = 0, lse: torch.Tensor | None = None) -> None:
+                         n_sink: int = 0, q_off: int = 0,
+                         lse: torch.Tensor | None = None) -> None:
     """Launch the CUDA-core (SIMT) kernel into ``out`` [B,Sq,H,hd] with
     scale 1/sqrt(hd) (and L into ``lse``, if given); the caller has checked
     device, dtype, shapes and contiguity."""
@@ -144,7 +149,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, KV = k.shape[1], k.shape[2]
     err = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-        B, Sq, Sk, H, KV, hd, int(causal), int(window), int(n_sink),
+        B, Sq, Sk, H, KV, hd, int(causal), int(window), int(n_sink), int(q_off),
         1.0 / math.sqrt(hd), _build.DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("repro_flash_attention", err)
@@ -152,7 +157,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                out: torch.Tensor, *, causal: bool, window: int = 0,
-                               n_sink: int = 0, lse: torch.Tensor | None = None) -> None:
+                               n_sink: int = 0, q_off: int = 0,
+                               lse: torch.Tensor | None = None) -> None:
     """Launch the tensor-core kernel into ``out`` [B,Sq,H,hd] with scale
     1/sqrt(hd) (and L into ``lse``, if given); the caller has checked
     device, bf16, shapes, contiguity, alignment, hd in ``WGMMA_HEAD_DIMS``
@@ -162,18 +168,18 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     Sk, KV = k.shape[1], k.shape[2]
     err = lib.repro_flash_attention_wgmma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-        B, Sq, Sk, H, KV, hd, int(causal), int(window), int(n_sink),
+        B, Sq, Sk, H, KV, hd, int(causal), int(window), int(n_sink), int(q_off),
         1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("repro_flash_attention_wgmma", err)
 
 
 def bwd_slots(Sq: int, Sk: int, H: int, KV: int, *, causal: bool, window: int = 0,
-              n_sink: int = 0) -> int:
+              n_sink: int = 0, q_off: int = 0) -> int:
     """dK/dV blocks (= partial rows) of one (b, kv head) of the backward
     (``repro_flash_attention_bwd_slots``; twin ``ref.py::bwd_split_plan``)."""
     n = _build.load().repro_flash_attention_bwd_slots(Sq, Sk, H, KV, int(causal),
-                                                      int(window), int(n_sink))
+                                                      int(window), int(n_sink), int(q_off))
     if n < 0:
         raise ValueError(f"bwd_slots: bad shape Sq={Sq} Sk={Sk} H={H} KV={KV}")
     return n
@@ -182,7 +188,8 @@ def bwd_slots(Sq: int, Sk: int, H: int, KV: int, *, causal: bool, window: int = 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              o: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
                              dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, *,
-                             causal: bool, window: int = 0, n_sink: int = 0) -> None:
+                             causal: bool, window: int = 0, n_sink: int = 0,
+                             q_off: int = 0) -> None:
     """Launch the backward into ``dq``, ``dk``, ``dv`` (q's and k's shapes)
     from the forward's inputs, its output ``o``, its L (``lse``) and
     ``dout``; the D rows and the dK/dV partial sums are allocated here. The
@@ -191,7 +198,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load()
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    n_slots = bwd_slots(Sq, Sk, H, KV, causal=causal, window=window, n_sink=n_sink)
+    n_slots = bwd_slots(Sq, Sk, H, KV, causal=causal, window=window, n_sink=n_sink,
+                        q_off=q_off)
     delta = torch.empty((B * H, lse_rows(Sq)), dtype=torch.float32, device=q.device)
     part_k = torch.empty((B * KV, n_slots, SIMT_TILE, hd), dtype=torch.float32,
                          device=q.device)
@@ -200,7 +208,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
         part_k.data_ptr(), part_v.data_ptr(), n_slots, B, Sq, Sk, H, KV, hd, int(causal),
-        int(window), int(n_sink), 1.0 / math.sqrt(hd), _build.DTYPE_CODES[q.dtype],
+        int(window), int(n_sink), int(q_off), 1.0 / math.sqrt(hd), _build.DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("repro_flash_attention_bwd", err)
 

@@ -1,12 +1,16 @@
 """Dispatching wrapper for flash attention (counterpart of
 ``repro/kernels/flash_attention/ops.py::flash_mha``).
 
-``flash_mha(q, k, v, causal=True, window=0, n_sink=0)`` takes the model
-layout q [B,S,H,hd], k/v [B,Sk,KV,hd] and returns [B,S,H,hd] in q.dtype.
-Under ``causal``, ``window > 0`` limits each row to its last ``window``
-keys, and the first ``n_sink`` keys stay visible to every row after them
-(``ref.py`` states the mask). A CPU tensor takes the plain version; a CUDA
-tensor launches a kernel or raises.
+``flash_mha(q, k, v, causal=True, window=0, n_sink=0, q_off=0)`` takes the
+model layout q [B,S,H,hd], k/v [B,Sk,KV,hd] and returns [B,S,H,hd] in
+q.dtype. Under ``causal``, ``window > 0`` limits each row to its last
+``window`` keys, and the first ``n_sink`` keys stay visible to every row
+after them (``ref.py`` states the mask); ``q_off`` is the global index of
+q's first row (a query shard against the whole K and V: row ``r`` of q is
+row ``q_off + r`` of the mask). Every kernel takes ``q_off`` as a runtime
+scalar in its predicates; at 0 each computes what it computed without it.
+A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
+raises.
 
 Dispatch on the card, by dtype and shape only: bf16 at hd 64, 80 (HuBERT's)
 or 128 goes to the tensor-core kernel (``csrc/flash_attention_wgmma.cu``);
@@ -35,16 +39,18 @@ of ``HEAD_DIMS`` has both a forward and a backward kernel.
 ``flash_mha.wgmma_bwd_launches`` those that ran the tensor-core kernels. On
 the CPU the plain version's autograd is the backward.
 
-DTensors (under sharding rules) run on each rank's local batch rows and
-heads, the sequence whole (``_flash_on_shards``): the kernel only ever sees
-plain local tensors.
+DTensors (under sharding rules) run on each rank's local batch rows, heads
+and query rows, K and V over the whole sequence (``_flash_on_shards``): the
+kernel only ever sees plain local tensors, and a query shard passes its
+first row as ``q_off``.
 """
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import Shard
+from torch.distributed.tensor import Replicate, Shard
 
-from ...distributed.sharding import kernel_placements, mesh_of, on_shards, to_mesh
+from ...distributed.sharding import (kernel_placements, local_offset, mesh_of, on_shards,
+                                     to_mesh)
 from .._build import DTYPE_CODES
 from .kernel import (HEAD_DIMS, WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS,
                      flash_attention_bwd_cuda, flash_attention_cuda,
@@ -55,12 +61,15 @@ __all__ = ["flash_mha"]
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0, n_sink: int = 0) -> torch.Tensor:
+              causal: bool = True, window: int = 0, n_sink: int = 0,
+              q_off: int = 0) -> torch.Tensor:
     mesh = mesh_of(q, k, v)
     if mesh is not None:
-        return _flash_on_shards(mesh, q, k, v, causal=causal, window=window, n_sink=n_sink)
+        return _flash_on_shards(mesh, q, k, v, causal=causal, window=window, n_sink=n_sink,
+                                q_off=q_off)
     if q.device.type == "cpu":
-        return flash_mha_ref(q, k, v, causal=causal, window=window, n_sink=n_sink)
+        return flash_mha_ref(q, k, v, causal=causal, window=window, n_sink=n_sink,
+                             q_off=q_off)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -78,33 +87,41 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"flash_mha: dtype {q.dtype} not supported")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_mha: head dim {hd} not in {HEAD_DIMS}")
-    if window < 0 or n_sink < 0:
-        raise ValueError(f"flash_mha: window {window} and n_sink {n_sink} must be >= 0")
+    if window < 0 or n_sink < 0 or q_off < 0:
+        raise ValueError(f"flash_mha: window {window}, n_sink {n_sink} and q_off {q_off} "
+                         f"must be >= 0")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    mask = (causal, window, n_sink)
+    mask = (causal, window, n_sink, q_off)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashFn.apply(q, k, v, mask)
     return _forward(q, k, v, mask)
 
 
-def _flash_on_shards(mesh, q, k, v, **mask) -> torch.Tensor:
-    """DTensors: each rank runs the kernel on its batch rows and heads, the
-    sequence whole. A query split over the sequence (sequence-parallel
-    attention) is gathered first, since the kernel's causal mask counts rows
-    from the shard's first row. Where the heads are split over more ranks
-    than there are K/V heads, K and V are repeated to one head per query
-    head (GQA group 1), so every rank holds the K/V heads of its queries."""
+def _flash_on_shards(mesh, q, k, v, *, q_off: int = 0, **mask) -> torch.Tensor:
+    """DTensors: each rank runs the kernel on its batch rows, heads and
+    query rows. A query split over the sequence (sequence-parallel
+    attention) stays split: K and V are gathered over the sequence, and the
+    rank passes its shard's first row (``local_offset``) as ``q_off``. The
+    output keeps the query's layout (the reference's ``constrain(out,
+    "batch", "act_seq", "heads", None)``). K and V, replicated over the mesh
+    dims that split the query's rows, get a gradient that is a pending sum
+    there (``on_shards``): that sum adds dK and dV over the query shards.
+    Where the heads are split over more ranks than there are K/V heads, K
+    and V are repeated to one head per query head (GQA group 1), so every
+    rank holds the K/V heads of its queries."""
     q = to_mesh(q, mesh)
-    pl = kernel_placements(q, (0, 2))
+    pl_q = kernel_placements(q, (0, 1, 2))
+    pl_kv = [Replicate() if p == Shard(1) else p for p in pl_q]
     n_head_split = 1
-    for i, p in enumerate(pl):
+    for i, p in enumerate(pl_q):
         if p == Shard(2):
             n_head_split *= mesh.size(i)
     if k.shape[2] % n_head_split:
         g = q.shape[2] // k.shape[2]
         k, v = (to_mesh(t, mesh).repeat_interleave(g, dim=2) for t in (k, v))
-    return on_shards(lambda a, b, c: flash_mha(a, b, c, **mask), mesh, (q, k, v),
-                     (pl, pl, pl), pl)
+    off = q_off + local_offset(q, 1)
+    return on_shards(lambda a, b, c: flash_mha(a, b, c, q_off=off, **mask), mesh, (q, k, v),
+                     (pl_q, pl_kv, pl_kv), pl_q)
 
 
 def _tensor_cores(q, head_dims=WGMMA_HEAD_DIMS) -> bool:
@@ -123,7 +140,7 @@ def _check_aligned(*tensors) -> None:
 
 def _forward(q, k, v, mask, lse=None) -> torch.Tensor:
     """One forward launch; with ``lse``, the instance that also stores L."""
-    causal, window, n_sink = mask
+    causal, window, n_sink, q_off = mask
     B, S, H, hd = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if B * H * S == 0:
@@ -133,11 +150,11 @@ def _forward(q, k, v, mask, lse=None) -> torch.Tensor:
             return out.zero_()
         _check_aligned(q, k, v, out)
         flash_attention_wgmma_cuda(q, k, v, out, causal=causal, window=window,
-                                   n_sink=n_sink, lse=lse)
+                                   n_sink=n_sink, q_off=q_off, lse=lse)
         flash_mha.wgmma_launches += 1
     else:
         flash_attention_cuda(q, k, v, out, causal=causal, window=window,
-                             n_sink=n_sink, lse=lse)
+                             n_sink=n_sink, q_off=q_off, lse=lse)
     flash_mha.launches += 1
     return out
 
@@ -164,9 +181,9 @@ class _FlashFn(torch.autograd.Function):
         dout = dout.contiguous()
         tensor_cores = _tensor_cores(q, WGMMA_BWD_HEAD_DIMS)
         _check_aligned(out, dout, *((q, k, v) if tensor_cores else ()))
-        causal, window, n_sink = ctx.mask
+        causal, window, n_sink, q_off = ctx.mask
         flash_attention_bwd_cuda(q, k, v, out, dout, lse, dq, dk, dv, causal=causal,
-                                 window=window, n_sink=n_sink)
+                                 window=window, n_sink=n_sink, q_off=q_off)
         flash_mha.bwd_launches += 1
         flash_mha.wgmma_bwd_launches += tensor_cores
         return dq, dk, dv, None

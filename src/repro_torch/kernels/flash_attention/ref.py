@@ -1,10 +1,16 @@
 """Plain PyTorch version of the flash attention kernel, in the model layout.
 
 It computes the function of ``repro/kernels/flash_attention/kernel.py``
-(``flash_attention_kernel``) in one shot: f32 scores scaled by 1/sqrt(hd),
-the causal mask ``col <= row`` aligned TOP-LEFT, masked scores set to
-NEG = -1e30, p = 0 where s <= NEG/2, and the sum divided by max(l, 1e-30),
-so a row that sees no key comes out as 0.
+(``flash_attention_kernel``): f32 scores scaled by 1/sqrt(hd), the causal
+mask ``col <= row`` aligned TOP-LEFT, masked scores set to NEG = -1e30, p =
+0 where s <= NEG/2, and the sum divided by max(l, 1e-30), so a row that
+sees no key comes out as 0. ``flash_mha_ref`` takes the query rows in
+chunks, as the reference's ``repro/models/attention.py::attention`` does
+(``q_chunk`` 512: the largest divisor of Sq not above Sq / 512 chunks), and
+under autograd runs each chunk inside ``torch.utils.checkpoint``, so neither
+pass holds more than one chunk's [B, KV, G, Sc, Sk] scores;
+``flash_mha_unchunked`` is the same function in one shot, an oracle for the
+tests that no model path calls.
 
 Sliding window and sinks (Hymba, the mask of ``repro/models/attention.py::
 attention`` and ``sink_banded_attention``): under ``causal``, key ``col``
@@ -14,6 +20,13 @@ is visible from query ``row`` when
 
 Without ``causal`` neither ``window`` nor ``n_sink`` masks anything, as in
 the reference ``attention``.
+
+Row offset (sequence-parallel attention): ``q_off`` is the global index of
+q's first row, so row ``r`` of q is row ``q_off + r`` of the mask above,
+against the whole K and V; the reference's chunks take their rows from a
+global index the same way (``row = i * Sc + ...``). It acts only under
+``causal``. Every function below that takes a mask takes ``q_off``; at 0
+each computes what it computed without it.
 
 Mask hazard: the JAX oracle ``repro/kernels/flash_attention/ref.py::
 attention_ref`` aligns its causal mask BOTTOM-RIGHT (``tril(k=Sk-Sq)``). It
@@ -52,27 +65,46 @@ import torch
 from typing import NamedTuple
 
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .kernel import BWD_SPLIT_UNITS, SIMT_TILE, WGMMA_BLOCK_K, WGMMA_BLOCK_Q, lse_rows
 
 # threads of a block of the backward's kernels (kThreads)
 _BLOCK_THREADS = 256
 
-__all__ = ["NEG", "flash_mha_ref", "flash_mha_bwd_ref", "tile_visited", "flash_mha_tiled",
+__all__ = ["NEG", "Q_CHUNK", "q_chunks", "flash_mha_ref", "flash_mha_unchunked",
+           "flash_mha_bwd_ref", "tile_visited", "flash_mha_tiled",
            "visible", "bwd_key_tile_visited", "bwd_tile_needs_mask", "bwd_key_tile_rows",
            "BwdItem", "bwd_split_plan", "bwd_delta_lanes", "bwd_delta_reads",
            "flash_mha_bwd_tiled"]
 
 NEG = -1e30
+# query rows a chunk of the plain version aims at (the reference's q_chunk)
+Q_CHUNK = 512
 
 
-def flash_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0,
-                  n_sink: int = 0) -> torch.Tensor:
-    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd] in q.dtype (f32 math).
+def q_chunks(Sq: int) -> int:
+    """Chunks of the plain version's query rows: the reference's rule,
+    max(1, Sq // Q_CHUNK) lowered until it divides Sq."""
+    n = max(1, Sq // Q_CHUNK)
+    while Sq % n:
+        n -= 1
+    return n
 
-    GQA: q head h reads kv head h // (H // KV).
-    """
+
+def _hidden(rows: torch.Tensor, cols: torch.Tensor, window: int, n_sink: int) -> torch.Tensor:
+    """The causal mask's hidden pairs of global ``rows`` x ``cols``."""
+    hidden = cols > rows
+    if window > 0:
+        hidden = hidden | ((cols <= rows - window) & (cols >= n_sink))
+    return hidden
+
+
+def flash_mha_unchunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0, n_sink: int = 0,
+                        q_off: int = 0) -> torch.Tensor:
+    """``flash_mha_ref``'s function with every row's scores at once
+    (``[B,KV,G,Sq,Sk]`` f32): one chunk of it, and the tests' oracle."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -80,32 +112,65 @@ def flash_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.float().reshape(B, Sq, KV, G, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
     if causal:
-        rows = torch.arange(Sq, device=q.device)[:, None]
+        rows = q_off + torch.arange(Sq, device=q.device)[:, None]
         cols = torch.arange(Sk, device=q.device)[None, :]
-        hidden = cols > rows
-        if window > 0:
-            hidden = hidden | ((cols <= rows - window) & (cols >= n_sink))
-        s = s.masked_fill(hidden, NEG)
+        s = s.masked_fill(_hidden(rows, cols, window, n_sink), NEG)
     m = (s.amax(dim=-1, keepdim=True) if Sk
          else s.new_zeros(s.shape[:-1] + (1,)))
-    p = torch.where(s <= NEG / 2, torch.zeros((), device=s.device),
-                    torch.exp(s - m))
+    # each score-sized tensor let go as soon as the next is made (no grad:
+    # two at a time, the dry-run's peak)
+    dead = s <= NEG / 2
+    p = s - m
+    del s
+    p = torch.exp(p)
+    p = torch.where(dead, torch.zeros((), device=p.device), p)
+    del dead
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p / l, v.float())
+    p = p / l
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def flash_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, n_sink: int = 0,
+                  q_off: int = 0) -> torch.Tensor:
+    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd] in q.dtype (f32 math).
+
+    GQA: q head h reads kv head h // (H // KV). Rows in ``q_chunks(Sq)``
+    chunks; under autograd each chunk is checkpointed (the reference's
+    ``remat_chunk``), so the backward recomputes one chunk's scores at a
+    time.
+    """
+    Sq = q.shape[1]
+    n = q_chunks(Sq)
+    Sc = Sq // n
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    outs = []
+    for i in range(n):
+        args = (q[:, i * Sc:(i + 1) * Sc], k, v)
+        kw = dict(causal=causal, window=window, n_sink=n_sink, q_off=q_off + i * Sc)
+        if remat:
+            outs.append(checkpoint(flash_mha_unchunked, *args, use_reentrant=False,
+                                   preserve_rng_state=False, **kw))
+        else:
+            outs.append(flash_mha_unchunked(*args, **kw))
+    return outs[0] if n == 1 else torch.cat(outs, dim=1)
+
+
 def tile_visited(k0: int, q0: int, block_q: int, block_k: int, Sk: int, *,
-                 causal: bool, window: int = 0, n_sink: int = 0) -> bool:
+                 causal: bool, window: int = 0, n_sink: int = 0, q_off: int = 0) -> bool:
     """Does key tile [k0, k0+block_k) hold a visible pair for some row of
     query tile [q0, q0+block_q)? The twin of ``tile_visited`` in
     ``csrc/flash_attention_wgmma.cu`` (and, at 64 x 64, of
     ``key_tile_visited`` in ``csrc/flash_simt.cuh``): a tile it skips would
-    only add p = 0 with m unchanged."""
+    only add p = 0 with m unchanged. ``q0`` is local: the tile's global
+    first row is ``q_off + q0``."""
     if k0 >= Sk:
         return False
     if not causal:
         return True
+    q0 += q_off
     if k0 >= q0 + block_q:                    # wholly past the last row
         return False
     # under a window: not wholly between the sinks and the band of row q0
@@ -113,7 +178,7 @@ def tile_visited(k0: int, q0: int, block_q: int, block_k: int, Sk: int, *,
 
 
 def flash_mha_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, n_sink: int = 0,
+                    causal: bool = True, window: int = 0, n_sink: int = 0, q_off: int = 0,
                     block_q: int = WGMMA_BLOCK_Q, block_k: int = WGMMA_BLOCK_K,
                     return_lse: bool = False, tensor_cores: bool = True):
     """A forward kernel's tile loop in plain torch; same signature and
@@ -134,22 +199,19 @@ def flash_mha_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.full((B, H, Sq), float("inf"), device=q.device)
     for q0 in range(0, Sq, block_q):
         q1 = min(q0 + block_q, Sq)
-        rows = torch.arange(q0, q1, device=q.device)[:, None]
+        rows = q_off + torch.arange(q0, q1, device=q.device)[:, None]
         m = torch.full((B, H, q1 - q0, 1), NEG, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros(B, H, q1 - q0, hd, device=q.device)
         for k0 in range(0, Sk, block_k):
             if not tile_visited(k0, q0, block_q, block_k, Sk, causal=causal,
-                                window=window, n_sink=n_sink):
+                                window=window, n_sink=n_sink, q_off=q_off):
                 continue
             k1 = min(k0 + block_k, Sk)
             s = qf[:, :, q0:q1] @ kf[:, :, k0:k1].transpose(-1, -2)  # raw scores
             if causal:
                 cols = torch.arange(k0, k1, device=q.device)[None, :]
-                hidden = cols > rows
-                if window > 0:
-                    hidden = hidden | ((cols <= rows - window) & (cols >= n_sink))
-                s = s.masked_fill(hidden, NEG)
+                s = s.masked_fill(_hidden(rows, cols, window, n_sink), NEG)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             alpha = torch.exp2((m - m_new) * scale_log2)
             p = torch.where(s <= NEG / 2, torch.zeros((), device=s.device),
@@ -168,62 +230,66 @@ def flash_mha_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       dout: torch.Tensor, *, causal: bool = True, window: int = 0,
-                      n_sink: int = 0):
+                      n_sink: int = 0, q_off: int = 0):
     """(dq, dk, dv) of ``flash_mha_ref`` for the output gradient ``dout``, by
-    autograd."""
+    autograd (its chunks recomputed one at a time)."""
     with torch.enable_grad():
         qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
-        out = flash_mha_ref(qr, kr, vr, causal=causal, window=window, n_sink=n_sink)
+        out = flash_mha_ref(qr, kr, vr, causal=causal, window=window, n_sink=n_sink,
+                            q_off=q_off)
         return torch.autograd.grad(out, (qr, kr, vr), dout)
 
 
 def visible(rows: torch.Tensor, cols: torch.Tensor, Sk: int, *, causal: bool,
-            window: int = 0, n_sink: int = 0) -> torch.Tensor:
-    """The forward's mask as a boolean [rows, cols] grid: the twin of the
-    backward kernel's ``visible`` (ragged key tail included)."""
+            window: int = 0, n_sink: int = 0, q_off: int = 0) -> torch.Tensor:
+    """The forward's mask as a boolean [rows, cols] grid of local ``rows``:
+    the twin of the backward kernel's ``visible`` (ragged key tail
+    included)."""
     ok = cols < Sk
     if causal:
-        seen = cols <= rows
-        if window > 0:
-            seen = seen & ((cols > rows - window) | (cols < n_sink))
-        ok = ok & seen
+        ok = ok & ~_hidden(rows + q_off, cols, window, n_sink)
     return ok
 
 
 def bwd_key_tile_visited(k0: int, q0: int, Sk: int, *, causal: bool, window: int = 0,
-                         n_sink: int = 0) -> bool:
+                         n_sink: int = 0, q_off: int = 0) -> bool:
     """The dQ kernels' ``key_tile_visited``: does key tile [k0, k0+SIMT_TILE)
     hold a visible pair for a row of [q0, q0+SIMT_TILE)?"""
     return tile_visited(k0, q0, SIMT_TILE, SIMT_TILE, Sk, causal=causal, window=window,
-                        n_sink=n_sink)
+                        n_sink=n_sink, q_off=q_off)
 
 
 def bwd_tile_needs_mask(q0: int, k0: int, Sq: int, Sk: int, *, causal: bool,
-                        window: int = 0, n_sink: int = 0) -> bool:
+                        window: int = 0, n_sink: int = 0, q_off: int = 0) -> bool:
     """The kernels' ``tile_needs_mask``: False only when every pair of the
-    tile [q0, q0+SIMT_TILE) x [k0, k0+SIMT_TILE) is visible."""
+    tile [q0, q0+SIMT_TILE) x [k0, k0+SIMT_TILE) is visible (``q0`` local,
+    the ragged tail counted in local rows, the mask in global ones)."""
     t = SIMT_TILE
     if q0 + t > Sq or k0 + t > Sk:
         return True
     if not causal:
         return False
+    q0 += q_off
     if k0 + t - 1 > q0:
         return True
     return window > 0 and k0 <= q0 + t - 1 - window and k0 + t > n_sink
 
 
 def bwd_key_tile_rows(j: int, Sq: int, Sk: int, *, causal: bool, window: int = 0,
-                      n_sink: int = 0) -> tuple:
+                      n_sink: int = 0, q_off: int = 0) -> tuple:
     """(q_lo, n_qt): the SIMT_TILE-row query tiles q_lo, q_lo + SIMT_TILE, ...
-    that can see key tile j (``key_tile_rows`` in the kernel)."""
+    (local rows, tiles counted from row 0) that can see key tile j
+    (``key_tile_rows`` in the kernel). Global row ``q_off + r`` sees the
+    tile from row k0 on, and under a window (k0 past the sinks) up to the
+    row before its last key + window."""
     k0 = j * SIMT_TILE
     if k0 >= Sk:
         return 0, 0
     lo, hi = 0, Sq
     if causal:
-        lo = k0
+        lo = max(0, k0 - q_off) // SIMT_TILE * SIMT_TILE
         if window > 0 and k0 >= n_sink:
-            hi = min(Sq, min(Sk, k0 + SIMT_TILE) - 1 + window)
+            hi = min(Sq, min(Sk, k0 + SIMT_TILE) - 1 + window - q_off)
     return lo, (-(-(hi - lo) // SIMT_TILE) if hi > lo else 0)
 
 
@@ -239,16 +305,16 @@ class BwdItem(NamedTuple):
 
 
 def bwd_split_plan(Sq: int, Sk: int, G: int, *, causal: bool, window: int = 0,
-                   n_sink: int = 0) -> list:
+                   n_sink: int = 0, q_off: int = 0) -> list:
     """The dK/dV blocks of one (b, kv head), in block order (``find_item``
     in the kernel): each key tile's units in ceil(units / BWD_SPLIT_UNITS)
     equal splits."""
     if not causal:
-        window = n_sink = 0
+        window = n_sink = q_off = 0
     items = []
     for j in range(-(-Sk // SIMT_TILE)):
         q_lo, n_qt = bwd_key_tile_rows(j, Sq, Sk, causal=causal, window=window,
-                                       n_sink=n_sink)
+                                       n_sink=n_sink, q_off=q_off)
         units = G * n_qt
         ns = -(-units // BWD_SPLIT_UNITS)
         for s in range(ns):
@@ -302,8 +368,8 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 
 def flash_mha_bwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
-                        window: int = 0, n_sink: int = 0, lse: torch.Tensor | None = None,
-                        tensor_cores: bool = False):
+                        window: int = 0, n_sink: int = 0, q_off: int = 0,
+                        lse: torch.Tensor | None = None, tensor_cores: bool = False):
     """The backward kernels in plain torch, f32 math: (dq, dk, dv) in the
     dtypes of q and k, from the forward's inputs, its output ``o``, its L
     (``lse`` [B, H, Sq], exp2 domain; by default from ``flash_mha_tiled``)
@@ -313,8 +379,8 @@ def flash_mha_bwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     if not causal:
-        window = n_sink = 0
-    mask = dict(causal=causal, window=window, n_sink=n_sink)
+        window = n_sink = q_off = 0
+    mask = dict(causal=causal, window=window, n_sink=n_sink, q_off=q_off)
     if lse is None:
         _, lse = flash_mha_tiled(q, k, v, return_lse=True, **mask)
     scale = 1.0 / math.sqrt(hd)
@@ -369,7 +435,7 @@ def flash_mha_bwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.zeros(B, H, sq_pad, hd, device=dev)
     for q0 in range(0, Sq, t):
         rows = torch.arange(q0, q0 + t, device=dev)[:, None]
-        k_end = min(Sk, q0 + t) if causal else Sk
+        k_end = min(Sk, q_off + q0 + t) if causal else Sk
         for k0 in range(0, k_end, t):
             if not bwd_key_tile_visited(k0, q0, Sk, **mask):
                 continue

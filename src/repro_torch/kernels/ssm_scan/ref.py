@@ -22,13 +22,12 @@ __all__ = ["ssm_scan_ref", "ssm_scan_bwd_ref"]
 
 def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b [..., S, C] -> h [..., S, C] in a.dtype."""
-    S = a.shape[-2]
     out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     h = torch.zeros(a.shape[:-2] + a.shape[-1:], dtype=torch.float32,
                     device=a.device)
-    for t in range(S):
-        h = a[..., t, :].float() * h + b[..., t, :].float()
-        out[..., t, :] = h
+    for t, (at, bt) in enumerate(zip(a.unbind(-2), b.unbind(-2))):
+        h = at.float() * h + bt.float()
+        out.select(-2, t).copy_(h)
     return out.to(a.dtype)
 
 

@@ -12,8 +12,9 @@ artifact per cell with the reference's keys where a counterpart exists:
 
   memory_analysis  per-device argument and output bytes (the local shards
                    of the program's inputs and outputs) and the peak bytes
-                   of live tensors during the run (``DeviceCounter``: each
-                   tensor from its op to its last reference);
+                   of live storage during the run (``DeviceCounter``: each
+                   storage from its first tensor to the last, views counted
+                   once with what they view);
   cost_analysis    ``flops``: the product FLOPs one device runs (the
                    formulas of ``torch.utils.flop_counter``; a DTensor op
                    counted at its output's local share, divided again over
@@ -25,18 +26,23 @@ artifact per cell with the reference's keys where a counterpart exists:
   param_count, active_param_count, status ok / skip / fail (``skip_reason``).
 
 The kernel wrappers run their plain versions here, because the caller chose
-fake CPU tensors, not the card. There is no HLO file: capturing torch
-programs as simulator workloads is a later slice.
+fake CPU tensors, not the card; flash attention's plain version takes its
+query rows in chunks, as the reference's ``attention`` does, so no cell
+holds more than one chunk's scores. There is no HLO file: capturing torch
+programs as simulator workloads is a later slice. The reference's
+``--no-hlo`` flag and ``run_cell(..., save_hlo=...)`` are accepted so that
+its command lines and calls run unchanged, and do nothing.
 
-Usage:
+Usage (the whole grid, 10 archs x 4 shapes x 2 meshes, in 8 processes):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all \\
-      --mesh both --out benchmarks/artifacts/dryrun_torch
+      --mesh both --out benchmarks/artifacts/dryrun_torch --jobs 8
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import multiprocessing
 import os
 import time
 import traceback
@@ -63,15 +69,17 @@ MESH_TAGS = {False: "pod16x16", True: "pod2x16x16"}
 class DeviceCounter(TorchDispatchMode):
     """Per device: product FLOPs (a DTensor op at its output's local share,
     over each mesh dim holding a pending sum once more divided; a plain op,
-    a local shard's, as it is) and the peak bytes of live tensors (every
-    tensor an op makes that is no view, counted at its local shard's size
-    from the op to the moment the last reference to it goes, beside the
-    tensors handed to ``hold``)."""
+    a local shard's, as it is) and the peak bytes of live storage (each
+    storage that an op's output or a tensor handed to ``hold`` lies in,
+    counted once at its size from the first tensor on it to the moment the
+    last tensor on it that this counter saw goes: a view, which at this
+    level of dispatch carries no ``_base``, adds nothing)."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0.0
         self.live = self.peak = 0
+        self._refs: Dict[int, list] = {}     # storage -> [tensors seen on it, bytes]
 
     def hold(self, tensors) -> None:
         for t in tensors:
@@ -79,15 +87,28 @@ class DeviceCounter(TorchDispatchMode):
 
     def _track(self, t) -> None:
         local = t._local_tensor if isinstance(t, DTensor) else t     # the shard itself
-        if not isinstance(local, torch.Tensor) or local._base is not None:
+        if not isinstance(local, torch.Tensor):
             return
-        n = local.numel() * local.element_size()
-        self.live += n
-        self.peak = max(self.peak, self.live)
-        weakref.finalize(local, self._free, n)
+        try:
+            st = local.untyped_storage()
+            key, n = st._cdata, st.nbytes()
+        except (RuntimeError, NotImplementedError):         # a tensor without storage
+            key, n = id(local), local.numel() * local.element_size()
+        ref = self._refs.get(key)
+        if ref is None:
+            self._refs[key] = [1, n]
+            self.live += n
+            self.peak = max(self.peak, self.live)
+        else:
+            ref[0] += 1
+        weakref.finalize(local, self._free, key)
 
-    def _free(self, n: int) -> None:
-        self.live -= n
+    def _free(self, key: int) -> None:
+        ref = self._refs[key]
+        ref[0] -= 1
+        if ref[0] == 0:
+            del self._refs[key]
+            self.live -= ref[1]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -160,10 +181,12 @@ def _fake_world(n: int) -> bool:
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Optional[str] = None,
-             verbose: bool = True, mesh_shape=None, **program_kw) -> Dict:
+             save_hlo: bool = True, verbose: bool = True, mesh_shape=None,
+             **program_kw) -> Dict:
     """One cell (``arch`` and ``shape_name`` may be records, such as a
-    reduced config). ``mesh_shape`` ((shape, axes)) replaces the production
-    mesh (tests: a 1x1 mesh over a real one-rank group)."""
+    reduced config). ``save_hlo`` stands where the reference's does and is
+    ignored: no HLO is written. ``mesh_shape`` ((shape, axes)) replaces the
+    production mesh (tests: a 1x1 mesh over a real one-rank group)."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     shape = get_shape(shape_name) if isinstance(shape_name, str) else shape_name
     shp, axes = mesh_shape or PRODUCTION_SHAPES[multi_pod]
@@ -211,6 +234,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Optional[str]
     return cell
 
 
+def _cell_job(arch: str, shape: str, multi: bool, out_dir: str, program_kw: Dict) -> Dict:
+    return run_cell(arch, shape, multi, out_dir, **program_kw)
+
+
 def _write(cell: Dict, out_dir: Optional[str]):
     if not out_dir:
         return
@@ -227,10 +254,15 @@ def main(argv=None):
     p.add_argument("--shape", default="all")
     p.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
     p.add_argument("--out", default="benchmarks/artifacts/dryrun_torch")
+    p.add_argument("--no-hlo", action="store_true",
+                   help="accepted for the reference's command line; no HLO is written")
     p.add_argument("--skip-existing", action="store_true")
     p.add_argument("--remat-policy", default="full", choices=["full", "save-attn"],
                    help="activation-checkpoint policy")
     p.add_argument("--microbatches", type=int, default=1)
+    p.add_argument("--jobs", type=int, default=1,
+                   help="run the cells in this many worker processes, each cell in a "
+                        "fresh one with its own fake process group")
     args = p.parse_args(argv)
     program_kw = {}
     if args.remat_policy != "full":
@@ -242,7 +274,7 @@ def main(argv=None):
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
 
-    results = []
+    results, todo = [], []
     for arch in archs:
         for shape in shapes:
             for multi in meshes:
@@ -256,7 +288,13 @@ def main(argv=None):
                             print(f"[cached] {arch} x {shape} x {tag}: {prev['status']}")
                             results.append(prev)
                             continue
-                results.append(run_cell(arch, shape, multi, args.out, **program_kw))
+                todo.append((arch, shape, multi, args.out, program_kw))
+    if args.jobs > 1 and len(todo) > 1:
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(min(args.jobs, len(todo)), maxtasksperchild=1) as pool:
+            results += pool.starmap(_cell_job, todo, chunksize=1)
+    else:
+        results += [_cell_job(*job) for job in todo]
     n_ok = sum(r["status"] == "ok" for r in results)
     n_skip = sum(r["status"] == "skip" for r in results)
     n_fail = sum(r["status"] == "fail" for r in results)

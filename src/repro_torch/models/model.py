@@ -292,6 +292,10 @@ class Model:
         else:
             x = self._embed(params, batch["tokens"])
         if self.cfg.n_meta_tokens:
+            # the embedding of a vocabulary split over ranks is a pending sum:
+            # sum it before the concatenation, whose redistribution of such a
+            # sum reads the data (no fake tensor holds any: the dry-run)
+            x = constrain(x, "batch", None, None)
             meta = params["meta"].to(x.dtype).expand(x.shape[0], -1, -1)
             x = torch.cat([meta, x], dim=1)
         return constrain(x, "batch", "act_seq", None)

@@ -16,6 +16,10 @@ reference sits under either cell, so they are plain torch here.
 Shapes: q, k [B, S, H, dk], v [B, S, H, dv], gate preacts [B, S, H].
 State: C [B, H, dk, dv], n [B, H, dk], m [B, H] (stored pre-scaled by
 exp(-m), i.e. "hatted").
+
+DTensors (under sharding rules) run both scans on each rank's local batch
+rows and heads, the sequence whole (``_on_local_rows``): a chunk's or a
+step's state depends on every token before it.
 """
 from __future__ import annotations
 
@@ -24,6 +28,9 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.sharding import (kernel_placements, mesh_of, moved_placements, on_shards,
+                                    to_mesh)
 
 __all__ = [
     "mlstm_chunked",
@@ -55,12 +62,35 @@ def chunk_len(S: int, chunk: int = 256) -> int:
     return L
 
 
+def _on_local_rows(fn, x, batch_head_args, head_args, state, n_out):
+    """``fn(*batch_head_args, *head_args, *state)`` on each rank's local
+    shards, where the DTensor ``x`` ([B, S, H, ...]) keeps its batch and
+    head splits and its sequence whole: ``batch_head_args`` are laid out as
+    x, ``head_args`` ([H, ...]) split where x's heads are, the ``state``
+    ([B, H, ...]) where x's batch rows and heads are. ``fn`` returns an
+    output laid out as x, then ``n_out`` states."""
+    mesh = x.device_mesh
+    pl = kernel_placements(to_mesh(x, mesh), (0, 2))
+    st = moved_placements(pl, {0: 0, 2: 1})
+    args = tuple(batch_head_args) + tuple(head_args) + tuple(state)
+    pls = ([pl] * len(batch_head_args) + [moved_placements(pl, {2: 0})] * len(head_args)
+           + [st] * len(state))
+    return on_shards(fn, mesh, args, pls, (pl,) + (st,) * n_out)
+
+
 def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   i_pre: torch.Tensor, f_pre: torch.Tensor,
                   state: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
                   *, chunk: int = 256, return_state: bool = False):
     """Chunk-parallel mLSTM. Returns h [B, S, H, dv] in v.dtype (and the
     final f32 state)."""
+    if mesh_of(q, k, v, i_pre, f_pre) is not None:
+        def local(*a):
+            h, st = mlstm_chunked(*a[:5], tuple(a[5:]) or None, chunk=chunk,
+                                  return_state=True)
+            return (h,) + tuple(st)
+        h, *st = _on_local_rows(local, q, (q, k, v, i_pre, f_pre), (), tuple(state or ()), 3)
+        return (h, tuple(st)) if return_state else h
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     L = chunk_len(S, chunk)
@@ -162,6 +192,12 @@ def _slstm_cell(state, gates_x, R):
 
 def slstm_scan(gates_x: torch.Tensor, R: torch.Tensor, state=None):
     """gates_x [B,S,H,4,hd] -> (h [B,S,H,hd] in gates_x.dtype, f32 state)."""
+    if mesh_of(gates_x, R) is not None:
+        def local(gx, r, *st):
+            h, st = slstm_scan(gx, r, tuple(st) or None)
+            return (h,) + tuple(st)
+        h, *st = _on_local_rows(local, gates_x, (gates_x,), (R,), tuple(state or ()), 4)
+        return h, tuple(st)
     B, S, H, _, hd = gates_x.shape
     if state is None:
         state = slstm_state_init(B, H, hd, device=gates_x.device)

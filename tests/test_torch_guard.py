@@ -76,7 +76,7 @@ def test_port_imports_without_jax_or_repro():
         assert mod in names
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "step_rounding.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "step_rounding.py", "flash_race.py"])
 def test_card_scripts_import_no_jax_or_repro(script):
     """The scripts run on the card import neither JAX nor ``repro``, at the
     top or inside any function."""
@@ -88,6 +88,22 @@ def test_card_scripts_import_no_jax_or_repro(script):
     names |= {n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.module and not n.level}
     assert names and "torch" in names
+    assert not [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "repro")], names
+
+
+@pytest.mark.parametrize("script", ["torch_quickstart.py", "torch_serve_lm.py",
+                                    "torch_train_lm.py", "torch_npu_analysis.py"])
+def test_port_examples_import_no_jax_or_repro(script):
+    """The port's examples import the port and neither JAX nor ``repro``,
+    at the top or inside any function."""
+    import ast
+
+    with open(os.path.join(os.path.dirname(SRC), "examples", script)) as f:
+        tree = ast.parse(f.read())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    names |= {n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module and not n.level}
+    assert any(m.split(".")[0] == "repro_torch" for m in names), names
     assert not [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "repro")], names
 
 

@@ -335,6 +335,35 @@ def test_backward_split_plan_covers_each_visible_pair_once(Sq, Sk, causal, windo
                    for it in plan if it.j == j)
 
 
+@pytest.mark.parametrize("q_off", [37, 64, 200])
+@pytest.mark.parametrize("causal,window,n_sink", _MASKS)
+def test_backward_tile_predicates_and_plan_with_row_offset(causal, window, n_sink, q_off):
+    """A query shard of 130 rows from global row ``q_off`` against 400 keys:
+    the dQ kernels' skipped tiles hold no visible pair, the unmasked ones
+    are all visible, and each key tile's rows [q_lo, q_lo + n_qt·SIMT_TILE)
+    (local tiles from row 0) hold every row that sees one of its keys."""
+    Sq, Sk, G = 130, 400, 3
+    kw = dict(causal=causal, window=window, n_sink=n_sink, q_off=q_off)
+    vis = visible(torch.arange(Sq)[:, None], torch.arange(Sk)[None, :], Sk,
+                  **kw).expand(Sq, Sk)
+    for q0, k0 in itertools.product(range(0, Sq, SIMT_TILE), range(0, Sk, SIMT_TILE)):
+        tile = vis[q0:q0 + SIMT_TILE, k0:k0 + SIMT_TILE]
+        if not bwd_key_tile_visited(k0, q0, Sk, **kw):
+            assert not tile.any(), (q0, k0)
+        if not bwd_tile_needs_mask(q0, k0, Sq, Sk, **kw):
+            assert tile.shape == (SIMT_TILE, SIMT_TILE) and tile.all(), (q0, k0)
+    plan = bwd_split_plan(Sq, Sk, G, **kw)
+    for j in range(-(-Sk // SIMT_TILE)):
+        q_lo, n_qt = bwd_key_tile_rows(j, Sq, Sk, **kw)
+        assert q_lo % SIMT_TILE == 0
+        seen = vis[:, j * SIMT_TILE:(j + 1) * SIMT_TILE].any(1)
+        inside = torch.zeros(Sq, dtype=torch.bool)
+        inside[q_lo:q_lo + n_qt * SIMT_TILE] = True
+        assert not (seen & ~inside).any(), j
+        units = [u for it in plan if it.j == j for u in range(it.u0, it.u1)]
+        assert units == list(range(G * n_qt)), j
+
+
 @pytest.mark.parametrize("S,causal,window,n_sink", [(150, True, 0, 0), (130, False, 0, 0),
                                                     (200, True, 64, 20), (9, True, 0, 0)])
 def test_forward_lse_is_the_row_logsumexp(S, causal, window, n_sink):

@@ -946,3 +946,107 @@ def test_list_schedule_raises_under_grad_on_the_card():
         list_schedule(feats, ints, params, arrays.n_units)
     with torch.no_grad():
         assert list_schedule(feats, ints, params, arrays.n_units)[0].shape == (12,)
+
+
+# -- the query row offset (sequence-parallel attention) ---------------------------
+
+# (B, S, H, KV, hd, causal, window, n_sink, dt, shards): every instance, with
+# shard edges on the kernels' query tiles (128 rows on the tensor cores'
+# forward, 64 elsewhere: the same bits as the unsplit call) and off them
+_ROW_OFFSET_CASES = [
+    (2, 512, 4, 2, 128, True, 0, 0, "f32", 4),
+    (2, 384, 4, 1, 64, True, 100, 7, "f32", 3),
+    (2, 300, 4, 2, 80, True, 50, 4, "f32", 3),
+    (2, 256, 4, 2, 32, True, 0, 0, "bf16", 4),
+    (2, 512, 4, 2, 128, True, 0, 0, "bf16", 4),
+    (2, 768, 5, 1, 64, True, 100, 7, "bf16", 3),
+    (2, 300, 4, 2, 128, True, 0, 0, "bf16", 3),
+    (2, 300, 4, 4, 80, False, 0, 0, "bf16", 4),
+    (2, 512, 4, 4, 80, True, 0, 0, "bf16", 4),
+]
+
+
+def _grads(q, k, v, do, kw):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_mha(*leaves, **kw)
+    return (out.detach(),) + torch.autograd.grad(out, leaves, do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,n_sink,dt,shards", _ROW_OFFSET_CASES)
+def test_flash_row_offset_shards_are_the_unsplit_call(B, S, H, KV, hd, causal, window, n_sink,
+                                                      dt, shards, monkeypatch):
+    """Each shard of q's rows run with its first row as q_off against the
+    whole K and V: its output (serve instance and the instance that stores
+    L) and dQ are the unsplit call's rows, bit for bit where the shard's
+    edges are multiples of the kernel's query tile, else within the
+    kernel-vs-plain tolerances; dK and dV summed over the shards are the
+    unsplit call's within them; the plain version with the same q_off agrees;
+    q_off = 0 on every shard fails a causal case and changes no bit of a
+    non-causal one."""
+    require_sm90()
+    q = torch.from_numpy(randn(40, (B, S, H, hd))).to("cuda", _TDT[dt])
+    k = torch.from_numpy(randn(41, (B, S, KV, hd))).to("cuda", _TDT[dt])
+    v = torch.from_numpy(randn(42, (B, S, KV, hd))).to("cuda", _TDT[dt])
+    do = torch.from_numpy(randn(43, (B, S, H, hd))).to("cuda", _TDT[dt])
+    kw = dict(causal=causal, window=window, n_sink=n_sink)
+    plain = [flash_mha_ref(q[:, i * S // shards:(i + 1) * S // shards], k, v,
+                           q_off=i * S // shards, **kw) for i in range(shards)]
+    _no_plain(monkeypatch)
+    with torch.no_grad():
+        serve = flash_mha(q, k, v, **kw)
+    out, dq, dk, dv = _grads(q, k, v, do, kw)
+    tc = dt == "bf16" and hd in WGMMA_HEAD_DIMS
+    n = S // shards
+
+    def run(offsets):
+        got = {"serve": [], "out": [], "dq": [], "dk": 0.0, "dv": 0.0}
+        for i, off in enumerate(offsets):
+            rows = slice(i * n, (i + 1) * n)
+            with torch.no_grad():
+                got["serve"].append(flash_mha(q[:, rows], k, v, q_off=off, **kw))
+            o, gq, gk, gv = _grads(q[:, rows], k, v, do[:, rows], dict(kw, q_off=off))
+            got["out"].append(o)
+            got["dq"].append(gq)
+            got["dk"] = got["dk"] + gk.float()
+            got["dv"] = got["dv"] + gv.float()
+        torch.cuda.synchronize()
+        return {key: torch.cat(t, 1) if isinstance(t, list) else t for key, t in got.items()}
+
+    def agrees(key, g, w):
+        if dt == "f32":
+            return bool(torch.allclose(g.float(), w.float(), rtol=1e-4, atol=1e-4))
+        tol = TOL["flash_bf16"] if key in ("serve", "out") else _FLASH_BWD_BF16
+        return float((g.float() - w.float()).abs().max()) <= tol * float(w.float().abs().max())
+
+    want = dict(serve=serve, out=out, dq=dq, dk=dk, dv=dv)
+    got = run([i * n for i in range(shards)])
+    bits = ((("serve", "out") if n % (128 if tc else SIMT_TILE) == 0 else ())
+            + (("dq",) if n % SIMT_TILE == 0 else ()))
+    for key, w in want.items():
+        assert bool(torch.isfinite(got[key]).all()), key
+        if key in bits:
+            assert torch.equal(got[key], w), key
+        else:
+            assert agrees(key, got[key], w), (key, float((got[key].float() - w.float()).abs().max()))
+    for i, p in enumerate(plain):
+        assert agrees("out", got["out"][:, i * n:(i + 1) * n], p), i
+    zero = run([0] * shards)
+    if causal:
+        assert not agrees("out", zero["out"], out)
+    else:
+        for key in want:
+            assert torch.equal(zero[key], got[key]), key
+
+
+@pytest.mark.gpu
+def test_flash_backward_split_plan_with_row_offset_c_is_python():
+    require_sm90()
+    for Sq, Sk, H, KV in ((256, 1024, 12, 2), (288, 1152, 25, 5), (100, 517, 4, 1),
+                          (64, 64, 2, 1)):
+        for q_off in (0, 1, 63, 64, 100, Sk - Sq):
+            for causal, window, n_sink in ((True, 0, 0), (False, 0, 0), (True, 100, 7),
+                                           (True, 1024, 128), (True, 5, 0)):
+                kw = dict(causal=causal, window=window, n_sink=n_sink, q_off=q_off)
+                assert bwd_slots(Sq, Sk, H, KV, **kw) == len(
+                    bwd_split_plan(Sq, Sk, H // KV, **kw)), (Sq, Sk, kw)

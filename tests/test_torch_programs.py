@@ -276,7 +276,10 @@ def test_dryrun_cell_counts_bytes_and_product_flops(tmp_path):
     the batch's; the product FLOPs are the hand count: per layer the
     forward, twice it in the backward and a recomputation (remat) that stops
     at the last tensor the backward needs (``torch.utils.checkpoint``'s
-    early stop: the FFN's out-projection is not run again), and the chunked
+    early stop: the FFN's out-projection is not run again), the attention's
+    score product once more (the plain attention checkpoints each query
+    chunk, as the reference's ``remat_chunk`` does; its recomputation stops
+    at the probabilities, before the product with V), and the chunked
     cross entropy's logits product four times (forward, recomputed, two in
     the backward). XLA's ``cost_analysis`` of the JAX program counts a
     scanned loop's body once (layers and cross-entropy chunks), so the port's
@@ -299,7 +302,7 @@ def test_dryrun_cell_counts_bytes_and_product_flops(tmp_path):
     T = B * S
     fwd_layer = (2 * T * d * (H + 2 * KV) * hd + 2 * T * H * hd * d + 3 * 2 * T * d * f
                  + 2 * 2 * B * H * S * S * hd)
-    hand = L * (4 * fwd_layer - 2 * T * f * d) + 4 * 2 * T * d * V
+    hand = L * (4 * fwd_layer - 2 * T * f * d + 2 * B * H * S * S * hd) + 4 * 2 * T * d * V
     assert cell["cost_analysis"]["flops"] == hand
 
     jprog = jax_build_program(JAX_REGISTRY["smollm-135m"].reduced(),
