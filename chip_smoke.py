@@ -174,6 +174,19 @@ run (non-zero exit, no result line):
      train example runs 24 steps, then again to 32, which must resume from
      step 24's checkpoint and data cursor; wall time of each and the train
      losses.
+  11. capture — the port's programs as simulator workloads
+     (graph/capture.py): qwen2-1.5b's 1x1 prefill (B 1, S 128) and decode
+     (B 4, cache 256) programs on the one-rank mesh at full width and depth
+     in bf16 (random weights, seed 0) run once each under the recorder, the
+     rmsnorm and flash kernels launching (exact counts, every flash on the
+     tensor cores); each capture's structural hash and SHA-256 must equal
+     the checked-in fixture's (configs/torch_graphs/) and those of a fake-CPU
+     capture made in the same run (tools/gen_torch_fixtures.py in a
+     subprocess, which also captures the 1x2 program under the fake process
+     group); seconds, tasks, product FLOPs and HBM bytes of each; the three
+     torch/ workloads, the hlo/ captures and the lm/ twins through the
+     simulator's analytic prescreen (the crosscheck spec), each torch/
+     fixture inside its manifest band.
 
 The line before the last is a JSON object {"kernels": [...]} (list_schedule,
 which replaces the prescreen's XLA program and no Pallas kernel, the
@@ -1180,6 +1193,152 @@ def phase_row_offset(torch):
         del q, k, v, do, serve, out, dq, dk, dv, want, got, zero
         torch.cuda.empty_cache()
     log(f"[row_offset] phase 3b: {time.perf_counter() - t0:.1f}s")
+
+
+# phase 11: the port's programs captured as simulator workloads: the 1x1
+# fixtures run on the card (fixture name -> rmsnorm, flash launches a run
+# from path_counts), the generator's fake-CPU captures in a subprocess
+CAPTURE = dict(card=("qwen2_1_5b_prefill", "qwen2_1_5b_decode"), seed=0, host_timeout=600)
+
+
+def _capture_digest(tasks):
+    """(structural hash of the lowered ops, SHA-256 of the fixture text)."""
+    import hashlib
+
+    from repro_torch.graph.capture import dumps
+    from repro_torch.graph.ingest import lower_tasks
+
+    return lower_tasks(tasks)[1].structural_hash, hashlib.sha256(dumps(tasks)).hexdigest()
+
+
+def _first_difference(got, want) -> str:
+    """Where two captures part: the first task that differs, as JSON rows."""
+    from repro_torch.graph.capture import tasks_to_json
+
+    got, want = tasks_to_json(got), tasks_to_json(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return f"task {i}: {a} against {b}"
+    return f"{len(got)} tasks against {len(want)}"
+
+
+def phase_capture(torch):
+    """11. The 1x1 fixtures' programs on the card under the recorder, held
+    to the checked-in fixtures and to fake-CPU captures of this run; the
+    torch/ workloads through the simulator beside hlo/ and lm/."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.graph import torch_ingest
+    from repro_torch.graph.capture import TaskRecorder
+    from repro_torch.graph.ingest import lower_tasks
+    from repro_torch.launch.programs import build_program
+    from repro_torch.models.layers import init_params
+    from repro_torch.sweep.runner import run_campaign
+    from repro_torch.sweep.spec import load_spec
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="captures_", dir=os.path.join(HERE, "build"))
+    host = subprocess.Popen([sys.executable, os.path.join(HERE, "tools", "gen_torch_fixtures.py"),
+                             "--out", tmp], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=HERE,
+                            env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    try:
+        fixtures = {c[0]: c for c in torch_ingest.CAPTURES}
+        cfg = get_config(DENSE)
+        (pf_norms, pf_flash), (dc_norms, _) = path_counts(cfg)
+        want_counts = {"qwen2_1_5b_prefill": (pf_norms, pf_flash),
+                       "qwen2_1_5b_decode": (dc_norms, 0)}
+        card, failed = {}, []
+        with one_rank_mesh(torch) as mesh:
+            params = None
+            for fx in CAPTURE["card"]:
+                _, arch, seq, batch, kind, _, _ = fixtures[fx]
+                prog = build_program(cfg, ShapeSpec(f"fx_{fx}", seq, batch, kind), mesh)
+                if params is None:
+                    gen = torch.Generator(device="cuda").manual_seed(CAPTURE["seed"])
+                    params = init_params(prog.model.template(), gen, dtype=torch.bfloat16,
+                                         device="cuda")
+                rng = np.random.default_rng(CAPTURE["seed"])
+                if kind == "prefill":
+                    toks = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+                    args = prog.place(params, {"tokens": torch.from_numpy(toks).cuda()})
+                else:
+                    toks = rng.integers(0, cfg.vocab_size, (batch, 1)).astype(np.int32)
+                    cache = prog.model.init_cache(batch, seq, torch.bfloat16, "cuda")
+                    args = prog.place(params, cache, torch.from_numpy(toks).cuda())
+                torch.cuda.synchronize()
+                _zero_counts()
+                rec = TaskRecorder()
+                t0 = time.perf_counter()
+                with rec:
+                    logits, _ = prog.fn(*args)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = _read_counts()
+                logits = logits.full_tensor() if hasattr(logits, "full_tensor") else logits
+                norms, flash = want_counts[fx]
+                got = (counts["rmsnorm"], counts["flash_attention"], counts["wgmma"])
+                if got != (norms, flash, flash):
+                    failed.append(f"{fx}: launches (rmsnorm, flash, wgmma) {got}, want "
+                                  f"{(norms, flash, flash)}")
+                if not bool(torch.isfinite(logits.float()).all()):
+                    failed.append(f"{fx}: non-finite logits")
+                _, rep = lower_tasks(rec.tasks)
+                card[fx] = dict(tasks=rec.tasks, digest=_capture_digest(rec.tasks))
+                log(f"[capture] {fx} on the card ({kind}, B {batch}, {seq}, bf16, full depth): "
+                    f"{secs:.3f} s under the recorder, {len(rec.tasks)} tasks, {rep.n_layers} "
+                    f"layer blocks of {rep.layer_ops}, mxu FLOPs {rep.mxu_flops:.6e}, HBM bytes "
+                    f"{rep.hbm_bytes:.6e}; launches rmsnorm {got[0]}, flash {got[1]} "
+                    f"(tensor cores {got[2]}); structural hash {card[fx]['digest'][0][:16]}")
+                del args, logits, rec
+            del params
+        torch.cuda.empty_cache()
+        stdout, stderr = host.communicate(timeout=CAPTURE["host_timeout"])
+        if host.returncode != 0:
+            raise AssertionError(f"gen_torch_fixtures.py failed: {stderr[-3000:]}")
+        for fx in fixtures:
+            fake = torch_ingest.load_tasks(fx, fixture_dir=tmp)
+            fixed = torch_ingest.load_tasks(fx)
+            fake_d, fixed_d = _capture_digest(fake), _capture_digest(fixed)
+            if fake_d != fixed_d:
+                failed.append(f"{fx}: the fake-CPU capture of this run is not the fixture "
+                              f"({_first_difference(fake, fixed)})")
+            if fx in card and card[fx]["digest"] != fixed_d:
+                failed.append(f"{fx}: the card's capture is not the fixture "
+                              f"({_first_difference(card[fx]['tasks'], fixed)})")
+            log(f"[capture] {fx}: fixture {fixed_d[0][:16]}, fake-CPU capture of this run "
+                f"{fake_d[0][:16]}" + (f", the card's {card[fx]['digest'][0][:16]}"
+                                       if fx in card else " (host only: 1x2 fake group)"))
+        if failed:
+            raise AssertionError("; ".join(failed))
+        t0 = time.perf_counter()
+        spec = load_spec(os.path.join(torch_ingest.FIXTURE_DIR, "crosscheck.json"))
+        res = run_campaign(spec, workers=0, use_cache=False, backend="inline")
+        xck = res.summary.get("torch_crosscheck") or {}
+        for r in res.records:
+            log(f"[capture] simulator {r['workload']} at {r['overrides']}: analytic "
+                f"{r['analytic_time_ns'] / 1e6:.4f} ms, FLOPs {r['total_flops']:.4e}, HBM bytes "
+                f"{r['hbm_bytes']:.4e}")
+        for fx in fixtures:
+            s = xck.get(fx)
+            if s is None or s["in_band"] != s["cells"]:
+                raise AssertionError(f"torch/{fx} outside its band: {s}")
+            log(f"[capture] torch/{fx}: {s['in_band']}/{s['cells']} cells in band {s['band']}, "
+                f"analytic {s['analytic_ratio_min']:.4f}-{s['analytic_ratio_max']:.4f} of "
+                f"{s['twin']}, {s['hlo_analytic_ratio_min']:.4f}-"
+                f"{s['hlo_analytic_ratio_max']:.4f} of hlo/{fx} "
+                f"[campaign {time.perf_counter() - t0:.1f}s]")
+    finally:
+        if host.poll() is None:
+            host.kill()
+            host.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[capture] phase 11: {time.perf_counter() - t_phase:.1f}s")
 
 
 def phase_examples(torch):
@@ -2987,7 +3146,7 @@ def start_dryrun():
     arch, shape, mesh = PROGRAM["dryrun"]
     out = tempfile.mkdtemp(prefix="dryrun_")
     proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                             "--shape", shape, "--mesh", mesh, "--out", out],
+                             "--shape", shape, "--mesh", mesh, "--out", out, "--no-hlo"],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE,
                             env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
     return proc, out, time.perf_counter()
@@ -3132,6 +3291,7 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_examples(torch)
         log(f"[examples] phase 10: {time.perf_counter() - t0:.1f}s")
+        phase_capture(torch)
     except Exception:
         traceback.print_exc()
         return 1

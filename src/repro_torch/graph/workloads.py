@@ -639,6 +639,10 @@ def resolve_workload(name: str) -> Callable[[], List[Op]]:
         # HLO parser + fixture IO most callers never need)
         from . import ingest
         return ingest.resolve_hlo(name)
+    if name.startswith("torch/"):
+        # the port's own programs, captured (graph/torch_ingest.py)
+        from . import torch_ingest
+        return torch_ingest.resolve_torch(name)
     p = parse_lm_name(name)
     if p is None:
         raise KeyError(

@@ -42,7 +42,10 @@ the CPU the plain version's autograd is the backward.
 DTensors (under sharding rules) run on each rank's local batch rows, heads
 and query rows, K and V over the whole sequence (``_flash_on_shards``): the
 kernel only ever sees plain local tensors, and a query shard passes its
-first row as ``q_off``.
+first row as ``q_off``. Under a program capture (``graph/capture.py``) each
+call on local tensors is one ``mxu`` task of 4·hd FLOPs a visible (row,
+key) pair of each head (``ref.visible_pairs``), q, k, v read and the
+output written, whichever version runs.
 """
 from __future__ import annotations
 
@@ -51,11 +54,12 @@ from torch.distributed.tensor import Replicate, Shard
 
 from ...distributed.sharding import (kernel_placements, local_offset, mesh_of, on_shards,
                                      to_mesh)
+from ...graph.capture import kernel_call
 from .._build import DTYPE_CODES
 from .kernel import (HEAD_DIMS, WGMMA_BWD_HEAD_DIMS, WGMMA_HEAD_DIMS,
                      flash_attention_bwd_cuda, flash_attention_cuda,
                      flash_attention_wgmma_cuda, lse_rows)
-from .ref import flash_mha_ref
+from .ref import flash_mha_ref, visible_pairs
 
 __all__ = ["flash_mha"]
 
@@ -67,6 +71,22 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if mesh is not None:
         return _flash_on_shards(mesh, q, k, v, causal=causal, window=window, n_sink=n_sink,
                                 q_off=q_off)
+    return kernel_call("flash_attention", "mxu",
+                       lambda: _local(q, k, v, causal, window, n_sink, q_off), (q, k, v),
+                       lambda: _cost(q, k, causal, window, n_sink, q_off))
+
+
+def _cost(q, k, causal, window, n_sink, q_off) -> dict:
+    """A call's task: 4·hd FLOPs (QK^T and PV) a visible pair of each head."""
+    B, S, H, hd = q.shape
+    pairs = B * H * visible_pairs(S, k.shape[1], causal=causal, window=window, n_sink=n_sink,
+                                  q_off=q_off)
+    return {"flops": 4 * hd * pairs, "gemm": (B * H * S, hd, k.shape[1])}
+
+
+def _local(q, k, v, causal, window, n_sink, q_off) -> torch.Tensor:
+    """One call on plain tensors: the plain version on the CPU, else a
+    kernel."""
     if q.device.type == "cpu":
         return flash_mha_ref(q, k, v, causal=causal, window=window, n_sink=n_sink,
                              q_off=q_off)

@@ -60,6 +60,7 @@ from __future__ import annotations
 import math
 from collections import Counter
 
+import numpy as np
 import torch
 
 from typing import NamedTuple
@@ -74,7 +75,8 @@ _BLOCK_THREADS = 256
 
 __all__ = ["NEG", "Q_CHUNK", "q_chunks", "flash_mha_ref", "flash_mha_unchunked",
            "flash_mha_bwd_ref", "tile_visited", "flash_mha_tiled",
-           "visible", "bwd_key_tile_visited", "bwd_tile_needs_mask", "bwd_key_tile_rows",
+           "visible", "visible_pairs", "bwd_key_tile_visited", "bwd_tile_needs_mask",
+           "bwd_key_tile_rows",
            "BwdItem", "bwd_split_plan", "bwd_delta_lanes", "bwd_delta_reads",
            "flash_mha_bwd_tiled"]
 
@@ -249,6 +251,23 @@ def visible(rows: torch.Tensor, cols: torch.Tensor, Sk: int, *, causal: bool,
     if causal:
         ok = ok & ~_hidden(rows + q_off, cols, window, n_sink)
     return ok
+
+
+def visible_pairs(Sq: int, Sk: int, *, causal: bool, window: int = 0, n_sink: int = 0,
+                  q_off: int = 0) -> int:
+    """The (row, key) pairs of one head that ``visible`` lets through, for
+    local rows 0..Sq-1 (global q_off..q_off+Sq-1): col <= row, col < Sk,
+    and under a window col > row - window or col < n_sink."""
+    if not causal:
+        return Sq * Sk
+    r = np.arange(q_off, q_off + Sq, dtype=np.int64)
+    hi = np.minimum(r, Sk - 1)
+    if window == 0:
+        return int(np.maximum(hi + 1, 0).sum())
+    lo = np.maximum(r - window + 1, 0)
+    band = np.maximum(hi - lo + 1, 0)
+    sinks = np.maximum(np.minimum(np.minimum(n_sink, lo), hi + 1), 0)
+    return int((band + sinks)[hi >= 0].sum())
 
 
 def bwd_key_tile_visited(k0: int, q0: int, Sk: int, *, causal: bool, window: int = 0,

@@ -15,7 +15,9 @@ kernels: dx with the dw partials, then their fixed-order sum).
 
 A DTensor (under sharding rules) runs on each rank's local rows: its last
 dim whole, w replicated (``distributed.sharding.on_shards``), so the kernel
-only ever sees plain local tensors.
+only ever sees plain local tensors. Under a program capture
+(``graph/capture.py``) each call on local tensors is one ``vector`` task
+of x's elements, x and w read and y written, whichever version runs.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from torch.distributed.tensor import Replicate
 
 from ...distributed.sharding import kernel_placements, mesh_of, on_shards, to_mesh
+from ...graph.capture import kernel_call
 from .._build import DTYPE_CODES
 from .kernel import rmsnorm_bwd_cuda, rmsnorm_cuda
 from .ref import rmsnorm_ref
@@ -38,6 +41,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
         pl = kernel_placements(to_mesh(x, mesh), range(x.ndim - 1))
         return on_shards(lambda a, b: rmsnorm(a, b, eps), mesh, (x, w),
                          (pl, [Replicate()] * mesh.ndim), pl)
+    return kernel_call("rmsnorm", "vector", lambda: _local(x, w, eps), (x, w),
+                       lambda: {"elems": x.numel()})
+
+
+def _local(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """One plain tensor's call: the plain version on the CPU, else the
+    kernel."""
     if not x.is_cuda:
         if x.device.type == "cpu":
             return rmsnorm_ref(x, w, eps)

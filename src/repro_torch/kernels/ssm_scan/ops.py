@@ -14,13 +14,17 @@ feeds the C contraction) and whose backward is the reverse scan: the
 backward kernel (``csrc/ssm_scan.cu``, ``repro_ssm_scan_bwd``) on the card,
 ``ssm_scan_bwd_ref`` on the CPU. ``ssm_scan_batched.bwd_launches`` counts
 backward kernel launches and nothing else. DTensors (under sharding
-rules) run on each rank's local shards with the scanned dim whole.
+rules) run on each rank's local shards with the scanned dim whole. Under a
+program capture (``graph/capture.py``) each call on local tensors is one
+``vector`` task of a's elements, a and b read and h written, whichever
+version runs.
 """
 from __future__ import annotations
 
 import torch
 
 from ...distributed.sharding import kernel_placements, mesh_of, on_shards, to_mesh
+from ...graph.capture import kernel_call
 from .._build import DTYPE_CODES
 from .kernel import ssm_scan_bwd_cuda, ssm_scan_cuda
 from .ref import ssm_scan_bwd_ref, ssm_scan_ref
@@ -35,6 +39,13 @@ def ssm_scan_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if mesh is not None:          # DTensors: local shards, the scanned dim whole
         pl = kernel_placements(to_mesh(a, mesh), [d for d in range(a.ndim) if d != a.ndim - 2])
         return on_shards(ssm_scan_batched, mesh, (a, b), (pl, pl), pl)
+    return kernel_call("ssm_scan", "vector", lambda: _local(a, b), (a, b),
+                       lambda: {"elems": a.numel()})
+
+
+def _local(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One call on plain tensors: the kernel on the card, the plain version
+    on the CPU."""
     if a.device.type == "cuda":
         _check(a, b)
     elif a.device.type != "cpu":

@@ -28,10 +28,18 @@ artifact per cell with the reference's keys where a counterpart exists:
 The kernel wrappers run their plain versions here, because the caller chose
 fake CPU tensors, not the card; flash attention's plain version takes its
 query rows in chunks, as the reference's ``attention`` does, so no cell
-holds more than one chunk's scores. There is no HLO file: capturing torch
-programs as simulator workloads is a later slice. The reference's
-``--no-hlo`` flag and ``run_cell(..., save_hlo=...)`` are accepted so that
-its command lines and calls run unchanged, and do nothing.
+holds more than one chunk's scores; the scan's, which would step every
+token for no value, gives way to a stand-in of the kernel's allocations
+(``_ScanShape``). In place of the
+reference's HLO text, each forward cell (prefill, decode, encode) written
+to a directory saves its capture (``graph/capture.py``: the task list one
+device runs, the format of ``configs/torch_graphs/``) beside its JSON as
+``<arch>__<shape>__<mesh>.tasks.json.gz``, named in the cell's ``capture``;
+``--no-hlo`` and ``run_cell(..., save_hlo=False)`` leave it out, as the
+reference's leave out its HLO. Train cells have none: the recorder sees a
+train step's forward only, its backward running later through autograd
+(the kernels' backward, on the card, through ctypes), so such a capture
+would not be the program the card runs.
 
 Usage (the whole grid, 10 archs x 4 shapes x 2 meshes, in 8 processes):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all \\
@@ -40,12 +48,14 @@ Usage (the whole grid, 10 archs x 4 shapes x 2 meshes, in 8 processes):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import multiprocessing
 import os
 import time
 import traceback
+import unittest.mock
 import weakref
 from typing import Dict, Optional
 
@@ -57,11 +67,13 @@ from torch.utils.flop_counter import flop_registry
 
 from ..configs import REGISTRY, SHAPES, get_config, get_shape, skip_reason
 from ..distributed.sharding import full_on_mesh
+from ..graph.capture import TaskRecorder, dumps, gzip_bytes
 from ..train.optim import tree_leaves
 from .mesh import PRODUCTION_SHAPES, make_mesh
 from .programs import build_program
 
-__all__ = ["run_cell", "main", "DeviceCounter", "local_bytes"]
+__all__ = ["run_cell", "main", "DeviceCounter", "local_bytes", "run_program_fake",
+           "capture_fake"]
 
 MESH_TAGS = {False: "pod16x16", True: "pod2x16x16"}
 
@@ -147,24 +159,65 @@ def _fake_args(abstract, specs, mesh):
     return full_on_mesh(abstract.shape, 0, abstract.dtype, "cpu", specs, mesh)
 
 
-def run_program_fake(prog) -> Dict:
+class _ScanShape(torch.autograd.Function):
+    """The scan kernel's allocations, nothing computed: its output and
+    gradients in a's dtype, where the plain version would step every token
+    of fake shards for no value."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        return torch.empty_like(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.empty_like(g), torch.empty_like(g)
+
+
+def _scan_shapes():
+    """The ssm_scan wrapper's call on local shards, as ``_ScanShape``."""
+    from ..kernels.ssm_scan import ops
+
+    return unittest.mock.patch.object(ops, "_local", _ScanShape.apply)
+
+
+def run_program_fake(prog, record: bool = False) -> Dict:
     """Run ``prog`` once on fake shards; its per-device bytes, peak and
-    product FLOPs, and the seconds the run took."""
+    product FLOPs, and the seconds the run took; with ``record``, also its
+    capture (``tasks``: the recorder sees the local ops and collectives
+    below the counter's DTensor ops). The scan kernel's calls take the
+    stand-in ``_ScanShape``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     mesh = prog.rules.mesh
+    rec = TaskRecorder() if record else contextlib.nullcontext()
     with FakeTensorMode(allow_non_fake_inputs=True):
         args = _fake_args(prog.abstract_args, prog.in_specs, mesh)
         arg_bytes = local_bytes(args)
         counter = DeviceCounter()
         counter.hold(t for t in tree_leaves(args) if isinstance(t, torch.Tensor))
         t0 = time.time()
-        with counter:
+        with rec, counter, _scan_shapes():
             out = prog.fn(*args)
         run_s = time.time() - t0
         out_bytes = local_bytes(out)
-    return {"argument_size_in_bytes": int(arg_bytes), "output_size_in_bytes": int(out_bytes),
-            "peak_memory_in_bytes": int(counter.peak), "flops": counter.flops, "run_s": run_s}
+    r = {"argument_size_in_bytes": int(arg_bytes), "output_size_in_bytes": int(out_bytes),
+         "peak_memory_in_bytes": int(counter.peak), "flops": counter.flops, "run_s": run_s}
+    if record:
+        r["tasks"] = rec.tasks
+    return r
+
+
+def capture_fake(cfg, shape, mesh_shape) -> list:
+    """The capture of ``build_program(cfg, shape, mesh)`` on fake CPU
+    tensors under torch's fake process group of the mesh's ranks (this
+    process stands for rank 0): the tasks one device runs."""
+    started = _fake_world(math.prod(mesh_shape))
+    try:
+        prog = build_program(cfg, shape, make_mesh(tuple(mesh_shape), ("data", "model"), "cpu"))
+        return run_program_fake(prog, record=True)["tasks"]
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 def _fake_world(n: int) -> bool:
@@ -184,9 +237,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Optional[str]
              save_hlo: bool = True, verbose: bool = True, mesh_shape=None,
              **program_kw) -> Dict:
     """One cell (``arch`` and ``shape_name`` may be records, such as a
-    reduced config). ``save_hlo`` stands where the reference's does and is
-    ignored: no HLO is written. ``mesh_shape`` ((shape, axes)) replaces the
-    production mesh (tests: a 1x1 mesh over a real one-rank group)."""
+    reduced config). With ``out_dir`` and ``save_hlo`` a forward cell's
+    capture is written beside its JSON (the reference writes its HLO text
+    there); a train cell has none (the module's docstring says why).
+    ``mesh_shape`` ((shape, axes)) replaces the production mesh (tests: a
+    1x1 mesh over a real one-rank group)."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     shape = get_shape(shape_name) if isinstance(shape_name, str) else shape_name
     shp, axes = mesh_shape or PRODUCTION_SHAPES[multi_pod]
@@ -210,9 +265,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Optional[str]
         mesh = make_mesh(shp, axes, "cpu")
         prog = build_program(cfg, shape, mesh, **program_kw)
         t_build = time.time() - t0
-        r = run_program_fake(prog)
+        record = bool(out_dir and save_hlo) and shape.kind != "train"
+        r = run_program_fake(prog, record=record)
         mem = {k: r[k] for k in ("argument_size_in_bytes", "output_size_in_bytes",
                                  "peak_memory_in_bytes")}
+        if record:
+            cell["capture"] = f"{_stem(cell)}.tasks.json.gz"
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, cell["capture"]), "wb") as f:
+                f.write(gzip_bytes(dumps(r["tasks"])))
         cell.update(status="ok", build_s=round(t_build, 2), run_s=round(r["run_s"], 2),
                     cost_analysis={"flops": r["flops"]}, memory_analysis=mem,
                     param_count=cfg.param_count(),
@@ -234,16 +295,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Optional[str]
     return cell
 
 
-def _cell_job(arch: str, shape: str, multi: bool, out_dir: str, program_kw: Dict) -> Dict:
-    return run_cell(arch, shape, multi, out_dir, **program_kw)
+def _cell_job(arch: str, shape: str, multi: bool, out_dir: str, save_hlo: bool,
+              program_kw: Dict) -> Dict:
+    return run_cell(arch, shape, multi, out_dir, save_hlo=save_hlo, **program_kw)
+
+
+def _stem(cell: Dict) -> str:
+    return f"{cell['arch']}__{cell['shape']}__{cell['mesh']}"
 
 
 def _write(cell: Dict, out_dir: Optional[str]):
     if not out_dir:
         return
     os.makedirs(out_dir, exist_ok=True)
-    name = f"{cell['arch']}__{cell['shape']}__{cell['mesh']}.json"
-    with open(os.path.join(out_dir, name), "w") as f:
+    with open(os.path.join(out_dir, _stem(cell) + ".json"), "w") as f:
         json.dump(cell, f, indent=1)
 
 
@@ -255,7 +320,7 @@ def main(argv=None):
     p.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
     p.add_argument("--out", default="benchmarks/artifacts/dryrun_torch")
     p.add_argument("--no-hlo", action="store_true",
-                   help="accepted for the reference's command line; no HLO is written")
+                   help="do not write the cells' captures (the reference: their HLO)")
     p.add_argument("--skip-existing", action="store_true")
     p.add_argument("--remat-policy", default="full", choices=["full", "save-attn"],
                    help="activation-checkpoint policy")
@@ -288,7 +353,7 @@ def main(argv=None):
                             print(f"[cached] {arch} x {shape} x {tag}: {prev['status']}")
                             results.append(prev)
                             continue
-                todo.append((arch, shape, multi, args.out, program_kw))
+                todo.append((arch, shape, multi, args.out, not args.no_hlo, program_kw))
     if args.jobs > 1 and len(todo) > 1:
         ctx = multiprocessing.get_context("spawn")
         with ctx.Pool(min(args.jobs, len(todo)), maxtasksperchild=1) as pool:

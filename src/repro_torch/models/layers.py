@@ -47,6 +47,7 @@ __all__ = [
     "remat_call",
     "dense",
     "column_parallel",
+    "row_parallel",
 ]
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32}
@@ -204,20 +205,49 @@ def column_parallel(fn, x: DTensor, w: torch.Tensor) -> DTensor:
     return on_shards(fn, mesh, (x, w), (xp, wp), op)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def row_parallel(fn, x: DTensor, w: torch.Tensor) -> DTensor:
+    """``fn(x_local, w_local)`` for ``x [..., k] @ w [k, n]`` with x's
+    contracted dim split: each rank contracts its slice of k against the
+    same slice of w's rows (w's columns whole), x's leading dims as they
+    are split. The output [..., n] is a pending sum over the mesh dims that
+    split k (GSPMD's row-parallel product: no rank gathers the hidden)."""
+    mesh, nd = x.device_mesh, x.ndim
+    w = to_mesh(w, mesh)
+    xp = kernel_placements(x, range(nd))
+    wp = [Shard(0) if a == Shard(nd - 1) else Replicate() for a in xp]
+    op = [Partial() if a == Shard(nd - 1) else a for a in xp]
+    return on_shards(fn, mesh, (x, w), (xp, wp), op)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          out: Optional[Tuple[Optional[str], ...]] = None) -> torch.Tensor:
     """``x [..., d] @ w [d, f]``. Under rules of the sequence-parallel
     regime (``act_seq`` mapped), or on a DTensor split on more than one
-    leading dim, a column-parallel product on local shards
-    (``column_parallel``), in the forward and so in the backward:
-    flattening a batch split over 'data' and a sequence split over 'model'
-    into one matrix row dim is a layout DTensor's matrix product has no
-    rule for. Otherwise it is DTensor's product (or the plain one)."""
-    if isinstance(x, DTensor) and x.ndim >= 3:
-        rules = active_rules()
-        split = {p.dim % x.ndim for p in x.placements if isinstance(p, Shard)} - {x.ndim - 1}
-        if len(split) > 1 or (rules is not None and rules.table.get("act_seq") is not None):
-            return column_parallel(torch.matmul, x, w)
-    return x @ w
+    leading dim, a product on local shards, in the forward and so in the
+    backward: flattening a batch split over 'data' and a sequence split
+    over 'model' into one matrix row dim is a layout DTensor's matrix
+    product has no rule for. With x's contracted dim split (the FFN's down
+    projection, the Mamba x and out projections) it is row-parallel
+    (``row_parallel``); otherwise column-parallel (``column_parallel``).
+    Elsewhere it is DTensor's product (or the plain one). A product that
+    leaves a pending sum (a contracted dim split) has it reduced here into
+    the logical layout ``out`` (default: the residual stream's, ``("batch",
+    "act_seq", None)``: a reduce-scatter over a split sequence, else an
+    all-reduce), before anything adds to it, as GSPMD's program does: a
+    pending sum met by a replicated operand is otherwise left to DTensor's
+    rule for the add, which differs between torch versions."""
+    if not isinstance(x, DTensor) or x.ndim < 3:
+        return x @ w
+    rules = active_rules()
+    split = {p.dim % x.ndim for p in x.placements if isinstance(p, Shard)}
+    if len(split - {x.ndim - 1}) > 1 or (rules is not None
+                                         and rules.table.get("act_seq") is not None):
+        y = (row_parallel if x.ndim - 1 in split else column_parallel)(torch.matmul, x, w)
+    else:
+        y = x @ w
+    if isinstance(y, DTensor) and any(p.is_partial() for p in y.placements):
+        y = constrain(y, *(out or ("batch", "act_seq") + (None,) * (x.ndim - 2)))
+    return y
 
 
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,

@@ -70,8 +70,10 @@ def _ssm_inner(x_conv, dt, Bm, Cm, A, D, state: Optional[torch.Tensor]):
 
 def _dt_and_bc(xc: torch.Tensor, x_dtype, w_x, w_dt, b_dt, n_state, dt_rank):
     """Input-dependent step and B/C: proj = xc @ W_x (in the activation
-    dtype), dt = softplus(dt_in @ W_dt + b_dt) in f32."""
-    proj = dense(xc.to(x_dtype), w_x).float()
+    dtype; under rules a row-parallel product over the split channels,
+    summed whole over the sequence for the scan), dt = softplus(dt_in @ W_dt
+    + b_dt) in f32."""
+    proj = dense(xc.to(x_dtype), w_x, out=("batch", None, None)).float()
     dt_in, Bm, Cm = torch.split(proj, [dt_rank, n_state, n_state], dim=-1)
     dt = F.softplus(dense(dt_in, w_dt.float()) + b_dt.float())
     return dt, Bm, Cm

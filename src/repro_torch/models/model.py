@@ -66,6 +66,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..distributed.sharding import P, active_rules, constrain, full_on_mesh, spec_of
+from ..graph.capture import layer as capture_layer
 from .blocks import BLOCKS, BlockCtx, rope_at, stackify
 from .layers import (CONST_INITS, PT, abstract_params, const_leaf, cross_entropy_chunked,
                      init_params, map_templates, param_pspecs, remat_call,
@@ -321,12 +322,15 @@ class Model:
             ctx = self._ctx(seg, rope=rope, img=img)
             if seg.kind == "vlm_group":
                 for gp in _layers(seg, p):
-                    x = (remat_call(self._group, seg, gp, x, ctx, remat)
-                         if remat else self._group(seg, gp, x, ctx, remat))
+                    with capture_layer():
+                        x = (remat_call(self._group, seg, gp, x, ctx, remat)
+                             if remat else self._group(seg, gp, x, ctx, remat))
                 continue
             blk = BLOCKS[seg.kind]
             for lp in _layers(seg, p):
-                x = self._remat_layer(blk, lp, x, ctx) if remat else blk.apply(cfg, lp, x, ctx)
+                with capture_layer():
+                    x = (self._remat_layer(blk, lp, x, ctx) if remat
+                         else blk.apply(cfg, lp, x, ctx))
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     def _group(self, seg: Segment, gp, x, ctx: BlockCtx, remat: bool) -> torch.Tensor:
@@ -410,13 +414,15 @@ class Model:
                 return blk.prefill(cfg, lp, x, ctx, lc)[0]
             return blk.decode(cfg, lp, x, lc, ctx)[0]
 
-        for lp, lc in zip(_layers(seg, p), _layers(seg, c)):
-            if seg.kind != "vlm_group":
-                x = step(BLOCKS[seg.kind], lp, lc, x)
-                continue
+        def group(lp, lc, x):
             for sp, sc in zip(_unstack(lp["self"], seg.inner), _unstack(lc["self"], seg.inner)):
                 x = step(BLOCKS["attn"], sp, sc, x)
-            x = step(BLOCKS["cross"], lp["cross"], lc["cross"], x)
+            return step(BLOCKS["cross"], lp["cross"], lc["cross"], x)
+
+        for lp, lc in zip(_layers(seg, p), _layers(seg, c)):
+            with capture_layer():          # a program capture's layer tag
+                x = (group(lp, lc, x) if seg.kind == "vlm_group"
+                     else step(BLOCKS[seg.kind], lp, lc, x))
         return x
 
     def decode_step(self, params, cache, tokens: torch.Tensor):

@@ -197,8 +197,11 @@ def cmd_crosscheck_hlo(args: argparse.Namespace) -> int:
     """Run the builtin ``hlo_crosscheck`` campaign — every captured-HLO
     fixture and its hand-built twin through the analytic pre-screen and
     refinement — and report per-fixture deviation ratios against the
-    bands documented in ``src/repro_torch/configs/hlo/manifest.json``.
-    Exit 1 when any cell lands out of band."""
+    bands documented in ``src/repro_torch/configs/hlo/manifest.json``;
+    a spec with ``torch/<fixture>`` workloads (the port's captured
+    programs: ``src/repro_torch/configs/torch_graphs/crosscheck.json``)
+    reports theirs against ``configs/torch_graphs/manifest.json``'s bands
+    and the HLO captures. Exit 1 when any cell lands out of band."""
     spec = _load_spec(args.spec)
     if spec is None:
         return 2
@@ -212,10 +215,11 @@ def cmd_crosscheck_hlo(args: argparse.Namespace) -> int:
                        backend=args.backend, device=args.device,
                        progress=lambda m: print(f"  [{spec.name}] {m}"))
     save_result(res, out)
-    xck = res.summary.get("hlo_crosscheck")
-    if not xck:
-        print("error: campaign paired no hlo/<fixture> records with "
-              "twins — check the spec's workloads", file=sys.stderr)
+    xck = res.summary.get("hlo_crosscheck") or {}
+    txck = res.summary.get("torch_crosscheck") or {}
+    if not xck and not txck:
+        print("error: campaign paired no hlo/<fixture> or torch/<fixture> records "
+              "with twins — check the spec's workloads", file=sys.stderr)
         return 2
     print(f"campaign,{spec.name},")
     print(f"grid_points,{res.summary['grid_points']},"
@@ -223,13 +227,16 @@ def cmd_crosscheck_hlo(args: argparse.Namespace) -> int:
     print(f"refined,{res.summary['refined']},"
           f"{res.summary['cache_hits']} cache hits")
     ok = True
-    for fx, s in sorted(xck.items()):
-        in_band = s["in_band"] == s["cells"]
-        ok = ok and in_band
-        print(f"fixture,{fx},{s['in_band']}/{s['cells']} cells in band "
-              f"{s['band']} vs {s['twin']}")
-        print(f"analytic_ratio,{s['analytic_ratio_min']:.4g},"
-              f"max {s['analytic_ratio_max']:.4g} (ingested/hand-built)")
+    for tag, what, xs in (("fixture", "ingested", xck), ("torch_fixture", "captured", txck)):
+        for fx, s in sorted(xs.items()):
+            ok = ok and s["in_band"] == s["cells"]
+            print(f"{tag},{fx},{s['in_band']}/{s['cells']} cells in band "
+                  f"{s['band']} vs {s['twin']}")
+            print(f"analytic_ratio,{s['analytic_ratio_min']:.4g},"
+                  f"max {s['analytic_ratio_max']:.4g} ({what}/hand-built)")
+            if s.get("hlo_analytic_ratio_min") is not None:
+                print(f"hlo_analytic_ratio,{s['hlo_analytic_ratio_min']:.4g},"
+                      f"max {s['hlo_analytic_ratio_max']:.4g} (captured/HLO capture)")
     refined_ratios = [r["hlo_deviation"]["refined_ratio"]
                       for r in res.records
                       if "refined_ratio" in r.get("hlo_deviation", {})]

@@ -47,7 +47,7 @@ from .refine import plan_batches, refine_payload
 from .spec import SweepSpec
 
 __all__ = ["CampaignResult", "run_campaign", "save_result", "load_result",
-           "default_spool_dir", "annotate_hlo_crosscheck"]
+           "default_spool_dir"]
 
 RESULT_SCHEMA = 1
 
@@ -128,73 +128,85 @@ def _resolve_backend(backend: Union[str, Backend, None],
     return get_backend(backend, workers=workers, spool_dir=spool_dir)
 
 
-def annotate_hlo_crosscheck(records: List[Dict[str, Any]]
-                            ) -> Optional[Dict[str, Any]]:
-    """Pair every ingested ``hlo/<fixture>`` record with its hand-built
+def _annotate_crosscheck(records: List[Dict[str, Any]], parse: Callable[[str], Any],
+                         meta_of: Callable[[str], Dict[str, Any]], tag: str,
+                         also: Optional[Callable[[Dict[str, Any]], str]] = None
+                         ) -> Optional[Dict[str, Any]]:
+    """Pair every captured ``<tag>/<fixture>`` record with its hand-built
     twin record at the same (overrides, n_tiles) point and attach the
     deviation ratios the differential harness asserts on.
 
-    Each paired record gains ``hlo_twin`` (the twin workload name) and
-    ``hlo_deviation`` — analytic-latency / FLOP / HBM-byte ratios
-    (ingested over hand-built), a refined-latency ratio when both points
-    were refined, the fixture's documented band from the manifest, and
-    the in-band verdict. Returns the per-fixture summary (cells checked,
-    in-band count, ratio extrema) or None when the campaign pairs
-    nothing — ``run_campaign`` runs this after refinement on every
-    campaign, so crosscheck results land in records/summary/golden
-    fixtures uniformly across backends.
+    ``parse`` reads a workload name into {"fixture", "layers_keep"} (None
+    when it is not the capture's), ``meta_of`` gives a fixture's manifest
+    entry (KeyError when the fixture is gone). Each paired record gains
+    ``<tag>_twin`` (the twin workload name) and ``<tag>_deviation`` —
+    analytic-latency / FLOP / HBM-byte ratios (captured over hand-built),
+    a refined-latency ratio when both points were refined, the fixture's
+    documented band from the manifest, and the in-band verdict. With
+    ``also`` (manifest entry -> the ``hlo/...`` capture of the same program) the
+    deviation also holds under ``hlo`` the ratios over that record, and
+    the summary their analytic extrema. Returns the per-fixture summary
+    (cells checked, in-band count, ratio extrema) or None when the
+    campaign pairs nothing — ``run_campaign`` runs this after refinement
+    on every campaign, so crosscheck results land in records/summary/
+    golden fixtures uniformly across backends.
     """
-    from ..graph import ingest
-
     def pt_key(workload: str, rec: Dict[str, Any]) -> str:
         return json.dumps([workload, rec["overrides"], rec["n_tiles"]],
                           sort_keys=True)
 
+    def ratio(a: Dict[str, Any], b: Dict[str, Any], key: str) -> Optional[float]:
+        x, y = a.get(key), b.get(key)
+        if x is None or not y:
+            return None
+        return float(x) / float(y)
+
+    def ratios(a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
+        return {"analytic_ratio": ratio(a, b, "analytic_time_ns"),
+                "flops_ratio": ratio(a, b, "total_flops"),
+                "hbm_ratio": ratio(a, b, "hbm_bytes")}
+
+    def widen(s: Dict[str, Any], key: str, v: Optional[float]) -> None:
+        if v is not None:
+            lo, hi = s[key + "_min"], s[key + "_max"]
+            s[key + "_min"] = v if lo is None else min(lo, v)
+            s[key + "_max"] = v if hi is None else max(hi, v)
+
     by_key = {pt_key(r["workload"], r): r for r in records}
     summary: Dict[str, Any] = {}
     for rec in records:
-        h = ingest.parse_hlo_name(rec["workload"])
-        if h is None or h["layers_keep"] is not None:
+        p = parse(rec["workload"])
+        if p is None or p["layers_keep"] is not None:
             continue
         try:
-            meta = ingest.fixture_meta(h["fixture"])
+            meta = meta_of(p["fixture"])
         except KeyError:
             continue                       # fixture gone: nothing to pair
         twin = by_key.get(pt_key(meta["twin"], rec))
         if twin is None:
             continue
         band = meta.get("band")
-
-        def ratio(key: str) -> Optional[float]:
-            a, b = rec.get(key), twin.get(key)
-            if a is None or not b:
-                return None
-            return float(a) / float(b)
-
-        dev: Dict[str, Any] = {
-            "analytic_ratio": ratio("analytic_time_ns"),
-            "flops_ratio": ratio("total_flops"),
-            "hbm_ratio": ratio("hbm_bytes"),
-            "band": band,
-        }
+        dev: Dict[str, Any] = dict(ratios(rec, twin), band=band)
         if rec.get("refined") and twin.get("refined"):
-            dev["refined_ratio"] = ratio("time_ns")
-        dev["in_band"] = (band is not None and dev["analytic_ratio"]
-                          is not None and
-                          band[0] <= dev["analytic_ratio"] <= band[1])
-        rec["hlo_twin"] = meta["twin"]
-        rec["hlo_deviation"] = dev
-        s = summary.setdefault(h["fixture"], {
-            "twin": meta["twin"], "band": band, "cells": 0, "in_band": 0,
-            "analytic_ratio_min": None, "analytic_ratio_max": None})
+            dev["refined_ratio"] = ratio(rec, twin, "time_ns")
+        r = dev["analytic_ratio"]
+        dev["in_band"] = (band is not None and r is not None and
+                          band[0] <= r <= band[1])
+        other = None if also is None else by_key.get(pt_key(also(meta), rec))
+        if other is not None:
+            dev["hlo"] = ratios(rec, other)
+        rec[tag + "_twin"] = meta["twin"]
+        rec[tag + "_deviation"] = dev
+        s = summary.setdefault(p["fixture"], dict(
+            {"twin": meta["twin"], "band": band, "cells": 0, "in_band": 0,
+             "analytic_ratio_min": None, "analytic_ratio_max": None},
+            **({} if also is None else
+               {"hlo_analytic_ratio_min": None, "hlo_analytic_ratio_max": None})))
         s["cells"] += 1
         s["in_band"] += int(dev["in_band"])
-        r = dev["analytic_ratio"]
-        if r is not None:
-            s["analytic_ratio_min"] = (r if s["analytic_ratio_min"] is None
-                                       else min(s["analytic_ratio_min"], r))
-            s["analytic_ratio_max"] = (r if s["analytic_ratio_max"] is None
-                                       else max(s["analytic_ratio_max"], r))
+        widen(s, "analytic_ratio", r)
+        if other is not None:
+            widen(s, "hlo_analytic_ratio", dev["hlo"]["analytic_ratio"])
     return summary or None
 
 
@@ -438,10 +450,16 @@ def run_campaign(spec: SweepSpec, *, workers: Optional[int] = 0,
          f"({cache_hits} cache hits, {len(misses)} simulated, "
          f"{len(failed_points)} failed, {refine_s:.2f}s)")
 
-    hlo_xck = annotate_hlo_crosscheck(records)
-    if hlo_xck:
-        for fx, s in sorted(hlo_xck.items()):
-            _log(progress, f"hlo crosscheck {fx}: {s['in_band']}/"
+    from ..graph import ingest, torch_ingest
+    hlo_xck = _annotate_crosscheck(records, ingest.parse_hlo_name,
+                                   ingest.fixture_meta, "hlo")
+    torch_xck = _annotate_crosscheck(
+        records, torch_ingest.parse_torch_name,
+        lambda fx: ingest.fixture_meta(fx, torch_ingest.FIXTURE_DIR), "torch",
+        also=lambda meta: "hlo/" + meta["hlo"])
+    for kind, xck in (("hlo", hlo_xck), ("torch", torch_xck)):
+        for fx, s in sorted((xck or {}).items()):
+            _log(progress, f"{kind} crosscheck {fx}: {s['in_band']}/"
                  f"{s['cells']} cells in band {s['band']}")
 
     summary = {
@@ -466,6 +484,8 @@ def run_campaign(spec: SweepSpec, *, workers: Optional[int] = 0,
                                / len(todo) if todo else 1.0)
     if hlo_xck:
         summary["hlo_crosscheck"] = hlo_xck
+    if torch_xck:
+        summary["torch_crosscheck"] = torch_xck
     best = _best(records, "time_ns")
     if best is not None:
         summary["best_time_point"] = {

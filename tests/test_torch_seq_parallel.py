@@ -16,11 +16,16 @@ the CPU.
   mesh of four gloo processes: prefill logits and one train step's loss
   and moments against one process, with the query reaching ``flash_mha``
   split (each rank's rows S / 4, its ``q_off`` the shard's first row).
+* The row-parallel products (the FFN's down projection, hymba's Mamba x
+  and out projections) contract each rank's slice of the hidden.
 * The dry-run takes the reference's command line (``--no-hlo``) and
   ``run_cell(..., save_hlo=False)``; qwen2-1.5b x prefill_32k on 16x16
   (fake tensors, nothing allocated) peaks under 10 GiB a device at the
-  hand count of its FLOPs.
+  hand count of its FLOPs, and hymba-1.5b x prefill_32k reads its hand
+  count. The stand-in the dry-run gives the scan kernel leaves a reduced
+  hymba cell's FLOPs, bytes and peak as the plain scan gives them.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -193,6 +198,20 @@ def spy(q, k, v, **kw):
     return plain(q, k, v, **kw)
 
 flash_ops.flash_mha_ref = spy
+from repro_torch.models import layers as model_layers
+rows = []
+row_parallel = model_layers.row_parallel
+
+
+def spy_rows(fn, x, w):
+    # each row-parallel product's local contracted dims and tokens
+    def local(a, b):
+        rows.append((a.shape[-1], b.shape[0], a.shape[:-1].numel()))
+        return fn(a, b)
+    return row_parallel(local, x, w)
+
+
+model_layers.row_parallel = spy_rows
 res = {}
 
 def full(x):
@@ -208,8 +227,10 @@ for name, (arch, changes, S) in CASES.items():
                        device="cpu")
     st, bt = prog.place(state, {"tokens": toks[:, :S], "labels": toks[:, 1:]})
     calls.clear()
+    rows.clear()
     st, m = prog.fn(st, bt)
     res[name + "/train_calls"] = np.array(calls)
+    res[name + "/train_rows"] = np.array(rows)
     res[name + "/loss"], res[name + "/gnorm"] = full(m["loss"]), full(m["grad_norm"])
     for part in ("m", "v"):
         for i, x in enumerate(tree_leaves(st["opt"][part])):
@@ -219,9 +240,11 @@ for name, (arch, changes, S) in CASES.items():
                         device="cpu")["params"]
     dp, db = pp.place(params, {"tokens": toks[:, :S]})
     calls.clear()
+    rows.clear()
     with torch.no_grad():
         logits, cache = pp.fn(dp, db)
     res[name + "/prefill_calls"] = np.array(calls)
+    res[name + "/prefill_rows"] = np.array(rows)
     res[name + "/prefill"] = full(logits)
 np.savez(out + f".{rank}.npz", **res)
 dist.destroy_process_group()
@@ -270,6 +293,23 @@ def test_sequence_split_query_reaches_flash_split(mesh1x4, name):
             assert (calls[:, 2] == rank * (rows // 4)).all(), calls
 
 
+@pytest.mark.parametrize("name", ATTENTION_CASES)
+def test_row_parallel_products_contract_local_slices(mesh1x4, name):
+    """The FFN's down projection (and hymba's Mamba x and out projections)
+    contract over each rank's quarter of the hidden, on its batch rows'
+    tokens: no rank gathers the hidden and multiplies it whole."""
+    cfg, _, _, S, _ = _one_process(name)
+    hidden = {cfg.d_ff, cfg.ssm_expand * cfg.d_model}
+    per_layer = 3 if cfg.family == "hybrid" else 1
+    for res in mesh1x4:
+        for kind, seq in (("train", S), ("prefill", S)):
+            got = res[f"{name}/{kind}_rows"]
+            # one forward (train: remat recomputes each layer once more)
+            assert len(got) == per_layer * cfg.n_layers * (2 if kind == "train" else 1), got
+            assert all(a == b and 4 * a in hidden for a, b, _ in got), got
+            assert all(t == 4 * (seq + cfg.n_meta_tokens) for _, _, t in got), got
+
+
 @pytest.mark.parametrize("name", list(SP_CASES))
 def test_sequence_split_train_and_prefill_match_one_process(mesh1x4, name):
     cfg, model, toks, S, fresh = _one_process(name)
@@ -311,16 +351,18 @@ def test_dryrun_prefill_32k_sequence_parallel_cell_by_hand():
     'model' axis of 16, so the sequence is split over it (2 batch rows and
     2,048 query rows a device, against all 32,768 keys). By hand, per
     device and layer: the q, k, v and out products and the FFN's gate and
-    up on the device's 4,096 tokens, its down product on the 65,536 tokens
-    of its batch rows (DTensor gathers the ff-split hidden: each rank runs
-    it whole), the two attention products over every key; the LM head on
-    the last position. The peak is the arguments and the larger of two
-    moments: in an attention chunk, two f32 score tensors (512 rows x
+    up on the device's 4,096 tokens, its down product row-parallel (the
+    batch rows' 65,536 tokens against the device's 560 of the 8,960 hidden
+    channels: 2·T·f·d), the two attention products over every key; the LM
+    head on the last position. The peak is the arguments and the larger of
+    two moments: in an attention chunk, two f32 score tensors (512 rows x
     32,768 keys x 12 heads x 2 rows; each let go as the next is made) and
     its boolean mask, the f32 copies of the gathered K and V and the two
-    caches; in the FFN, the hidden of the batch rows' 65,536 tokens three
-    times (DTensor's gather: its buffer, its result, their concatenation)
-    and the local gate and up products."""
+    caches; in the FFN, the hidden moved from the sequence split to the
+    channel split (on this process group a gather of the batch rows'
+    65,536 tokens, then a slice), the local gate, up and hidden, and the
+    down product's pending sum before its reduce-scatter. The attention
+    chunk's is the larger."""
     cell = dryrun.run_cell("qwen2-1.5b", "prefill_32k", False, verbose=False)
     assert cell["status"] == "ok", cell.get("traceback")
     cfg = REGISTRY["qwen2-1.5b"]
@@ -329,15 +371,74 @@ def test_dryrun_prefill_32k_sequence_parallel_cell_by_hand():
     S, B = 32768, 2
     Sl, T = S // 16, B * S // 16
     layer = (2 * 2 * T * d * H * hd + 2 * 2 * T * d * KV * hd + 2 * 2 * T * d * f
-             + 2 * B * S * f * d + 2 * 2 * B * Sl * S * H * hd)
+             + 2 * T * f * d + 2 * 2 * B * Sl * S * H * hd)
     flops = L * layer + 2 * B * d * V
     got = cell["cost_analysis"]["flops"]
     assert abs(got - flops) <= 0.05 * flops, (got, flops)
-    assert got <= 8.5e13
+    assert got <= 3.5e13
     mem = cell["memory_analysis"]
     chunk = B * H * 512 * S * 4
     attn = 2 * chunk + chunk // 4 + 2 * B * S * KV * hd * 4 + 2 * L * B * Sl * KV * hd * 2
-    ffn = 3 * B * S * f * 2 + 2 * T * f * 2
+    ffn = B * S * f * 2 + 3 * T * f * 2 + B * S * d * 2
+    assert attn > ffn
     peak = mem["argument_size_in_bytes"] + max(attn, ffn)
     assert mem["peak_memory_in_bytes"] < 10 * 2**30
     assert abs(mem["peak_memory_in_bytes"] - peak) <= 0.25 * peak, (mem, peak)
+
+
+def test_dryrun_hymba_prefill_32k_sequence_parallel_cell_by_hand():
+    """hymba-1.5b x prefill_32k on 16x16: 25 heads, the sequence (32,768
+    tokens and 128 meta tokens) split over 'model', 2 batch rows a device:
+    T = 4,112 tokens, 2,056 query rows. By hand, per device and layer: the
+    q, k, v, out and Mamba in products on the device's tokens; the
+    attention products over every key (the plain attention's chunks); the
+    Mamba x (to dt, B and C), dt, C-contraction and out products and the
+    FFN's down row-parallel or on the device's 200 of the 3,200 channels
+    (the batch rows' tokens against a sixteenth of the contracted dim:
+    each 2·T·k·n); the gate and up on the device's tokens; the LM head on
+    the last position."""
+    cell = dryrun.run_cell("hymba-1.5b", "prefill_32k", False, verbose=False)
+    assert cell["status"] == "ok", cell.get("traceback")
+    cfg = REGISTRY["hymba-1.5b"]
+    d, H, KV, hd, f, L, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+                             cfg.n_layers, cfg.padded_vocab)
+    di, n, dtr = cfg.ssm_expand * d, cfg.ssm_state, -(-d // 16)
+    S, B = 32768 + cfg.n_meta_tokens, 2
+    Sl, T = S // 16, B * S // 16
+    layer = (2 * T * d * (H + 2 * KV) * hd + 2 * T * H * hd * d     # q, k, v; out
+             + 2 * 2 * B * Sl * S * H * hd                         # attention
+             + 2 * T * d * 2 * di                                   # Mamba in
+             + 2 * T * di * (dtr + 2 * n) + 2 * T * dtr * di        # x; dt
+             + 2 * T * di * n + 2 * T * di * d                      # C; out
+             + 2 * 2 * T * d * f + 2 * T * f * d)                   # FFN
+    flops = L * layer + 2 * B * d * V
+    got = cell["cost_analysis"]["flops"]
+    assert abs(got - flops) <= 0.05 * flops, (got, flops)
+    assert got <= 4.3e13
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_dryrun_scan_stand_in_keeps_the_cell(monkeypatch, kind):
+    """Reduced hymba on 16x16, S 128, B 16: the dry-run's scan stand-in
+    (``_ScanShape``, the kernel's allocations) runs in place of the plain
+    scan and gives the cell the plain scan's FLOPs, bytes and peak."""
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+
+    steps = []
+
+    def counted(a, b, _ref=scan_ops.ssm_scan_ref):
+        steps.append(a.shape[-2])
+        return _ref(a, b)
+
+    monkeypatch.setattr(scan_ops, "ssm_scan_ref", counted)
+    cfg, shape = REGISTRY["hymba-1.5b"].reduced(), ShapeSpec("t", 128, 16, kind)
+    cells = []
+    for rule in (dryrun._scan_shapes, contextlib.nullcontext):
+        monkeypatch.setattr(dryrun, "_scan_shapes", rule)
+        cell = dryrun.run_cell(cfg, shape, False, None, verbose=False)
+        assert cell["status"] == "ok", cell.get("traceback")
+        cells.append((cell["cost_analysis"], cell["memory_analysis"], len(steps)))
+    (flops, mem, n0), (plain_flops, plain_mem, n1) = cells
+    # the train step's checkpoint runs each layer's scan once more
+    assert n0 == 0 and n1 == cfg.n_layers * (2 if kind == "train" else 1)
+    assert flops == plain_flops and mem == plain_mem

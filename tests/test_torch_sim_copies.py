@@ -6,7 +6,9 @@ fleet simulator, sweep and exec plumbing) lives in ``repro_torch`` as
 copies at the same relative paths. Each copy must equal its source byte
 for byte once ``repro_torch`` is read as ``repro``: the package name is
 the only edit, besides the ones ``DOC_EDITS`` lists (the reference's
-change-history tags in one docstring, left out of the copy). Mostly it
+change-history tags in one docstring, left out of the copy) and the code
+``CODE_EDITS`` lists with its reason (``graph/workloads.py``'s ``torch/``
+workload names). Mostly it
 sits in docstrings; in ``exec/spool.py`` (the spawned worker: ``import
 repro_torch``, ``python -m repro_torch.exec``) and in the ``prog`` of the
 ``exec`` and ``obs`` CLIs it is code, so the port runs its own worker.
@@ -47,6 +49,15 @@ DATA = sorted(os.path.join(d, f) for d in ("configs/sweeps", "configs/hlo")
 # per copied module: (pattern in the reference, replacement, count), in
 # docstrings only
 DOC_EDITS = {"sweep/refine.py": [(rb"Since ISSUE \d+ a ", b"A ", 3)]}
+# per copied module: code the port adds to its copy (a pattern in the port's
+# file, removed before the comparison, and its count), with the reason.
+# graph/workloads.py: resolve_workload's ``torch/`` branch names the port's
+# captured programs (graph/torch_ingest.py), which the reference cannot hold
+CODE_EDITS = {"graph/workloads.py": [(
+    rb'    if name.startswith\("torch/"\):\n'
+    rb'        # the port\'s own programs, captured \(graph/torch_ingest.py\)\n'
+    rb'        from \. import torch_ingest\n'
+    rb'        return torch_ingest.resolve_torch\(name\)\n', 1)]}
 PORTED = ["core/vectorized.py", "sweep/prescreen.py", "sweep/runner.py",
           "sweep/__main__.py", "configs/__init__.py", "serve/__init__.py"]
 
@@ -58,7 +69,11 @@ def _read(pkg, rel):
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_module_is_a_copy_of_the_reference(rel):
-    mine = _read("repro_torch", rel).replace(b"repro_torch", b"repro")
+    mine = _read("repro_torch", rel)
+    for pattern, count in CODE_EDITS.get(rel, ()):
+        mine, n = re.subn(pattern, b"", mine)
+        assert n == count
+    mine = mine.replace(b"repro_torch", b"repro")
     want = _read("repro", rel)
     for pattern, repl, count in DOC_EDITS.get(rel, ()):
         want, n = re.subn(pattern, repl, want)
