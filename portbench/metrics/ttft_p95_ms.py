@@ -1,0 +1,7 @@
+"""95th percentile over every request of the window of the time from its
+submission to the engine to its first token (host clock)."""
+from portbench.harness.common import percentile
+
+
+def read(rec):
+    return percentile([(r["t_first"] - r["t_submit"]) * 1e3 for r in rec.requests], 95)
