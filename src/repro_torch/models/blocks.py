@@ -24,6 +24,14 @@ A sliding-window layer keeps a ring: ``n_sink`` sink slots, then
 Under sharding rules the tensors are DTensors, the ``constrain`` calls sit
 at the reference's sites, and each cache write lands in the local shard of
 every rank that holds part of its slots (``write_along_``, ``store_``).
+
+Spans (``obs/spans.py``, while a profiler records) mark the parts of the two
+blocks the benchmark runs: ``attn.attn`` (ln1 through the out-projection's
+residual) and ``attn.ffn``; ``hybrid.attn`` (q/k/v through the out
+projection), ``hybrid.mamba`` and ``hybrid.ffn`` (fusion, ln2, SwiGLU). The
+hybrid block's ln1 feeds both heads and stays in the layer's own time. The
+"save-attn" remat policy recomputes the attention block in two pieces
+(``ATTN_BLOCK.split``) with no ``attn.attn`` around them.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..distributed.sharding import constrain, mesh_of, store_, to_mesh, write_along_
+from ..obs.spans import span
 from .attention import attention, cross_attention, decode_attention
 from .layers import PT, apply_rope, column_parallel, dense, map_templates, rms_norm, swiglu
 from .mamba import MambaState, mamba_decode_mix, mamba_mix
@@ -182,14 +191,15 @@ def _qkv(cfg: ArchConfig, p, h, rope):
 
 def _ffn(cfg: ArchConfig, p, x, res):
     """ln2, then the dense SwiGLU or the MoE FFN, and the residual."""
-    h2 = constrain(rms_norm(x, p["ln2"], cfg.norm_eps), "batch", "act_seq", None)
-    if cfg.is_moe:
-        f = moe_ffn(h2, p["router"], p["we_gate"], p["we_up"], p["we_down"],
-                    k=cfg.experts_per_token, n_experts=cfg.n_experts,
-                    capacity_factor=cfg.capacity_factor)
-    else:
-        f = swiglu(h2, p["wg"], p["wi"], p["wo2"])
-    return constrain(_residual(x, f, res), "batch", "act_seq", None)
+    with span("attn.ffn"):
+        h2 = constrain(rms_norm(x, p["ln2"], cfg.norm_eps), "batch", "act_seq", None)
+        if cfg.is_moe:
+            f = moe_ffn(h2, p["router"], p["we_gate"], p["we_up"], p["we_down"],
+                        k=cfg.experts_per_token, n_experts=cfg.n_experts,
+                        capacity_factor=cfg.capacity_factor)
+        else:
+            f = swiglu(h2, p["wg"], p["wi"], p["wo2"])
+        return constrain(_residual(x, f, res), "batch", "act_seq", None)
 
 
 # decode runs the same FFN (dense or MoE) on one token
@@ -206,16 +216,22 @@ def _attn_mix(q, k, v, ctx: BlockCtx):
     return attention(q, k, v, causal=ctx.causal, window=ctx.window, n_sink=ctx.n_sink)
 
 
+def _attn_res(cfg: ArchConfig, p, x, o):
+    """Out-projection and residual."""
+    return _residual(x, _out_proj(o, p["wo"]), _res_scale(cfg))
+
+
 def _attn_out(cfg: ArchConfig, p, x, o):
     """Out-projection, residual and FFN: the part of the block after
     attention."""
-    res = _res_scale(cfg)
-    return _ffn(cfg, p, _residual(x, _out_proj(o, p["wo"]), res), res)
+    return _ffn(cfg, p, _attn_res(cfg, p, x, o), _res_scale(cfg))
 
 
 def _attn_core(cfg: ArchConfig, p, x, ctx: BlockCtx):
-    q, k, v = _attn_in(cfg, p, x, ctx)
-    return _attn_out(cfg, p, x, _attn_mix(q, k, v, ctx)), k, v
+    with span("attn.attn"):
+        q, k, v = _attn_in(cfg, p, x, ctx)
+        x = _attn_res(cfg, p, x, _attn_mix(q, k, v, ctx))
+    return _ffn(cfg, p, x, _res_scale(cfg)), k, v
 
 
 def _attn_apply(cfg: ArchConfig, p, x, ctx: BlockCtx) -> torch.Tensor:
@@ -294,8 +310,9 @@ def _decode_attn_out(cfg: ArchConfig, p, h, cache, ctx: BlockCtx):
 def _attn_decode(cfg: ArchConfig, p, x, cache, ctx: BlockCtx):
     """x [B,1,d]; cache {k,v [B,W,KV,hd]}; ctx.pos = absolute position."""
     res = _res_scale(cfg)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = _residual(x, _decode_attn_out(cfg, p, h, cache, ctx), res)
+    with span("attn.attn"):
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = _residual(x, _decode_attn_out(cfg, p, h, cache, ctx), res)
     return _ffn_decode(cfg, p, x, res), cache
 
 
@@ -424,30 +441,33 @@ def _hybrid_template(cfg: ArchConfig) -> Dict[str, Any]:
 def _hybrid_mamba(cfg: ArchConfig, p, h, state: Optional[MambaState] = None,
                   decode: bool = False):
     """Mamba heads on the normed input h [B,S,d] -> (out [B,S,d], state)."""
-    x_in, z = constrain(dense(h, p["w_in"]), "batch", None, "ssm_inner").chunk(2, dim=-1)
-    args = (x_in, z, p["conv_w"], p["w_x"], p["w_dt"], p["b_dt"], p["a_log"],
-            p["d_skip"])
-    kw = dict(n_state=cfg.ssm_state, dt_rank=_dt_rank(cfg), state=state)
-    if decode:
-        y, st = mamba_decode_mix(*args, **kw)
-    else:
-        y, st = mamba_mix(*args, return_state=True, **kw)
-    return dense(y, p["wo_m"]), st
+    with span("hybrid.mamba", timed=True):
+        x_in, z = constrain(dense(h, p["w_in"]), "batch", None, "ssm_inner").chunk(2, dim=-1)
+        args = (x_in, z, p["conv_w"], p["w_x"], p["w_dt"], p["b_dt"], p["a_log"],
+                p["d_skip"])
+        kw = dict(n_state=cfg.ssm_state, dt_rank=_dt_rank(cfg), state=state)
+        if decode:
+            y, st = mamba_decode_mix(*args, **kw)
+        else:
+            y, st = mamba_mix(*args, return_state=True, **kw)
+        return dense(y, p["wo_m"]), st
 
 
 def _hybrid_fuse(cfg: ArchConfig, p, x, o_attn, o_ssm):
-    fused = 0.5 * (rms_norm(o_attn, p["norm_attn"], cfg.norm_eps)
-                   + rms_norm(o_ssm, p["norm_ssm"], cfg.norm_eps))
-    x = constrain(x + fused, "batch", "act_seq", None)
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return constrain(x + swiglu(h2, p["wg"], p["wi"], p["wo2"]), "batch", "act_seq", None)
+    with span("hybrid.ffn"):
+        fused = 0.5 * (rms_norm(o_attn, p["norm_attn"], cfg.norm_eps)
+                       + rms_norm(o_ssm, p["norm_ssm"], cfg.norm_eps))
+        x = constrain(x + fused, "batch", "act_seq", None)
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return constrain(x + swiglu(h2, p["wg"], p["wi"], p["wo2"]), "batch", "act_seq", None)
 
 
 def _hybrid_core(cfg: ArchConfig, p, x, ctx: BlockCtx):
     h = constrain(rms_norm(x, p["ln1"], cfg.norm_eps), "batch", "act_seq", None)
-    q, k, v = _qkv(cfg, p, h, ctx.rope)
-    o = attention(q, k, v, causal=True, window=ctx.window, n_sink=ctx.n_sink)
-    o_attn = _out_proj(o, p["wo"])
+    with span("hybrid.attn"):
+        q, k, v = _qkv(cfg, p, h, ctx.rope)
+        o = attention(q, k, v, causal=True, window=ctx.window, n_sink=ctx.n_sink)
+        o_attn = _out_proj(o, p["wo"])
     o_ssm, st = _hybrid_mamba(cfg, p, h)
     return _hybrid_fuse(cfg, p, x, o_attn, o_ssm), k, v, st
 
@@ -475,7 +495,8 @@ def _hybrid_prefill(cfg: ArchConfig, p, x, ctx: BlockCtx, cache):
 def _hybrid_decode(cfg: ArchConfig, p, x, cache, ctx: BlockCtx):
     """x [B,1,d]; cache {k,v [B,W,KV,hd], conv [B,di,K-1], ssm [B,di,n]}."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    o_attn = _decode_attn_out(cfg, p, h, cache, ctx)
+    with span("hybrid.attn"):
+        o_attn = _decode_attn_out(cfg, p, h, cache, ctx)
     st = MambaState(conv=cache["conv"], ssm=cache["ssm"])
     o_ssm, st = _hybrid_mamba(cfg, p, h, state=st, decode=True)
     x = _hybrid_fuse(cfg, p, x, o_attn, o_ssm)

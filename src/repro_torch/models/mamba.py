@@ -8,6 +8,10 @@ on (conv_state, ssm_state), plain torch as in the reference.
 
 Shapes: x_in [B, S, di]; A_log [di, n]; W_x projects di -> (dt_rank + 2n);
 conv is depthwise causal, width K.
+
+Spans (``obs/spans.py``, while a profiler records) split the prefill and
+forward chain: ``mamba.expand`` (the [B, S, di, n] f32 ``a`` and ``bu``),
+``mamba.scan`` and ``mamba.readout`` (C contraction, D skip, gate).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 
 from ..distributed.sharding import constrain
 from ..kernels.ssm_scan.ops import ssm_scan_batched
+from ..obs.spans import span
 from .layers import dense
 
 __all__ = ["selective_scan", "mamba_mix", "mamba_decode_mix", "MambaState"]
@@ -52,20 +57,17 @@ def selective_scan(a: torch.Tensor, bu: torch.Tensor) -> torch.Tensor:
     return h.view(B, S, di, n)
 
 
-def _ssm_inner(x_conv, dt, Bm, Cm, A, D, state: Optional[torch.Tensor]):
-    """Shared SSM math. x_conv [B,S,di], dt [B,S,di], Bm/Cm [B,S,n].
-
-    Returns y [B,S,di] (f32) and final state [B,di,n].
-    """
-    a = (dt[..., None] * A).exp_()                           # [B,S,di,n]
-    bu = (dt * x_conv)[..., None] * Bm[:, :, None, :]        # [B,S,di,n]
-    if state is not None:
-        # fold carried state into the first step: h_0' = a_0*h_prev + bu_0
-        bu[:, 0] += a[:, 0] * state
-    h = selective_scan(a, bu)                                # [B,S,di,n]
-    del a, bu
-    y = torch.einsum("bsdn,bsn->bsd", h, Cm) + D * x_conv
-    return y, h[:, -1]
+def _ssm_states(x_conv, dt, Bm, A, state: Optional[torch.Tensor]) -> torch.Tensor:
+    """The SSM's states h [B,S,di,n] (f32). x_conv [B,S,di], dt [B,S,di],
+    Bm [B,S,n]."""
+    with span("mamba.expand"):
+        a = (dt[..., None] * A).exp_()                       # [B,S,di,n]
+        bu = (dt * x_conv)[..., None] * Bm[:, :, None, :]    # [B,S,di,n]
+        if state is not None:
+            # fold carried state into the first step: h_0' = a_0*h_prev + bu_0
+            bu[:, 0] += a[:, 0] * state
+    with span("mamba.scan"):
+        return selective_scan(a, bu)
 
 
 def _dt_and_bc(xc: torch.Tensor, x_dtype, w_x, w_dt, b_dt, n_state, dt_rank):
@@ -102,12 +104,13 @@ def mamba_mix(
     dt, Bm, Cm = _dt_and_bc(xc, x_in.dtype, w_x, w_dt, b_dt, n_state, dt_rank)
     dt = constrain(dt, "batch", None, "ssm_inner")
     A = -torch.exp(a_log.float())                            # [di,n]
-    y, ssm_final = _ssm_inner(
-        xc, dt, Bm, Cm, A, d_skip.float(),
-        None if state is None else state.ssm.float())
-    out = constrain((y * F.silu(z.float())).to(x_in.dtype), "batch", None, "ssm_inner")
+    D = d_skip.float()
+    h = _ssm_states(xc, dt, Bm, A, None if state is None else state.ssm.float())
+    with span("mamba.readout"):
+        y = torch.einsum("bsdn,bsn->bsd", h, Cm) + D * xc
+        out = constrain((y * F.silu(z.float())).to(x_in.dtype), "batch", None, "ssm_inner")
     if return_state:
-        return out, MambaState(conv=conv_carry, ssm=ssm_final)
+        return out, MambaState(conv=conv_carry, ssm=h[:, -1])
     return out
 
 

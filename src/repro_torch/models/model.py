@@ -52,6 +52,12 @@ DTensors, the ``constrain`` calls sit at the reference's sites, the cache
 is allocated shard by shard by its specs, and a recomputed layer runs under
 the rules of its forward (``layers.remat_call``: the backward of a CUDA
 tensor runs on another thread, which sees no thread-local rules).
+
+Spans (``obs/spans.py``, while a ``torch.profiler`` session records):
+``model.forward``, ``model.prefill``, ``model.decode_step``, the serving
+head (final norm and logits, ``model.head``) and one ``block.<kind>`` a
+layer, entered with the layer's capture tag; the blocks and the
+Mamba chain mark their parts.
 """
 from __future__ import annotations
 
@@ -67,6 +73,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig, ShapeSpec
 from ..distributed.sharding import P, active_rules, constrain, full_on_mesh, spec_of
 from ..graph.capture import layer as capture_layer
+from ..obs.spans import span
 from .blocks import BLOCKS, BlockCtx, rope_at, stackify
 from .layers import (CONST_INITS, PT, abstract_params, const_leaf, cross_entropy_chunked,
                      init_params, map_templates, param_pspecs, remat_call,
@@ -313,25 +320,26 @@ class Model:
 
     def forward(self, params, batch) -> torch.Tensor:
         """Embedding -> all segments -> final norm. Returns [B, S(+M), d]."""
-        cfg = self.cfg
-        x = self._embed_prompt(params, batch)
-        rope = self._rope_for(x.shape[1], x.device)
-        img = self._images(batch, x)
-        remat = self.remat and torch.is_grad_enabled()
-        for seg, p in zip(self.segments, params["segments"]):
-            ctx = self._ctx(seg, rope=rope, img=img)
-            if seg.kind == "vlm_group":
-                for gp in _layers(seg, p):
-                    with capture_layer():
-                        x = (remat_call(self._group, seg, gp, x, ctx, remat)
-                             if remat else self._group(seg, gp, x, ctx, remat))
-                continue
-            blk = BLOCKS[seg.kind]
-            for lp in _layers(seg, p):
-                with capture_layer():
-                    x = (self._remat_layer(blk, lp, x, ctx) if remat
-                         else blk.apply(cfg, lp, x, ctx))
-        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        with span("model.forward"):
+            cfg = self.cfg
+            x = self._embed_prompt(params, batch)
+            rope = self._rope_for(x.shape[1], x.device)
+            img = self._images(batch, x)
+            remat = self.remat and torch.is_grad_enabled()
+            for seg, p in zip(self.segments, params["segments"]):
+                ctx = self._ctx(seg, rope=rope, img=img)
+                if seg.kind == "vlm_group":
+                    for gp in _layers(seg, p):
+                        with capture_layer(), span("block." + seg.kind):
+                            x = (remat_call(self._group, seg, gp, x, ctx, remat)
+                                 if remat else self._group(seg, gp, x, ctx, remat))
+                    continue
+                blk = BLOCKS[seg.kind]
+                for lp in _layers(seg, p):
+                    with capture_layer(), span("block." + seg.kind):
+                        x = (self._remat_layer(blk, lp, x, ctx) if remat
+                             else blk.apply(cfg, lp, x, ctx))
+            return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     def _group(self, seg: Segment, gp, x, ctx: BlockCtx, remat: bool) -> torch.Tensor:
         """One VLM group: its self layers (each recomputed in the backward
@@ -389,20 +397,23 @@ class Model:
         f32), and holds the prompt's K/V in its first or ring slots, the
         recurrent states after the prompt and the VLM's image K/V.
         """
-        cfg = self.cfg
-        x = self._embed_prompt(params, batch)
-        B, S = x.shape[0], x.shape[1]
-        rope = self._rope_for(S, x.device)
-        img = self._images(batch, x)
-        cache = self.init_cache(B, smax, x.dtype, x.device)
-        for seg, p, c in zip(self.segments, params["segments"], cache["segments"]):
-            ctx = self._ctx(seg, rope=rope, img=img)
-            x = self._run_segment(seg, p, c, x, ctx, "prefill")
-        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        # pos counts REAL tokens (meta prefix excluded); decode adds the meta
-        # offset back for absolute positions and cache slots
-        cache["pos"] = S - cfg.n_meta_tokens
-        return self._logits(params, h[:, -1]), cache
+        with span("model.prefill"):
+            cfg = self.cfg
+            x = self._embed_prompt(params, batch)
+            B, S = x.shape[0], x.shape[1]
+            rope = self._rope_for(S, x.device)
+            img = self._images(batch, x)
+            cache = self.init_cache(B, smax, x.dtype, x.device)
+            for seg, p, c in zip(self.segments, params["segments"], cache["segments"]):
+                ctx = self._ctx(seg, rope=rope, img=img)
+                x = self._run_segment(seg, p, c, x, ctx, "prefill")
+            with span("model.head"):
+                h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                logits = self._logits(params, h[:, -1])
+            # pos counts REAL tokens (meta prefix excluded); decode adds the meta
+            # offset back for absolute positions and cache slots
+            cache["pos"] = S - cfg.n_meta_tokens
+            return logits, cache
 
     def _run_segment(self, seg: Segment, p, c, x, ctx: BlockCtx, mode: str):
         """Prefill or decode (``mode``) of one segment's layers, each
@@ -420,7 +431,7 @@ class Model:
             return step(BLOCKS["cross"], lp["cross"], lc["cross"], x)
 
         for lp, lc in zip(_layers(seg, p), _layers(seg, c)):
-            with capture_layer():          # a program capture's layer tag
+            with capture_layer(), span("block." + seg.kind):
                 x = (group(lp, lc, x) if seg.kind == "vlm_group"
                      else step(BLOCKS[seg.kind], lp, lc, x))
         return x
@@ -434,14 +445,17 @@ class Model:
         if cfg.family == "audio":
             raise ValueError(f"{cfg.name}: the audio family is an encoder and has no decode "
                              f"step (use forward or prefill; the reference has no such path)")
-        pos = cache["pos"] + cfg.n_meta_tokens    # absolute, meta included
-        x = constrain(self._embed(params, tokens), "batch", None, None)
-        rope = rope_at(pos, cfg.hd, cfg.rope_theta, x.device) if _uses_rope(cfg) else None
-        for seg, p, c in zip(self.segments, params["segments"], cache["segments"]):
-            x = self._run_segment(seg, p, c, x, self._ctx(seg, rope=rope, pos=pos), "decode")
-        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        cache["pos"] += 1
-        return self._logits(params, h[:, 0]), cache
+        with span("model.decode_step"):
+            pos = cache["pos"] + cfg.n_meta_tokens    # absolute, meta included
+            x = constrain(self._embed(params, tokens), "batch", None, None)
+            rope = rope_at(pos, cfg.hd, cfg.rope_theta, x.device) if _uses_rope(cfg) else None
+            for seg, p, c in zip(self.segments, params["segments"], cache["segments"]):
+                x = self._run_segment(seg, p, c, x, self._ctx(seg, rope=rope, pos=pos), "decode")
+            with span("model.head"):
+                h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                logits = self._logits(params, h[:, 0])
+            cache["pos"] += 1
+            return logits, cache
 
 
 def build_model(cfg: ArchConfig, *, remat: bool = True, remat_policy: str = "full",

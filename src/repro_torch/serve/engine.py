@@ -11,6 +11,12 @@ The programs run eagerly on the parameters' device (there is no ``jit``);
 the decode cache is updated in place where the reference donates it. With
 sharding ``rules`` (keyword, as the reference's argument) they run under
 them: DTensor parameters, a cache laid out by ``Model.cache_pspecs``.
+
+While a ``torch.profiler`` session records, spans (``obs/spans.py``) mark
+the padded batch's upload (``serve.admit``), the programs (``serve.prefill``,
+``serve.decode``: inside the functions the factories return, so nothing a
+caller wraps around them) and the greedy sampling with its wait for the
+logits (``serve.sample``).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from torch.distributed.tensor import DTensor
 
 from ..distributed.sharding import ShardingRules, use_rules
 from ..models.model import Model
+from ..obs.spans import span
 
 __all__ = ["make_prefill_fn", "make_decode_fn", "ServeEngine", "Request"]
 
@@ -38,7 +45,7 @@ def _no_grad(rules: Optional[ShardingRules]):
 def make_prefill_fn(model: Model, smax: int, *, rules: Optional[ShardingRules] = None
                     ) -> Callable:
     def prefill(params, batch):
-        with _no_grad(rules), use_rules(rules):
+        with span("serve.prefill", timed=True), _no_grad(rules), use_rules(rules):
             return model.prefill(params, batch, smax)
 
     return prefill
@@ -46,7 +53,7 @@ def make_prefill_fn(model: Model, smax: int, *, rules: Optional[ShardingRules] =
 
 def make_decode_fn(model: Model, *, rules: Optional[ShardingRules] = None) -> Callable:
     def decode(params, cache, tokens):
-        with _no_grad(rules), use_rules(rules):
+        with span("serve.decode"), _no_grad(rules), use_rules(rules):
             return model.decode_step(params, cache, tokens)
 
     return decode
@@ -102,19 +109,22 @@ class ServeEngine:
         return torch.from_numpy(np.asarray(toks, np.int64)).to(self.device)
 
     def _prefill_batch(self, reqs: List[Request]):
-        S = max(len(r.prompt) for r in reqs)
-        toks = np.zeros((len(reqs), S), np.int32)
-        for i, r in enumerate(reqs):
-            # left-pad with token 0 and NO attention mask, as the reference
-            # does: pad positions are attended, so tokens match it exactly
-            toks[i, S - len(r.prompt):] = r.prompt
-        return self.prefill_fn(self.params, {"tokens": self._tokens(toks)})
+        with span("serve.admit"):
+            S = max(len(r.prompt) for r in reqs)
+            toks = np.zeros((len(reqs), S), np.int32)
+            for i, r in enumerate(reqs):
+                # left-pad with token 0 and NO attention mask, as the reference
+                # does: pad positions are attended, so tokens match it exactly
+                toks[i, S - len(r.prompt):] = r.prompt
+            tokens = self._tokens(toks)
+        return self.prefill_fn(self.params, {"tokens": tokens})
 
     @staticmethod
     def _greedy(logits: torch.Tensor) -> np.ndarray:
-        if isinstance(logits, DTensor):
-            logits = logits.full_tensor()
-        return logits.argmax(-1).cpu().numpy().astype(np.int32)
+        with span("serve.sample"):
+            if isinstance(logits, DTensor):
+                logits = logits.full_tensor()
+            return logits.argmax(-1).cpu().numpy().astype(np.int32)
 
     def run(self, batch_size: int = 4) -> Dict[int, List[int]]:
         """Drain the queue; returns {rid: generated tokens}.

@@ -17,6 +17,11 @@ by ``state_pspecs`` / ``batch_pspecs`` (``launch.programs`` places them),
 and every tree operation of the step (clipping's global norm, AdamW's
 in-place update) runs on DTensors of matching placements.
 ``abstract_state`` is the state as empty tensors, for the dry-run.
+
+While a ``torch.profiler`` session records, spans (``obs/spans.py``) mark
+the forward (``train.forward``), the backward with remat's recompute
+(``train.backward``), clipping (``train.clip``), EF compression
+(``train.compress``) and AdamW (``train.optimizer``).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from ..device import resolve_device
 from ..distributed.sharding import P, ShardingRules, use_rules
 from ..models.layers import param_pspecs
 from ..models.model import Model
+from ..obs.spans import span
 from . import compress as compress_mod
 from .optim import (adamw_init, adamw_update, clip_by_global_norm, cosine_schedule,
                     tree_leaves, tree_map, wsd_schedule)
@@ -87,8 +93,10 @@ def _value_and_grad(model: Model, params, batch):
     detached leaves that share the parameters' storage."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss = model.loss(live, batch)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+        with span("train.forward"):
+            loss = model.loss(live, batch)
+        with span("train.backward"):
+            grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
     return loss.detach(), tree_map(lambda _: next(grads), live)
 
 
@@ -120,11 +128,14 @@ def make_train_step(model: Model, rules: Optional[ShardingRules] = None, *,
         else:
             loss, grads = _value_and_grad(model, params, batch)
 
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        with span("train.clip", timed=True):
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
         if compress:
-            grads, state["ef"] = compress_mod.ef_compress_grads(grads, state["ef"])
+            with span("train.compress"):
+                grads, state["ef"] = compress_mod.ef_compress_grads(grads, state["ef"])
         lr = lr_schedule(state["opt"]["step"])
-        adamw_update(params, grads, state["opt"], lr, weight_decay=weight_decay)
+        with span("train.optimizer", timed=True):
+            adamw_update(params, grads, state["opt"], lr, weight_decay=weight_decay)
         return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
     return train_step
