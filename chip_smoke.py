@@ -59,7 +59,14 @@ run (non-zero exit, no result line):
      share of its bound and its ratio to SDPA are printed (the CUDA-core
      instance's blocks an SM from the card's occupancy calculator); in f32
      beside the previous (scalar) design's time; bf16 at hd 80 beside the
-     CUDA-core bf16 instance (the earlier design), timed in this run;
+     CUDA-core bf16 instance (the earlier design), timed in this run; the
+     fused selective scan (hymba's Mamba heads in prefill) at the serve
+     cell's per-layer shape [8, 3146, 3200, 16] and ragged ones, z in f32
+     and bf16, y and the last state against the plain version (1e-4 in f32,
+     2e-2 in bf16; decay rates 1% off must fail the f32 check), timed beside
+     its bound (bytes or the SFU's exponentials), the chain it replaces
+     (expand, ssm_scan, readout) and the plain version, with its registers,
+     spill and shared memory;
   3b. row offset — the query row offset (q_off) of the four flash kernels
      at full width: qwen2's causal heads in f32 (CUDA cores) and bf16
      (tensor cores), hymba's window and 128 sinks in f32 and bf16, HuBERT's
@@ -87,7 +94,8 @@ run (non-zero exit, no result line):
      T 1500 frames. Every kernel's launch count, zeroed just before the run
      and read just after, must equal what the path implies
      (``path_counts``), and every bf16 flash launch (hd 64/80/128) must be
-     the tensor-core kernel's, HuBERT's 384 among them; the
+     the tensor-core kernel's, HuBERT's 384 among them (hymba: the fused
+     selective scan once a layer a prefill, ssm_scan never); the
      peak memory must stay under 80 GB (qwen3-moe's weights are 61 GB);
   6. profile — wall vs device busy time of one prefill and of decode
      steps of each decoder (the VLM with its image tokens), and of one
@@ -128,7 +136,7 @@ run (non-zero exit, no result line):
   7b. hybrid train — launch/train.py::train for hymba-1.5b, f32, B 4, S
      1024 (+128 meta tokens), remat "full", 4 steps, exact counts of every
      kernel (the scan forward, with remat's recompute, and backward among
-     them), ms per step, peak memory, one profiled step; then the step at
+     them; the fused selective scan never), ms per step, peak memory, one profiled step; then the step at
      full width and 4 layers, kernels vs plain, whose check a plain
      backward with da x 1.1 in the scan must fail;
   7c. audio train — launch/train.py::train for hubert-xlarge at full width
@@ -189,8 +197,9 @@ run (non-zero exit, no result line):
      fixture inside its manifest band.
 
 The line before the last is a JSON object {"kernels": [...]} (list_schedule,
-which replaces the prescreen's XLA program and no Pallas kernel, the
-train paths' rows: dense and HuBERT in f32 and bf16, the hybrid and xLSTM
+which replaces the prescreen's XLA program and no Pallas kernel; hymba's
+fused selective scan, which replaces the chain around the ssm_scan kernel
+in mamba_mix, with the chain's time beside its own; the train paths' rows: dense and HuBERT in f32 and bf16, the hybrid and xLSTM
 in f32, the backward kernels among them); the
 last line is {"ok": true, "device": {...}}. Needs one CUDA card of compute capability
 >= 9.0 and nvcc; exits 1 without them.
@@ -215,6 +224,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 F32_FLOPS = 67e12                          # f32 outside the tensor cores
 BF16_FLOPS = 989e12                        # bf16 tensor cores, dense
+SFU_EXP_PER_S = 16 * 132 * 1.98e9          # ex2 on the SFUs: 16 a clock an SM
 TOL = {("rmsnorm", "float32"): 1e-5, ("rmsnorm", "bfloat16"): 2e-2,
        ("flash", "float32"): 1e-4, ("flash", "bfloat16"): 3e-2,
        ("ssm_scan", "float32"): 1e-4, ("ssm_scan", "bfloat16"): 2e-2}
@@ -267,9 +277,14 @@ MOE_TRAIN = dict(steps=3, batch=4, seq=1024, layers=4,
                  check=dict(n_layers=2), check_batch=1)
 # the ssm_scan backward's main shape: hymba's train step, [B, S + meta, di * n]
 SCAN_MAIN = (4, 1152, 51200)
+# the fused selective scan's main shape: hymba's prefill in the serve cell,
+# B 8, S 3,018 + 128 meta, di 3,200, n 16
+SEL_MAIN = (8, 3146, 3200, 16)
 REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:36",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
             "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:53",
+            # no pl.pallas_call: the chain around the ssm_scan kernel in mamba_mix
+            "selective_scan": "src/repro/models/mamba.py:74",
             # no pl.pallas_call: the XLA program of the vmapped list schedule
             "list_schedule": "src/repro/core/vectorized.py:239"}
 # the backward kernels (no pl.pallas_call: each replaces jax.grad of the jnp
@@ -284,6 +299,7 @@ ROUTES = {"rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu"),
           "flash_attention": ("cuda",
                               "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"),
           "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu"),
+          "selective_scan": ("cuda", "src/repro_torch/kernels/csrc/selective_scan.cu"),
           "list_schedule": ("cuda", "src/repro_torch/kernels/csrc/list_schedule.cu"),
           "rmsnorm_bwd": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu"),
           "flash_attention_bwd": ("cuda",
@@ -492,6 +508,15 @@ def scan_bound(B, S, C, esize):
     ops = 2 * B * S * C                        # one FMA per element (f32)
     t_b, t_o = byts / HBM_BYTES_PER_S, ops / F32_FLOPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), byts, ops
+
+
+def sel_scan_bound(B, S, di, n, esize):
+    # x and dt read (f32), z read and y written (esize), B and C read (f32),
+    # A and D read, the state written (f32); one exponential a state a step
+    byts = B * S * di * (8 + 2 * esize) + 8 * B * S * n + 4 * di * (n + 1) + 4 * B * di * n
+    exps = B * S * di * n
+    t_b, t_e = byts / HBM_BYTES_PER_S, exps / SFU_EXP_PER_S
+    return max(t_b, t_e) * 1e3, ("bytes" if t_b >= t_e else "exponentials"), byts, exps
 
 
 def scan_bwd_bound(B, S, C, esize):
@@ -863,8 +888,12 @@ def phase_kernels(torch):
     from repro_torch.kernels.rmsnorm.kernel import kernel_attrs, kernel_plan
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import VARIANTS, rmsnorm_ref
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_kernel_attrs
+    from repro_torch.kernels.selective_scan.ops import selective_scan_fused
+    from repro_torch.kernels.selective_scan.ref import selective_scan_fused_ref
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models.mamba import _ssm_states
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer(torch)
@@ -1073,7 +1102,85 @@ def phase_kernels(torch):
                 bound_by=by, library_ms=None)
             del a, b
     torch.cuda.empty_cache()
+
+    log("[kernels] selective_scan vs plain")
+    # the serve cell's per-layer shape (no carried state: a fresh prefill);
+    # edge shapes ragged in S and di, n 8, a carried state, B and C at odd
+    # offsets: (B, S, di, n, carried, dt_rank)
+    main_sel = [SEL_MAIN + (False, 100)]
+    edge_sel = [(2, 257, 333, 16, True, 3), (4, 130, 128, 8, True, 3),
+                (1, 1, 16, 16, False, 4), (3, 9, 40, 16, True, 4)]
+    slow = Timer(torch, reps=1)
+
+    def chain(xc, dt, A, Bm, Cm, D, z, state):
+        """What the kernel replaces: mamba_mix's chain around ssm_scan."""
+        h = _ssm_states(xc, dt, Bm, A, state)
+        y = torch.einsum("bsdn,bsn->bsd", h, Cm) + D * xc
+        return (y * F.silu(z.float())).to(z.dtype), h[:, -1]
+
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[1]
+            for case in main_sel + edge_sel:
+                ins = sel_scan_inputs(torch, gen, *case, dt)
+                B, S, di, n = case[:4]
+                before = selective_scan_fused.launches
+                y, last = selective_scan_fused(*ins)
+                if selective_scan_fused.launches != before + 1:
+                    raise AssertionError(f"selective_scan {list(case[:4])}: no launch counted")
+                want = selective_scan_fused_ref(*ins)
+                name = f"selective_scan {list(case[:4])}{' carried' if case[4] else ''} {dn}"
+                err = compare(name, y, want[0], TOL[("ssm_scan", dn)])
+                err_last = compare(name + " last state", last, want[1],
+                                   TOL[("ssm_scan", "float32")])
+                if case not in main_sel:
+                    continue
+                tol = TOL[("ssm_scan", dn)]
+                if dt == torch.float32:
+                    # control: decay rates 1% off must fail the same check
+                    off = selective_scan_fused_ref(ins[0], ins[1], ins[2] * 1.01, *ins[3:])[0]
+                    bad = float((off - want[0]).abs().max())
+                    if torch.allclose(off, want[0], rtol=tol, atol=tol):
+                        raise AssertionError(f"{name}: A x 1.01 passes the check")
+                    log(f"    control: A x 1.01 max_abs_err={bad:.3e} FAIL as it must")
+                    del off
+                ms = timer(lambda: selective_scan_fused(*ins))
+                chain_ms = timer(lambda: chain(*ins))
+                plain = slow(lambda: selective_scan_fused_ref(*ins))
+                bound, by, byts, exps = sel_scan_bound(B, S, di, n, y.element_size())
+                attrs = selective_scan_kernel_attrs(dt, n)
+                log(f"    time {ms:.3f} ms | bound {bound:.3f} ms ({by}: {byts / 1e9:.3f} GB, "
+                    f"{exps / 1e9:.2f} G exponentials) | chain (expand, ssm_scan, readout) "
+                    f"{chain_ms:.3f} ms | plain {plain:.1f} ms | max |y| "
+                    f"{float(want[0].float().abs().max()):.3g} | {attrs['registers']} "
+                    f"registers/thread, {attrs['spill_bytes']} B spilled, "
+                    f"{attrs['smem_bytes'] / 1024:.1f} KiB shared/block | "
+                    f"{100 * bound / ms:.1f}% of its bound | no library call")
+                rows[("selective_scan", case[:4], dn)] = dict(
+                    max_abs_err=err, last_state_max_abs_err=err_last, ms=ms, plain_ms=plain,
+                    bound_ms=bound, bound_by=by, library_ms=None, chain_ms=chain_ms, **attrs)
+                del ins, y, last, want
+                torch.cuda.empty_cache()
     return rows
+
+
+def sel_scan_inputs(torch, gen, B, S, di, n, carried, dtr, dtype):
+    """The fused scan's inputs as mamba_mix hands them over: xc after the
+    conv and SiLU, dt after softplus, A = -exp(.), z the second half of a
+    [B, S, 2di] product in ``dtype``, B and C slices of one [B, S, dtr + 2n]
+    projection (``dtr`` sets their alignment), a carried state or None."""
+    import torch.nn.functional as F
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    xc = F.silu(r(B, S, di))
+    dt = F.softplus(r(B, S, di) - 1.0)
+    A = -torch.exp(0.5 * r(di, n))
+    proj = r(B, S, dtr + 2 * n)
+    z = r(B, S, 2 * di).to(dtype)[..., di:]
+    return (xc, dt, A, proj[..., dtr:dtr + n], proj[..., dtr + n:], 1.0 + 0.1 * r(di), z,
+            r(B, di, n) if carried else None)
 
 
 def _flash_grads(torch, flash_mha, q, k, v, do, mask):
@@ -1533,6 +1640,7 @@ def phase_serve(torch, arch):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.selective_scan.ops import selective_scan_fused
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
     from repro_torch.models import build_model
     from repro_torch.models.ssm import chunk_len
@@ -1577,12 +1685,14 @@ def phase_serve(torch, arch):
     flash_mha.launches = 0
     flash_mha.wgmma_launches = 0
     ssm_scan_batched.launches = 0
+    selective_scan_fused.launches = 0
     t0 = time.perf_counter()
     out = eng.run(batch_size=4)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"rmsnorm": rmsnorm.launches, "flash_attention": flash_mha.launches,
-                "ssm_scan": ssm_scan_batched.launches}
+                "ssm_scan": ssm_scan_batched.launches,
+                "selective_scan": selective_scan_fused.launches}
     wgmma = flash_mha.wgmma_launches
 
     n_pf, n_dc = len(calls["prefill"]), len(calls["decode"])
@@ -1605,15 +1715,16 @@ def phase_serve(torch, arch):
     hybrid = cfg.family == "hybrid"
     (per_step, fa_pf), _ = path_counts(cfg)
     want = {"rmsnorm": per_step * (n_pf + n_dc), "flash_attention": fa_pf * n_pf,
-            "ssm_scan": cfg.n_layers * n_pf if hybrid else 0}
+            "ssm_scan": 0, "selective_scan": cfg.n_layers * n_pf if hybrid else 0}
     if cfg.is_moe:
         log(f"[serve] MoE FFN: the dense oracle (every expert on every token, an "
             f"exact 0 weight where a token was not routed), {cfg.n_experts} experts, "
             f"top {cfg.experts_per_token}")
     log(f"[serve] launches: rmsnorm {launches['rmsnorm']} (want {per_step} x "
         f"{n_pf + n_dc}), flash_attention {launches['flash_attention']} (want "
-        f"{fa_pf} x {n_pf}; tensor-core kernel {wgmma}), ssm_scan "
-        f"{launches['ssm_scan']} (want {want['ssm_scan']}) "
+        f"{fa_pf} x {n_pf}; tensor-core kernel {wgmma}), fused selective scan "
+        f"{launches['selective_scan']} (want {want['selective_scan']}), ssm_scan "
+        f"{launches['ssm_scan']} (want 0) "
         f"[{time.perf_counter() - t_phase:.1f}s]")
     for name, n in want.items():
         if launches[name] != n:
@@ -2299,24 +2410,28 @@ def scan_backward(torch, timer, randn):
 def _zero_counts():
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.selective_scan.ops import selective_scan_fused
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
 
     rmsnorm.launches = rmsnorm.bwd_launches = 0
     flash_mha.launches = flash_mha.wgmma_launches = flash_mha.bwd_launches = 0
     flash_mha.wgmma_bwd_launches = 0
     ssm_scan_batched.launches = ssm_scan_batched.bwd_launches = 0
+    selective_scan_fused.launches = 0
 
 
 def _read_counts() -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.selective_scan.ops import selective_scan_fused
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_batched
 
     return {"rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm.bwd_launches,
             "flash_attention": flash_mha.launches, "flash_attention_bwd": flash_mha.bwd_launches,
             "wgmma": flash_mha.wgmma_launches, "wgmma_bwd": flash_mha.wgmma_bwd_launches,
             "ssm_scan": ssm_scan_batched.launches,
-            "ssm_scan_bwd": ssm_scan_batched.bwd_launches}
+            "ssm_scan_bwd": ssm_scan_batched.bwd_launches,
+            "selective_scan": selective_scan_fused.launches}
 
 
 def _check_run(history, what):
@@ -3311,7 +3426,7 @@ def main() -> int:
         (HYBRID, "rmsnorm", ("rmsnorm", (4608, 1600), "bfloat16")),
         (HYBRID, "flash_attention",
          ("flash", (4, 1152, 1152, 25, 5, 64, True, 1024, 128), "bfloat16")),
-        (HYBRID, "ssm_scan", ("ssm_scan", (4, 1152, 51200), "float32")),
+        (HYBRID, "selective_scan", ("selective_scan", SEL_MAIN, "bfloat16")),
         (MOE, "rmsnorm", ("rmsnorm", (4096, 2048), "bfloat16")),
         (MOE, "flash_attention",
          ("flash", (4, 1024, 1024, 32, 4, 128, True, 0, 0), "bfloat16")),

@@ -33,14 +33,14 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "DTYPE_CODES", "csrc_files", "build_dir",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "rmsnorm.cu", _CSRC / "rmsnorm_bwd.cu", _CSRC / "flash_attention.cu",
            _CSRC / "flash_attention_wgmma.cu", _CSRC / "flash_attention_bwd.cu",
-           _CSRC / "ssm_scan.cu", _CSRC / "list_schedule.cu")
+           _CSRC / "ssm_scan.cu", _CSRC / "selective_scan.cu", _CSRC / "list_schedule.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # the `dtype` argument of every C entry point
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _INT, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _INTP = ctypes.POINTER(ctypes.c_int)
 # C entry point -> argtypes; each returns cudaGetLastError() as an int
 _SIGNATURES = {
@@ -65,6 +65,8 @@ _SIGNATURES = {
     "repro_ssm_scan": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "repro_ssm_scan_bwd": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "repro_ssm_scan_attrs": (_INT, _INT, _INTP, _INTP, _INTP),
+    "repro_selective_scan": (_VP,) * 10 + (_INT,) * 4 + (_I64,) * 4 + (_INT, _VP),
+    "repro_selective_scan_attrs": (_INT, _INT, _INTP, _INTP, _INTP),
     "repro_list_schedule": (_VP, _VP, _VP, _INT, _INT, _INT, _F32, _INT, _VP, _VP,
                             _VP, _VP, _VP),
     "repro_list_schedule_plan": (_INT, _INT, _INT, _INT, _INTP),

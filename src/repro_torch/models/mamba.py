@@ -1,17 +1,28 @@
 """Mamba-style selective SSM (diagonal state) for the Hymba hybrid heads.
 
 Counterpart of ``repro/models/mamba.py``. Prefill and forward run the
-recurrence h_t = a_t·h_{t-1} + bu_t over [B, S, di, n] through the
-``ssm_scan`` kernel on the card (the reference reaches the same function
-through ``jax.lax.associative_scan``). Decode is the O(1) recurrent update
-on (conv_state, ssm_state), plain torch as in the reference.
+recurrence h_t = a_t·h_{t-1} + bu_t (the reference reaches it through
+``jax.lax.associative_scan``) and its readout in one of two ways:
+
+* where no gradient is needed, on plain CUDA tensors (the serve engine's
+  prefill under ``inference_mode``): the fused selective-scan kernel
+  (``kernels/selective_scan``), which keeps the [B, di, n] states in
+  registers and writes only y and the last state;
+* elsewhere (training under autograd, CPU tensors, DTensors): the chain,
+  which builds the f32 [B, S, di, n] ``a`` and ``bu``, scans them with the
+  ``ssm_scan`` kernel on the card (whose backward needs the states h) and
+  contracts h with C.
+
+Decode is the O(1) recurrent update on (conv_state, ssm_state), plain
+torch as in the reference.
 
 Shapes: x_in [B, S, di]; A_log [di, n]; W_x projects di -> (dt_rank + 2n);
 conv is depthwise causal, width K.
 
-Spans (``obs/spans.py``, while a profiler records) split the prefill and
-forward chain: ``mamba.expand`` (the [B, S, di, n] f32 ``a`` and ``bu``),
-``mamba.scan`` and ``mamba.readout`` (C contraction, D skip, gate).
+Spans (``obs/spans.py``, while a profiler records): the chain's
+``mamba.expand`` (the [B, S, di, n] f32 ``a`` and ``bu``), ``mamba.scan``
+and ``mamba.readout`` (C contraction, D skip, gate); the fused call sits
+inside ``mamba.scan`` alone.
 """
 from __future__ import annotations
 
@@ -20,7 +31,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, mesh_of
+from ..kernels.selective_scan.ops import selective_scan_fused
 from ..kernels.ssm_scan.ops import ssm_scan_batched
 from ..obs.spans import span
 from .layers import dense
@@ -81,6 +93,16 @@ def _dt_and_bc(xc: torch.Tensor, x_dtype, w_x, w_dt, b_dt, n_state, dt_rank):
     return dt, Bm, Cm
 
 
+def _takes_fused(*ts) -> bool:
+    """Whether the fused kernel computes this call: plain (not DTensor)
+    CUDA tensors, and no gradient needed (grad mode off, or no input
+    requires grad)."""
+    ts = [t for t in ts if t is not None]
+    if mesh_of(*ts) is not None or any(t.device.type != "cuda" for t in ts):
+        return False
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in ts))
+
+
 def mamba_mix(
     x_in: torch.Tensor,
     z: torch.Tensor,
@@ -105,12 +127,18 @@ def mamba_mix(
     dt = constrain(dt, "batch", None, "ssm_inner")
     A = -torch.exp(a_log.float())                            # [di,n]
     D = d_skip.float()
-    h = _ssm_states(xc, dt, Bm, A, None if state is None else state.ssm.float())
-    with span("mamba.readout"):
-        y = torch.einsum("bsdn,bsn->bsd", h, Cm) + D * xc
-        out = constrain((y * F.silu(z.float())).to(x_in.dtype), "batch", None, "ssm_inner")
+    ssm = None if state is None else state.ssm.float()
+    if _takes_fused(xc, dt, Bm, Cm, A, D, z, ssm):
+        with span("mamba.scan"):
+            out, last = selective_scan_fused(xc, dt, A, Bm, Cm, D, z, ssm)
+    else:
+        h = _ssm_states(xc, dt, Bm, A, ssm)
+        with span("mamba.readout"):
+            y = torch.einsum("bsdn,bsn->bsd", h, Cm) + D * xc
+            out = constrain((y * F.silu(z.float())).to(x_in.dtype), "batch", None, "ssm_inner")
+        last = h[:, -1]
     if return_state:
-        return out, MambaState(conv=conv_carry, ssm=h[:, -1])
+        return out, MambaState(conv=conv_carry, ssm=last)
     return out
 
 
