@@ -1,26 +1,36 @@
 """Cells at a size the CPU holds, for the tests: the configuration's widths
 cut to the program's own ``reduced()`` scale, float32 unless asked, and
-short traffic."""
+short traffic.
+
+Each size is a data file beside this module, found by name, so a new
+configuration or loop brings its own: ``sizes/configs/<reference>.json``
+(the keys that replace the configuration's, by its ``reference``) and
+``sizes/loops/<loop>.json`` (``traffic``, the keys that replace the mix's,
+and ``faults``, the planted faults a cell of that loop can have).
+"""
+from pathlib import Path
+from typing import Dict, List
+
+from portbench.harness.common import load_json
 from portbench.harness.runner import resolve
 
-_CFG = {
-    "hymba": dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
-                  vocab_size=256, sliding_window=16, global_attn_layers=[0], n_meta_tokens=8,
-                  ssm_state=8),
-    "hubert": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128,
-                   vocab_size=32, frontend_stub_dim=64),
-}
-_TRAFFIC = {
-    "serve": dict(prompt_len={"median": 26, "sigma": 0.5, "min": 20, "max": 41}, smax=64,
-                  check_rounds=2, profile_rounds=1),
-    "train": dict(batch=2, frames=24, profile_steps=1),
-    "encode": dict(batch=2, clients=2, frames=24, sample_from=4, check_batches=2,
-                   profile_batches=1, warmup_batches=1),
-}
+SIZES = Path(__file__).resolve().parent / "sizes"
+
+
+def _sizes(kind: str, name: str) -> Dict:
+    path = SIZES / kind / f"{name}.json"
+    if not path.is_file():
+        raise FileNotFoundError(f"no test size for {kind[:-1]} {name!r}: add {path}")
+    return load_json(path)
 
 
 def reduced_spec(cell: str, dtype: str = "float32", bench=None):
     spec = resolve(cell, bench)
-    spec["cfg"] = {**spec["cfg"], **_CFG[spec["cfg"]["reference"]], "dtype": dtype}
-    spec["traffic"] = {**spec["traffic"], **_TRAFFIC[spec["traffic"]["loop"]]}
+    spec["cfg"] = {**spec["cfg"], **_sizes("configs", spec["cfg"]["reference"]), "dtype": dtype}
+    spec["traffic"] = {**spec["traffic"], **_sizes("loops", spec["traffic"]["loop"])["traffic"]}
     return spec
+
+
+def faults(loop: str) -> List[str]:
+    """The planted faults a cell of ``loop`` can have."""
+    return _sizes("loops", loop)["faults"]

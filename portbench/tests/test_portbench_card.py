@@ -1,6 +1,7 @@
 """Every cell at a reduced size through the port's kernels on the card
-(float32): correct, and the traced run reads its device metrics. Marked
-``gpu``; skips where no CUDA card is present."""
+(float32): correct, the traced run saw the device busy, and it reads each
+``idle_pct*`` metric that BENCHMARK.json lists for the cell. Marked ``gpu``;
+skips where no CUDA card is present."""
 import time
 
 import pytest
@@ -19,7 +20,9 @@ def test_reduced_cell_on_the_card(cell):
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    rec = run_cell(reduced_spec(cell), 7, 1.0, True, time.perf_counter(), device="cuda")
+    spec = reduced_spec(cell)
+    rec = run_cell(spec, 7, 1.0, True, time.perf_counter(), device="cuda")
     assert rec.correct, rec.checks
     assert rec.trace is not None and rec.trace.busy_s > 0
-    assert any(k.startswith("idle_pct") for k in rec.metrics), rec.metrics
+    idle = {m["name"] for m in spec["per_layer"] if m["name"].startswith("idle_pct")}
+    assert idle <= set(rec.metrics), rec.metrics

@@ -8,11 +8,9 @@ import pytest
 
 from portbench.harness.common import ROOT, load_json
 from portbench.harness.runner import result_line, run_cell
-from portbench.tests.reduced import reduced_spec
+from portbench.tests.reduced import faults, reduced_spec
 
 CELLS = [w["name"] for w in load_json(ROOT / "BENCHMARK.json")["workloads"]]
-FAULTS = {"serve": ["token", "stale_state"], "train": ["half_batch", "stale_state"],
-          "encode": ["answer"]}
 
 
 def _run(cell, trace=False, fault=None, seed=2**31 + 77):
@@ -45,7 +43,7 @@ def test_traced_run_reports_host_metrics_and_leaves_device_ones_out(cell):
 
 
 @pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS for f in
-                                        FAULTS[reduced_spec(c)["traffic"]["loop"]]])
+                                        faults(reduced_spec(c)["traffic"]["loop"])])
 def test_fault_in_the_timed_path_makes_the_run_not_correct(cell, fault):
     rec = _run(cell, fault=fault)
     assert not rec.correct, rec.checks

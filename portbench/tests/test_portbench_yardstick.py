@@ -1,6 +1,7 @@
 """The yardstick against hand counts at small shapes: mask pairs, kernel
-bounds, model FLOPs, percentiles, the busy union, and the benchmark's
-weights in the program's parameter layout."""
+bounds (the SFU's rate among the peaks), model FLOPs, percentiles, the
+busy union, and the benchmark's weights in the program's parameter
+layout."""
 import itertools
 import math
 
@@ -11,9 +12,9 @@ from portbench.flops import hubert as fl_hubert
 from portbench.flops import hymba as fl_hymba
 from portbench.harness.common import percentile, sub_seed
 from portbench.harness.masks import visible_pairs
-from portbench.harness.peaks import BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S
+from portbench.harness.peaks import BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S, SFU_EXP2_PER_S
 from portbench.harness.profile import union_seconds
-from portbench.rooflines import flash_bwd, flash_fwd, ssm_scan
+from portbench.rooflines import flash_bwd, flash_fwd, selective_scan, ssm_scan
 from portbench.tests.reduced import reduced_spec
 
 
@@ -33,6 +34,17 @@ def test_visible_pairs_against_brute_force(Sq, Sk, causal, window, n_sink):
 def test_ssm_scan_bound_by_hand():
     # [2, 3, 4] f32: 3 tensors of 24 elements, 4 bytes each
     assert ssm_scan.bound_s(2, 3, 4, 4) == max(288 / HBM_BYTES_PER_S, 48 / F32_FLOPS)
+
+
+def test_selective_scan_bound_by_hand():
+    # B 2, S 3, di 4, n 2, bf16 z and y: xc, dt 2·24 f32; B, C 2·12 f32; A 8, D 4,
+    # the last state 16 f32; z, y 2·24 bf16: 496 bytes; 48 exponentials
+    assert SFU_EXP2_PER_S == pytest.approx(4.18e12, 1e-3)
+    assert selective_scan.bound_s(2, 3, 4, 2, 2) == max(496 / HBM_BYTES_PER_S,
+                                                        48 / SFU_EXP2_PER_S)
+    # hymba's longest serve round a layer: 0.97 GB (0.290 ms) and 1.29 G
+    # exponentials (0.308 ms)
+    assert selective_scan.bound_s(8, 3146, 3200, 16, 2) == pytest.approx(0.3081e-3, 1e-3)
 
 
 def test_flash_bounds_by_hand():
